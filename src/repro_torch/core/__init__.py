@@ -1,0 +1,35 @@
+"""Core of the port: FIN placement of early-exit DNNs on PyTorch / CUDA.
+
+  system_model   -- tiers / nodes / per-app slices (Plane 1), host objects
+  dnn_profile    -- block/exit profiles (Plane 2), paper Tables II-IV
+  problem        -- configuration evaluation against (3a)-(3e), host code
+  extended_graph -- Eq. (1)-(2) weights as device tensors
+  feasible_graph -- gamma-replicated FIN feasibility graph (Eq. 4 + pruning)
+  bellman_ford   -- the banded (min,+) relaxation (CUDA kernel on the card)
+  fin / mcp / optimum -- the three solvers compared in Sec. V
+"""
+from .dnn_profile import (BITS_PER_FEATURE, DNNProfile, ExitSpec,
+                          all_paper_apps, paper_profile, synthetic_profile)
+from .extended_graph import (ExtendedGraph, build_extended_graph,
+                             build_extended_graphs)
+from .feasible_graph import (FeasibleGraph, build_feasible_graph,
+                             build_feasible_graphs)
+from .fin import fin_all_exit_costs, solve_fin, solve_many
+from .mcp import solve_mcp
+from .optimum import solve_opt
+from .problem import (AppRequirements, Config, ConfigEval, Solution,
+                      evaluate_config)
+from .scenarios import paper_scenario, sweep_scenarios
+from .system_model import (PAPER_TIERS, Network, NodeSpec, make_network,
+                           make_node)
+
+__all__ = [
+    "NodeSpec", "Network", "make_node", "make_network", "PAPER_TIERS",
+    "DNNProfile", "ExitSpec", "paper_profile", "all_paper_apps",
+    "synthetic_profile", "BITS_PER_FEATURE", "AppRequirements", "Config",
+    "ConfigEval", "Solution", "evaluate_config", "ExtendedGraph",
+    "build_extended_graph", "build_extended_graphs", "FeasibleGraph",
+    "build_feasible_graph", "build_feasible_graphs", "solve_fin",
+    "solve_many", "fin_all_exit_costs", "solve_mcp", "solve_opt",
+    "paper_scenario", "sweep_scenarios",
+]

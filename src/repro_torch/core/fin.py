@@ -1,0 +1,429 @@
+"""FIN solver (Alg. 1): feasible-graph construction + min-cost traversal.
+
+Port of ``repro/core/fin.py``.  The traversal is a layered dynamic program
+over states (node, depth), banded in depth, so it runs over the compact
+(N, G+1) grid as a shift-by-steep gather + min over source nodes.  The
+extended and feasible graphs and the relaxation live on the device; the
+exact (3a)-(3e) post-pass and the backtrack are host code on one copy of
+each relaxation chunk.  Backends:
+
+  ``minplus``  float64 relaxation (default; alias ``banded``) -- bit-exact
+               against the reference's ``backend="minplus"``;
+  ``f32``      float32 relaxation, the counterpart of the reference's
+               ``jnp`` / ``pallas`` backends (prune guard DIST_RTOL_F32).
+
+Both store argmin parents.  On CUDA the relaxation of a shape group is one
+launch of the hand-written chain kernel; on the CPU it runs the kernel's
+plain PyTorch version in cache-sized chunks.  Not ported yet (they raise):
+the ``python`` oracle, the dense ``dense``/``numpy`` backend and
+``n_best > 1``.
+
+One DP pass yields the best configuration for every candidate final exit,
+so accuracy filtering (3c) is a post-pass.  Quantization undershoot
+("floor" mode) is handled by an exact post-check of the selected
+configuration and, if the true latency violates (3b), re-solving with a
+geometrically tightened effective delta -- at most ``max_tighten`` rounds.
+"""
+from __future__ import annotations
+
+import time
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+from .._device import DeviceLike, resolve_device
+from .bellman_ford import (batched_banded_relax_argmin,
+                           batched_banded_relax_min, device_chunk_rows,
+                           relax_chunk_rows)
+from .dnn_profile import DNNProfile
+from .extended_graph import build_extended_graph, build_extended_graphs
+from .feasible_graph import (FeasibleGraph, batch_banded_tensors,
+                             build_feasible_graph, build_feasible_graphs)
+from .problem import AppRequirements, Config, ConfigEval, Solution, evaluate_config
+from .system_model import Network
+from .tolerances import dist_tol
+
+#: solver backend -> relaxation engine.
+DP_BACKENDS: Dict[str, str] = {
+    "minplus": "banded",
+    "banded": "banded",
+    "f32": "f32",
+}
+
+_ENGINE_DTYPE = {"banded": torch.float64, "f32": torch.float32}
+
+
+def _engine(backend: str) -> str:
+    engine = DP_BACKENDS.get(backend)
+    if engine is None:
+        raise ValueError(
+            f"unknown FIN backend {backend!r}: the port supports "
+            f"{sorted(DP_BACKENDS)}; the python, dense/numpy backends and "
+            f"n_best > 1 are not ported yet")
+    return engine
+
+
+def _validate_n_best(n_best: int) -> None:
+    if n_best < 1:
+        raise ValueError(f"n_best must be >= 1, got {n_best}")
+    if n_best > 1:
+        raise ValueError("n_best > 1 (the k-best DP) is not ported yet: the "
+                         "port's FIN solver keeps one path per state")
+
+
+class _BandedArgDP:
+    """Banded DP result with stored argmin-source-node parents, on the host.
+
+    ``par_n[i-1, n, g]`` is the argmin source node of state (n, g) at block
+    i; the parent depth is implied by the band: g - steep[i-1, pn, n].
+    """
+    __slots__ = ("hist", "par_n", "steep", "dist", "_dmin")
+
+    def __init__(self, hist: np.ndarray, par_n: np.ndarray, steep: np.ndarray):
+        self.hist = hist               # (L, N, G+1) float64
+        self.par_n = par_n             # (L-1, N, G+1) int32
+        self.steep = steep             # (L-1, N, N) float64
+        self.dist = hist[..., None]    # (L, N, G+1, 1)
+        self._dmin = {}                # block -> min distance (exit prune)
+
+    def parent(self, i: int, n: int, g: int, k: int) -> Tuple[int, int, int]:
+        pn = int(self.par_n[i - 1, n, g])
+        assert pn >= 0
+        return pn, g - int(self.steep[i - 1, pn, n]), 0
+
+
+def _relax_group(fgs: Sequence[FeasibleGraph], dtype: torch.dtype
+                 ) -> List[_BandedArgDP]:
+    """Relax one same-shape chunk and copy its results to the host once."""
+    gE, gst, ginit = batch_banded_tensors(fgs)
+    hist, par = batched_banded_relax_argmin(ginit, gE, gst,
+                                            fgs[0].depth_window_lo,
+                                            dtype=dtype)
+    hist_h = hist.cpu().numpy().astype(np.float64, copy=False)
+    par_h = par.cpu().numpy()
+    st_h = gst.cpu().numpy()
+    return [_BandedArgDP(hist_h[pos], par_h[pos], st_h[pos])
+            for pos in range(len(fgs))]
+
+
+def _run_dp_batch(fgs: Sequence[FeasibleGraph], backend: str = "minplus"
+                  ) -> List[_BandedArgDP]:
+    """Batched relaxation for a list of feasible graphs.
+
+    Same-shape scenarios are grouped and each group's banded tensors are
+    stacked into one (D, L-1, N, N) chain.  On CUDA a group is one kernel
+    launch, split only when its outputs would exceed
+    ``DEVICE_RELAX_BUDGET_BYTES``; on the CPU it runs in cache-resident
+    chunks (``relax_chunk_rows``).  Neither split changes a number.
+    """
+    dtype = _ENGINE_DTYPE[_engine(backend)]
+    groups: Dict[Tuple[int, int, int, int], List[int]] = {}
+    for j, fg in enumerate(fgs):
+        groups.setdefault((fg.ext.n_blocks, fg.ext.n_nodes, fg.gamma, fg.lam),
+                          []).append(j)
+    out: List[Optional[_BandedArgDP]] = [None] * len(fgs)
+    for (L, N, G, lam), idxs in groups.items():
+        if fgs[idxs[0]].steep.device.type == "cuda":
+            item = torch.finfo(dtype).bits // 8
+            chunk = device_chunk_rows(L * N * (G + 1) * (item + 4))
+        else:
+            chunk = relax_chunk_rows(N * N * (G + 1) * (8 + max(L - 1, 1) * 4))
+        for start in range(0, len(idxs), chunk):
+            part = idxs[start:start + chunk]
+            for j, dp in zip(part, _relax_group([fgs[j] for j in part], dtype)):
+                out[j] = dp
+    return out
+
+
+def _exit_dmin(dp: _BandedArgDP, block: int) -> float:
+    """Memoized min DP distance at a block (the exit-prune bound)."""
+    v = dp._dmin.get(block)
+    if v is None:
+        v = dp._dmin[block] = float(dp.dist[block].min())
+    return v
+
+
+def _backtrack(dp, block: int, node: int, depth: int,
+               rank: int) -> List[int]:
+    place = [node]
+    i, n, g, r = block, node, depth, rank
+    while i > 0:
+        n, g, r = dp.parent(i, n, g, r)
+        place.append(n)
+        i -= 1
+    return place[::-1]
+
+
+def _iter_configs_at_exit(dp, profile: DNNProfile, k: int
+                          ) -> Iterator[Tuple[Config, float]]:
+    """DP end-states at exit k's block, lazily, in energy order.
+
+    Energy weights are not quantized (only latency is), so the DP distance
+    is the exact expected energy of the backtracked path.  The cheapest
+    state comes first without a sort: ``np.argmin`` and a stable ascending
+    argsort share the first-occurrence-of-min tie order.
+    """
+    block = profile.exits[k].block
+    d = dp.dist[block]                      # (N, G+1, K)
+    j0 = int(np.argmin(d))
+    v0 = float(d.ravel()[j0])
+    if not np.isfinite(v0):
+        return
+    n0, g0, r0 = np.unravel_index(j0, d.shape)
+    yield (Config(placement=_backtrack(dp, block, int(n0), int(g0), int(r0)),
+                  final_exit=k), v0)
+    order = np.argsort(d, axis=None, kind="stable")
+    vals = d.ravel()[order]
+    n_finite = int(np.searchsorted(vals, np.inf))
+    ns_, gs_, rs_ = np.unravel_index(order[:n_finite], d.shape)
+    for j in range(1, n_finite):            # order[0] == j0, already yielded
+        cfg = Config(placement=_backtrack(dp, block, int(ns_[j]), int(gs_[j]),
+                                          int(rs_[j])),
+                     final_exit=k)
+        yield cfg, float(vals[j])
+
+
+def _best_feasible(network: Network, profile: DNNProfile,
+                   req: AppRequirements, dp,
+                   admissible_exits: Sequence[int],
+                   check_aggregate_load: bool,
+                   bound: Optional[Tuple[Config, ConfigEval]] = None,
+                   dist_tol: float = 1e-9
+                   ) -> Optional[Tuple[Config, ConfigEval]]:
+    """Exact (3a)-(3e) post-pass: cheapest feasible config over all exits.
+
+    Configs are backtracked lazily, and an exit is skipped when its cheapest
+    graph state cannot beat the incumbent (or the bounding pass's energy):
+    the graph distance IS the exact path energy, and the ``dist_tol``
+    relative guard keeps rounding near-ties evaluated exactly.  ``bound``
+    carries the bounding pass's (config, eval) pair, reused when a scanned
+    candidate is that configuration.
+    """
+    bound_energy = bound[1].energy if bound is not None else None
+    found: Optional[Tuple[Config, ConfigEval]] = None
+    for k in admissible_exits:
+        best_e = found[1].energy if found is not None else bound_energy
+        if best_e is not None:
+            if _exit_dmin(dp, profile.exits[k].block) > best_e * (1 + dist_tol):
+                continue
+        for cfg, _graph_e in _iter_configs_at_exit(dp, profile, k):
+            if (bound is not None and cfg.final_exit == bound[0].final_exit
+                    and cfg.placement == bound[0].placement):
+                ev = bound[1]
+            else:
+                ev = evaluate_config(
+                    network, profile, req, cfg,
+                    check_aggregate_load=check_aggregate_load)
+            if ev.feasible:
+                if found is None or ev.energy < found[1].energy:
+                    found = (cfg, ev)
+                break  # states are energy-sorted: first feasible is best at k
+    return found
+
+
+def _admissible(profile: DNNProfile, req: AppRequirements) -> List[int]:
+    return [k for k in range(profile.n_exits)
+            if profile.accuracy_of(k) >= req.alpha - 1e-12]
+
+
+def solve_fin(network: Network, profile: DNNProfile, req: AppRequirements,
+              *, gamma: int = 10, lam: Optional[int] = None,
+              quantize: str = "floor", max_tighten: int = 6,
+              tighten_factor: float = 0.85, n_best: int = 1,
+              backend: str = "minplus",
+              check_aggregate_load: bool = False,
+              device: DeviceLike = None) -> Solution:
+    """FIN (Alg. 1).  Returns the min-energy feasible configuration.
+
+    ``device`` defaults to ``cuda:0`` (raising where there is none);
+    ``device="cpu"`` runs the plain PyTorch path.
+    """
+    t0 = time.perf_counter()
+    _validate_n_best(n_best)
+    tol = dist_tol(_engine(backend))
+    dev = resolve_device(device)
+    ext = build_extended_graph(network, profile, req, device=dev)
+
+    admissible_exits = _admissible(profile, req)
+    if not admissible_exits:
+        return Solution(config=None, eval=None,
+                        solve_time=time.perf_counter() - t0, solver="fin",
+                        meta={"reason": "no exit meets alpha (3c)"})
+
+    def _solve_once(q: str, d_eff: float,
+                    bound: Optional[Tuple[Config, ConfigEval]] = None
+                    ) -> Optional[Tuple[Config, ConfigEval]]:
+        fg = build_feasible_graph(ext, gamma, lam=lam, quantize=q,
+                                  delta_eff=d_eff)
+        dp = _run_dp_batch([fg], backend)[0]
+        return _best_feasible(network, profile, req, dp, admissible_exits,
+                              check_aggregate_load, bound=bound,
+                              dist_tol=tol)
+
+    delta_eff = req.delta
+    best: Optional[Tuple[Config, ConfigEval]] = None
+    meta = {"gamma": gamma, "quantize": quantize, "tighten_rounds": 0,
+            "backend": backend}
+    for round_ in range(max_tighten + 1):
+        best = _solve_once(quantize, delta_eff)
+        if best is not None:
+            break
+        # quantization undershoot: tighten the effective latency budget
+        delta_eff *= tighten_factor
+        meta["tighten_rounds"] = round_ + 1
+    if quantize != "ceil":
+        # conservative pass: ceil quantization is feasible by construction
+        # and can rescue state-collision misses of the optimistic quantizer
+        alt = _solve_once("ceil", req.delta, best)
+        if alt is not None and (best is None or alt[1].energy < best[1].energy):
+            best = alt
+            meta["used_ceil_pass"] = True
+
+    dt = time.perf_counter() - t0
+    if best is None:
+        return Solution(config=None, eval=None, solve_time=dt, solver="fin",
+                        meta={**meta, "reason": "no feasible path"})
+    cfg, ev = best
+    meta["delta_eff"] = delta_eff
+    meta["n_feasible_states"] = int(np.isfinite(ev.energy))
+    return Solution(config=cfg, eval=ev, solve_time=dt, solver="fin", meta=meta)
+
+
+def _broadcast_scenarios(profiles, networks, requirements
+                         ) -> Tuple[List[DNNProfile], List[Network],
+                                    List[AppRequirements]]:
+    def listify(x, single) -> list:
+        return list(x) if not isinstance(x, single) else [x]
+
+    ps = listify(profiles, DNNProfile)
+    ns = listify(networks, Network)
+    rs = listify(requirements, AppRequirements)
+    B = max(len(ps), len(ns), len(rs))
+    out = []
+    for name, xs in (("profiles", ps), ("networks", ns),
+                     ("requirements", rs)):
+        if len(xs) == 1:
+            xs = xs * B
+        if len(xs) != B:
+            raise ValueError(f"solve_many: {name} has length {len(xs)}, "
+                             f"expected 1 or {B}")
+        out.append(xs)
+    return tuple(out)
+
+
+def solve_many(profiles: Union[DNNProfile, Sequence[DNNProfile]],
+               networks: Union[Network, Sequence[Network]],
+               requirements: Union[AppRequirements, Sequence[AppRequirements]],
+               *, gamma: int = 10, lam: Optional[int] = None,
+               quantize: str = "floor", max_tighten: int = 6,
+               tighten_factor: float = 0.85, n_best: int = 1,
+               backend: str = "minplus",
+               check_aggregate_load: bool = False,
+               device: DeviceLike = None) -> List[Solution]:
+    """Batched FIN: solve B scenarios with one stacked relaxation per shape.
+
+    Arguments broadcast: each of ``profiles`` / ``networks`` /
+    ``requirements`` may be a single object or a length-B sequence.  Returns
+    one ``Solution`` per scenario, equal to what ``solve_fin`` returns for
+    it.  Extended graphs are deduplicated across scenarios that share
+    (network, profile, sigma); the tighten loop re-batches the still
+    unsolved scenarios each round, and the ceil rescue pass (which never
+    depends on the tighten loop) rides in round 0's relaxation.
+    """
+    t0 = time.perf_counter()
+    _validate_n_best(n_best)
+    tol = dist_tol(_engine(backend))
+    dev = resolve_device(device)
+    profs, nets, reqs = _broadcast_scenarios(profiles, networks, requirements)
+    B = len(profs)
+
+    exts = build_extended_graphs(nets, profs, reqs, device=dev)
+    admissible = [_admissible(pf, rq) for pf, rq in zip(profs, reqs)]
+
+    metas = [{"gamma": gamma, "quantize": quantize, "tighten_rounds": 0,
+              "backend": backend, "batch_size": B} for _ in range(B)]
+    best: List[Optional[Tuple[Config, ConfigEval]]] = [None] * B
+
+    def _scan(b: int, dp, bound: Optional[Tuple[Config, ConfigEval]] = None
+              ) -> Optional[Tuple[Config, ConfigEval]]:
+        return _best_feasible(nets[b], profs[b], reqs[b], dp, admissible[b],
+                              check_aggregate_load, bound=bound, dist_tol=tol)
+
+    def _fgs(bs: List[int], qmode: str, d_effs: List[float]
+             ) -> List[FeasibleGraph]:
+        return build_feasible_graphs([exts[b] for b in bs], gamma, lam=lam,
+                                     quantize=qmode, delta_effs=d_effs)
+
+    active = [b for b in range(B) if admissible[b]]
+    delta_eff = [rq.delta for rq in reqs]
+    pending = list(active)
+    ceil_dps: Dict[int, _BandedArgDP] = {}
+    for round_ in range(max_tighten + 1):
+        if not pending:
+            break
+        fgs = _fgs(pending, quantize, [delta_eff[b] for b in pending])
+        if round_ == 0 and quantize != "ceil":
+            # one (2B, L-1, N, N) relaxation per shape for round 0 and the
+            # ceil rescue pass
+            fgs += _fgs(active, "ceil", [reqs[b].delta for b in active])
+        dps = _run_dp_batch(fgs, backend)
+        if round_ == 0 and quantize != "ceil":
+            ceil_dps = dict(zip(active, dps[len(pending):]))
+        still = []
+        for b, dp in zip(pending, dps[:len(pending)]):
+            f = _scan(b, dp)
+            if f is not None:
+                best[b] = f
+            else:
+                delta_eff[b] *= tighten_factor
+                metas[b]["tighten_rounds"] = round_ + 1
+                still.append(b)
+        pending = still
+    if quantize != "ceil":
+        for b in active:
+            f = _scan(b, ceil_dps[b], best[b])
+            if f is not None and (best[b] is None
+                                  or f[1].energy < best[b][1].energy):
+                best[b] = f
+                metas[b]["used_ceil_pass"] = True
+
+    dt = time.perf_counter() - t0
+    out: List[Solution] = []
+    for b in range(B):
+        if not admissible[b]:
+            out.append(Solution(config=None, eval=None, solve_time=dt / B,
+                                solver="fin",
+                                meta={"reason": "no exit meets alpha (3c)",
+                                      "batch_size": B, "batch_time": dt}))
+            continue
+        meta = {**metas[b], "batch_time": dt}
+        if best[b] is None:
+            out.append(Solution(config=None, eval=None, solve_time=dt / B,
+                                solver="fin",
+                                meta={**meta, "reason": "no feasible path"}))
+            continue
+        cfg, ev = best[b]
+        meta["delta_eff"] = delta_eff[b]
+        meta["n_feasible_states"] = int(np.isfinite(ev.energy))
+        out.append(Solution(config=cfg, eval=ev, solve_time=dt / B,
+                            solver="fin", meta=meta))
+    return out
+
+
+def fin_all_exit_costs(network: Network, profile: DNNProfile,
+                       req: AppRequirements, *, gamma: int = 10,
+                       lam: Optional[int] = None, quantize: str = "floor",
+                       device: DeviceLike = None) -> np.ndarray:
+    """Graph cost (not exact eval) per exit from one banded float64
+    relaxation -- the reference's ``fin_all_exit_costs(backend="banded")``."""
+    ext = build_extended_graph(network, profile, req, device=device)
+    fg = build_feasible_graph(ext, gamma, lam=lam, quantize=quantize)
+    E, steep = fg.banded_tensors()
+    hist = batched_banded_relax_min(fg.init_grid()[None], E[None],
+                                    steep[None], fg.depth_window_lo)
+    dist = hist[0].reshape(hist.shape[1], -1).cpu().numpy()   # (L, N*(G+1))
+    out = np.full(profile.n_exits, np.inf)
+    for k, e in enumerate(profile.exits):
+        out[k] = dist[e.block].min()
+    return out

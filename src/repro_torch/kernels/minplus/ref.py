@@ -1,0 +1,72 @@
+"""Plain PyTorch versions of the banded minplus kernels.
+
+They follow the float64 numpy engine of the reference
+(``repro/core/bellman_ford.py:347-448``): gather every candidate from a
+distance grid padded with one +inf sentinel column, add the edge energy
+(one IEEE add per candidate), then take the min and the first-occurrence
+argmin over the source-node axis.  The CPU path of the port runs on them,
+and the CUDA kernels are held bit-equal to them on the card.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+
+def banded_gather_idx(st: torch.Tensor, Gp1: int,
+                      lo: Optional[int]) -> torch.Tensor:
+    """(..., N, N, G+1) int32 source-depth indices for integer steepness.
+
+    Index ``g - st`` per target depth g; a negative source depth, or a
+    target outside the lambda window (``g < lo`` on a non-flat edge), is
+    routed to the sentinel index ``Gp1`` (the +inf column).
+    """
+    g = torch.arange(Gp1, dtype=torch.int32, device=st.device)
+    sti = st.to(torch.int32)[..., None]
+    idx = g - sti
+    if lo is not None:
+        idx = torch.where((g < lo) & (sti != 0), -1, idx)
+    return torch.where(idx < 0, Gp1, idx)
+
+
+def banded_minplus_chain_ref(dist: torch.Tensor, E: torch.Tensor,
+                             st: torch.Tensor, *, lo: Optional[int] = None
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chained banded relaxation (plain version of the B1 kernel).
+
+    dist: [B, N, G+1]; E: [B, L, N, N] (+inf = pruned); st: [B, L, N, N]
+    int steepness.  Returns (hist [B, L, N, G+1] in dist's dtype, the grid
+    after each layer, and arg [B, L, N, G+1] int32, the first-occurrence
+    argmin source node, -1 where unreachable).
+    """
+    B, N, Gp1 = dist.shape
+    L = E.shape[1]
+    hist = torch.empty((B, L, N, Gp1), dtype=dist.dtype, device=dist.device)
+    arg = torch.empty((B, L, N, Gp1), dtype=torch.int32, device=dist.device)
+    pad = torch.full((B, N, 1, Gp1 + 1), float("inf"), dtype=dist.dtype,
+                     device=dist.device)
+    d = dist
+    for l in range(L):
+        pad[:, :, 0, :Gp1] = d
+        idx = banded_gather_idx(st[:, l], Gp1, lo).long()   # (B, N, N, G+1)
+        cand = torch.gather(pad.expand(B, N, N, Gp1 + 1), 3, idx)
+        cand = cand + E[:, l, :, :, None]                    # (B, src, tgt, G+1)
+        d = cand.amin(dim=1)
+        a = cand.argmin(dim=1)
+        hist[:, l] = d
+        arg[:, l] = torch.where(torch.isfinite(d), a, -1)
+    return hist, arg
+
+
+def banded_minplus_ref(dist: torch.Tensor, E: torch.Tensor, st: torch.Tensor,
+                       *, lo: Optional[int] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One banded layer (plain version of the B1u kernel).
+
+    dist: [N, G+1]; E: [N, N] (+inf = pruned); st: [N, N] int steepness ->
+    (out [N, G+1], argmin source node [N, G+1] int32, -1 unreachable).
+    """
+    hist, arg = banded_minplus_chain_ref(dist[None], E[None, None],
+                                         st[None, None], lo=lo)
+    return hist[0, 0], arg[0, 0]

@@ -1,0 +1,109 @@
+"""The PyTorch port stands alone and never falls back to the CPU.
+
+* No module of ``src/repro_torch`` and not ``chip_smoke.py`` imports
+  ``jax`` or the JAX package ``repro`` (an AST scan of every import).
+* Importing ``repro_torch`` in a fresh interpreter leaves ``jax`` out of
+  ``sys.modules``.
+* ``device=None`` means ``cuda:0`` and raises where CUDA is absent.
+* ``chip_smoke.py`` exits non-zero, printing no result, without a card.
+"""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import repro_torch as T
+from repro_torch import resolve_device
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _imported_modules(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+        elif isinstance(node, ast.Call) and getattr(node.func, "id", "") \
+                == "__import__" and node.args \
+                and isinstance(node.args[0], ast.Constant):
+            yield str(node.args[0].value)
+
+
+def _port_files():
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 10
+    return files
+
+
+def test_port_imports_neither_jax_nor_the_reference():
+    offenders = []
+    for path in _port_files():
+        for mod in _imported_modules(path):
+            top = mod.split(".")[0]
+            if top in FORBIDDEN:
+                offenders.append(f"{path.relative_to(ROOT)}: {mod}")
+    assert not offenders, offenders
+
+
+def test_import_in_fresh_interpreter_loads_no_jax_and_builds_nothing():
+    """No jax in sys.modules after importing the port, and the kernel
+    library is built at first launch, never at import."""
+    code = ("import sys, repro_torch, repro_torch.core.fin, "
+            "repro_torch.kernels.minplus.ops, repro_torch.convert\n"
+            "from repro_torch.kernels.minplus import _build\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro'))\n"
+            "print(bad, _build._LIBRARY)\n"
+            "sys.exit(1 if bad or _build._LIBRARY is not None else 0)")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_device_none_means_cuda_and_raises_without_it():
+    if torch.cuda.is_available():
+        assert resolve_device(None) == torch.device("cuda", 0)
+        return
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resolve_device(None)
+    with pytest.raises(RuntimeError, match="cuda"):
+        resolve_device("cuda")
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_entry_points_do_not_fall_back_to_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: device=None resolves to it")
+    nw = T.paper_scenario()
+    pf = T.paper_profile("h6")
+    req = T.AppRequirements(0.5, 5e-3)
+    for call in (lambda: T.solve_fin(nw, pf, req),
+                 lambda: T.solve_many(pf, nw, req),
+                 lambda: T.solve_mcp(nw, pf, req),
+                 lambda: T.build_extended_graph(nw, pf, req),
+                 lambda: T.fin_all_exit_costs(nw, pf, req)):
+        with pytest.raises(RuntimeError, match="cuda"):
+            call()
+
+
+def test_chip_smoke_fails_without_a_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    for where in (ROOT, tmp_path):
+        script = where / "chip_smoke.py"
+        if where is tmp_path:
+            script.write_text((ROOT / "chip_smoke.py").read_text())
+        proc = subprocess.run([sys.executable, str(script)], cwd=where,
+                              capture_output=True, text=True, timeout=120)
+        assert proc.returncode != 0
+        assert '"ok"' not in proc.stdout and proc.stdout.strip() == ""
