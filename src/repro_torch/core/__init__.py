@@ -5,8 +5,10 @@
   problem        -- configuration evaluation against (3a)-(3e), host code
   extended_graph -- Eq. (1)-(2) weights as device tensors
   feasible_graph -- gamma-replicated FIN feasibility graph (Eq. 4 + pruning)
-  bellman_ford   -- the banded (min,+) relaxation (CUDA kernel on the card)
+  bellman_ford   -- the banded (min,+) relaxations (CUDA kernels on the card)
   fin / mcp / optimum -- the three solvers compared in Sec. V
+  frontier       -- the Pareto frontier behind the FIN argmin (host code)
+  plan           -- the persistent plan IR: typed deltas, warm re-solves
 """
 from .dnn_profile import (BITS_PER_FEATURE, DNNProfile, ExitSpec,
                           all_paper_apps, paper_profile, synthetic_profile)
@@ -15,8 +17,12 @@ from .extended_graph import (ExtendedGraph, build_extended_graph,
 from .feasible_graph import (FeasibleGraph, build_feasible_graph,
                              build_feasible_graphs)
 from .fin import fin_all_exit_costs, solve_fin, solve_many
+from .frontier import (FrontierRow, ParetoFrontier, brute_force_frontier,
+                       frontier_from_rows, pareto_mask)
 from .mcp import solve_mcp
 from .optimum import solve_opt
+from .plan import (Plan, PlanStats, migration_delta, solve_plans,
+                   update_uplinks)
 from .problem import (AppRequirements, Config, ConfigEval, Solution,
                       evaluate_config)
 from .scenarios import paper_scenario, sweep_scenarios
@@ -30,6 +36,9 @@ __all__ = [
     "ConfigEval", "Solution", "evaluate_config", "ExtendedGraph",
     "build_extended_graph", "build_extended_graphs", "FeasibleGraph",
     "build_feasible_graph", "build_feasible_graphs", "solve_fin",
-    "solve_many", "fin_all_exit_costs", "solve_mcp", "solve_opt",
-    "paper_scenario", "sweep_scenarios",
+    "solve_many", "fin_all_exit_costs",
+    "FrontierRow", "ParetoFrontier", "brute_force_frontier",
+    "frontier_from_rows", "pareto_mask",
+    "Plan", "PlanStats", "solve_plans", "update_uplinks", "migration_delta",
+    "solve_mcp", "solve_opt", "paper_scenario", "sweep_scenarios",
 ]

@@ -9,11 +9,15 @@ source nodes on the compact (N, G+1) grid:
 
 (inadmissible where g' - steep < 0, the edge is pruned, or the
 lambda-proximity window excludes g').  On CUDA the whole (B, L) chain runs
-in one launch of the hand-written kernel (``kernels/minplus``); on the CPU
-the same wrapper runs its plain PyTorch version.  Both store the
-first-occurrence argmin source node as the parent, so float64 distances
-and parents are bit-equal to the reference's ``batched_banded_relax_minarg``
-and float32 ones to its ``batched_banded_relax_argmin(backend="jnp")``.
+in one launch of a hand-written kernel (``kernels/minplus``); on the CPU
+the same wrapper runs its plain PyTorch version.  The argmin engine stores
+the first-occurrence argmin source node as the parent, so float64
+distances and parents are bit-equal to the reference's
+``batched_banded_relax_minarg`` and float32 ones to its
+``batched_banded_relax_argmin(backend="jnp")``.  The k-slot engine keeps
+the K cheapest (value, source node, source slot) per state in the order of
+a stable sort of the node-major, slot-minor pool, bit-equal in float64 to
+the reference's ``batched_banded_relax_kbest``.
 """
 from __future__ import annotations
 
@@ -22,7 +26,8 @@ from typing import Optional, Tuple
 
 import torch
 
-from ..kernels.minplus.ops import banded_minplus_chain
+from ..kernels.minplus.ops import (banded_minplus_chain,
+                                   banded_minplus_chain_kbest)
 from ..kernels.minplus.ref import banded_gather_idx
 
 # ---------------------------------------------------------------------------
@@ -131,6 +136,38 @@ def batched_banded_relax_argmin(init: torch.Tensor, E: torch.Tensor,
     Ek, st = kernel_inputs(E, steep, dtype)
     hist, par = banded_minplus_chain(initk, Ek, st, lo=lo)
     return torch.cat([initk[:, None], hist], dim=1), par
+
+
+def batched_banded_relax_kbest(init: torch.Tensor, E: torch.Tensor,
+                               steep: torch.Tensor, K: int,
+                               lo: Optional[int] = None, *,
+                               dtype: torch.dtype = torch.float64
+                               ) -> Tuple[torch.Tensor, torch.Tensor,
+                                          torch.Tensor]:
+    """Banded k-slot relaxation: the K cheapest paths per (node, depth).
+
+    init: (B, N, G+1); E/steep: (B, L, N, N) float64 (steep: integer values
+    or inf).  Returns (hist (B, L+1, N, G+1, K) in ``dtype``, with the init
+    grid in slot 0 of index 0 and +inf in its other slots, and par_n / par_k
+    (B, L, N, G+1, K) int32, -1 where a slot is unused).  The parent depth
+    is implied by the band: g_src = g - steep[par_n, n].  In float64 the
+    distances and slot order are bit-equal to the reference's
+    ``batched_banded_relax_kbest``; on CUDA the chain is one launch of the
+    k-slot kernel (B3).
+    """
+    B, N, Gp1 = init.shape
+    L = E.shape[1]
+    initk = init.to(dtype).contiguous()
+    first = torch.full((B, 1, N, Gp1, K), float("inf"), dtype=dtype,
+                       device=init.device)
+    first[:, 0, :, :, 0] = initk
+    if L == 0:                       # single-block chain: no transitions
+        none = torch.zeros((B, 0, N, Gp1, K), dtype=torch.int32,
+                           device=init.device)
+        return first, none, none.clone()
+    Ek, st = kernel_inputs(E, steep, dtype)
+    hist, par_n, par_k = banded_minplus_chain_kbest(initk, Ek, st, K, lo=lo)
+    return torch.cat([first, hist], dim=1), par_n, par_k
 
 
 def batched_banded_relax_minarg(init: torch.Tensor, E: torch.Tensor,

@@ -8,15 +8,21 @@ exact (3a)-(3e) post-pass and the backtrack are host code on one copy of
 each relaxation chunk.  Backends:
 
   ``minplus``  float64 relaxation (default; alias ``banded``) -- bit-exact
-               against the reference's ``backend="minplus"``;
-  ``f32``      float32 relaxation, the counterpart of the reference's
-               ``jnp`` / ``pallas`` backends (prune guard DIST_RTOL_F32).
+               against the reference's ``backend="minplus"``, for every
+               ``n_best``;
+  ``f32``      float32 relaxation (prune guard DIST_RTOL_F32), the
+               counterpart of the reference's ``jnp`` / ``pallas`` backends
+               at ``n_best == 1`` and of its ``pallas`` k-slot kernel at
+               ``n_best > 1``.
 
-Both store argmin parents.  On CUDA the relaxation of a shape group is one
-launch of the hand-written chain kernel; on the CPU it runs the kernel's
-plain PyTorch version in cache-sized chunks.  Not ported yet (they raise):
-the ``python`` oracle, the dense ``dense``/``numpy`` backend and
-``n_best > 1``.
+``n_best == 1`` stores argmin parents; ``n_best > 1`` keeps the K cheapest
+paths per state with (node, slot) parents -- the beyond-paper fix for
+quantizer state collisions at small gamma, and the DP behind the Pareto
+frontier (``frontier.py``).  On CUDA the relaxation of a shape group is one
+launch of a hand-written chain kernel (B1 for one slot, B3 for K slots);
+on the CPU it runs the kernels' plain PyTorch versions in cache-sized
+chunks.  Not ported yet (they raise): the ``python`` oracle and the dense
+``dense``/``numpy`` backend.
 
 One DP pass yields the best configuration for every candidate final exit,
 so accuracy filtering (3c) is a post-pass.  Quantization undershoot
@@ -34,6 +40,7 @@ import torch
 
 from .._device import DeviceLike, resolve_device
 from .bellman_ford import (batched_banded_relax_argmin,
+                           batched_banded_relax_kbest,
                            batched_banded_relax_min, device_chunk_rows,
                            relax_chunk_rows)
 from .dnn_profile import DNNProfile
@@ -59,17 +66,17 @@ def _engine(backend: str) -> str:
     if engine is None:
         raise ValueError(
             f"unknown FIN backend {backend!r}: the port supports "
-            f"{sorted(DP_BACKENDS)}; the python, dense/numpy backends and "
-            f"n_best > 1 are not ported yet")
+            f"{sorted(DP_BACKENDS)}; the python and dense/numpy backends "
+            f"are not ported yet")
     return engine
 
 
-def _validate_n_best(n_best: int) -> None:
+def _validate_n_best(n_best: int) -> int:
+    """``n_best`` is the k-best slot count; a typo'd 0 or -3 raises rather
+    than turning into the single-best DP."""
     if n_best < 1:
         raise ValueError(f"n_best must be >= 1, got {n_best}")
-    if n_best > 1:
-        raise ValueError("n_best > 1 (the k-best DP) is not ported yet: the "
-                         "port's FIN solver keeps one path per state")
+    return int(n_best)
 
 
 class _BandedArgDP:
@@ -93,45 +100,99 @@ class _BandedArgDP:
         return pn, g - int(self.steep[i - 1, pn, n]), 0
 
 
-def _relax_group(fgs: Sequence[FeasibleGraph], dtype: torch.dtype
-                 ) -> List[_BandedArgDP]:
-    """Relax one same-shape chunk and copy its results to the host once."""
-    gE, gst, ginit = batch_banded_tensors(fgs)
-    hist, par = batched_banded_relax_argmin(ginit, gE, gst,
-                                            fgs[0].depth_window_lo,
-                                            dtype=dtype)
+class _BandedKDP:
+    """Banded k-best DP result with stored (node, slot) parents, on the host.
+
+    ``dist`` is the (L, N, G+1, K) k-slot grid; ``par_n`` / ``par_k``
+    (L-1, N, G+1, K) name the source node and slot of each entry, and the
+    parent depth is implied by the band: g_src = g - steep[i-1, par_n, n].
+    This is the DP state the Pareto frontier's k-best rows come from.
+    """
+    __slots__ = ("dist", "par_n", "par_k", "steep", "_dmin")
+
+    def __init__(self, hist: np.ndarray, par_n: np.ndarray,
+                 par_k: np.ndarray, steep: np.ndarray):
+        self.dist = hist               # (L, N, G+1, K) float64
+        self.par_n = par_n             # (L-1, N, G+1, K) int32
+        self.par_k = par_k             # (L-1, N, G+1, K) int32
+        self.steep = steep             # (L-1, N, N) float64
+        self._dmin = {}
+
+    def parent(self, i: int, n: int, g: int, k: int) -> Tuple[int, int, int]:
+        pn = int(self.par_n[i - 1, n, g, k])
+        assert pn >= 0
+        return (pn, g - int(self.steep[i - 1, pn, n]),
+                int(self.par_k[i - 1, n, g, k]))
+
+
+def _relax_rows(init: torch.Tensor, E: torch.Tensor, steep: torch.Tensor,
+                lo: Optional[int], dtype: torch.dtype, K: int
+                ) -> List[Union[_BandedArgDP, _BandedKDP]]:
+    """Relax stacked scenario rows (one kernel launch on CUDA: the argmin
+    chain B1 for K == 1, the k-slot chain B3 for K > 1) and copy the
+    results to the host once; one DP object per row."""
+    st_h = steep.cpu().numpy()
+    if K == 1:
+        hist, par = batched_banded_relax_argmin(init, E, steep, lo,
+                                                dtype=dtype)
+        hist_h = hist.cpu().numpy().astype(np.float64, copy=False)
+        par_h = par.cpu().numpy()
+        return [_BandedArgDP(hist_h[r], par_h[r], st_h[r])
+                for r in range(len(st_h))]
+    hist, pn, pk = batched_banded_relax_kbest(init, E, steep, K, lo,
+                                              dtype=dtype)
     hist_h = hist.cpu().numpy().astype(np.float64, copy=False)
-    par_h = par.cpu().numpy()
-    st_h = gst.cpu().numpy()
-    return [_BandedArgDP(hist_h[pos], par_h[pos], st_h[pos])
-            for pos in range(len(fgs))]
+    pn_h, pk_h = pn.cpu().numpy(), pk.cpu().numpy()
+    return [_BandedKDP(hist_h[r], pn_h[r], pk_h[r], st_h[r])
+            for r in range(len(st_h))]
 
 
-def _run_dp_batch(fgs: Sequence[FeasibleGraph], backend: str = "minplus"
-                  ) -> List[_BandedArgDP]:
+def _relax_group(fgs: Sequence[FeasibleGraph], dtype: torch.dtype, K: int
+                 ) -> List[Union[_BandedArgDP, _BandedKDP]]:
+    """Relax one same-shape chunk of feasible graphs."""
+    gE, gst, ginit = batch_banded_tensors(fgs)
+    return _relax_rows(ginit, gE, gst, fgs[0].depth_window_lo, dtype, K)
+
+
+def relax_rows_per_chunk(device: torch.device, L: int, N: int, Gp1: int,
+                         K: int, dtype: torch.dtype) -> int:
+    """Scenario rows per relaxation chunk.  On CUDA a chunk is one kernel
+    launch, split only when its outputs (history plus parents) would exceed
+    ``DEVICE_RELAX_BUDGET_BYTES``; on the CPU it is cache-resident, as in
+    the reference.  Neither split changes a number."""
+    if device.type == "cuda":
+        item = torch.finfo(dtype).bits // 8
+        return device_chunk_rows(L * N * Gp1 * K
+                                 * (item + (4 if K == 1 else 8)))
+    if K == 1:
+        return relax_chunk_rows(N * N * Gp1 * (8 + max(L - 1, 1) * 4))
+    return relax_chunk_rows(N * N * Gp1 * K * 16)
+
+
+def _run_dp_batch(fgs: Sequence[FeasibleGraph], n_best: int = 1,
+                  backend: str = "minplus"
+                  ) -> List[Union[_BandedArgDP, _BandedKDP]]:
     """Batched relaxation for a list of feasible graphs.
 
     Same-shape scenarios are grouped and each group's banded tensors are
-    stacked into one (D, L-1, N, N) chain.  On CUDA a group is one kernel
-    launch, split only when its outputs would exceed
-    ``DEVICE_RELAX_BUDGET_BYTES``; on the CPU it runs in cache-resident
-    chunks (``relax_chunk_rows``).  Neither split changes a number.
+    stacked into one (D, L-1, N, N) chain, relaxed in chunks of
+    ``relax_rows_per_chunk`` rows: one kernel launch and one device -> host
+    copy per chunk on CUDA.  ``n_best > 1`` runs the k-slot engine.
     """
+    K = _validate_n_best(n_best)
     dtype = _ENGINE_DTYPE[_engine(backend)]
     groups: Dict[Tuple[int, int, int, int], List[int]] = {}
     for j, fg in enumerate(fgs):
         groups.setdefault((fg.ext.n_blocks, fg.ext.n_nodes, fg.gamma, fg.lam),
                           []).append(j)
-    out: List[Optional[_BandedArgDP]] = [None] * len(fgs)
+    out: List[Optional[Union[_BandedArgDP, _BandedKDP]]] = [None] * len(fgs)
     for (L, N, G, lam), idxs in groups.items():
-        if fgs[idxs[0]].steep.device.type == "cuda":
-            item = torch.finfo(dtype).bits // 8
-            chunk = device_chunk_rows(L * N * (G + 1) * (item + 4))
-        else:
-            chunk = relax_chunk_rows(N * N * (G + 1) * (8 + max(L - 1, 1) * 4))
+        chunk = relax_rows_per_chunk(fgs[idxs[0]].steep.device, L, N, G + 1,
+                                     K, dtype)
         for start in range(0, len(idxs), chunk):
             part = idxs[start:start + chunk]
-            for j, dp in zip(part, _relax_group([fgs[j] for j in part], dtype)):
+            for j, dp in zip(part, _relax_group([fgs[j] for j in part], dtype,
+                                                K)):
                 out[j] = dp
     return out
 
@@ -236,6 +297,7 @@ def solve_fin(network: Network, profile: DNNProfile, req: AppRequirements,
               device: DeviceLike = None) -> Solution:
     """FIN (Alg. 1).  Returns the min-energy feasible configuration.
 
+    ``n_best > 1`` keeps the K cheapest paths per (node, depth) state.
     ``device`` defaults to ``cuda:0`` (raising where there is none);
     ``device="cpu"`` runs the plain PyTorch path.
     """
@@ -256,7 +318,7 @@ def solve_fin(network: Network, profile: DNNProfile, req: AppRequirements,
                     ) -> Optional[Tuple[Config, ConfigEval]]:
         fg = build_feasible_graph(ext, gamma, lam=lam, quantize=q,
                                   delta_eff=d_eff)
-        dp = _run_dp_batch([fg], backend)[0]
+        dp = _run_dp_batch([fg], n_best, backend)[0]
         return _best_feasible(network, profile, req, dp, admissible_exits,
                               check_aggregate_load, bound=bound,
                               dist_tol=tol)
@@ -358,7 +420,7 @@ def solve_many(profiles: Union[DNNProfile, Sequence[DNNProfile]],
     active = [b for b in range(B) if admissible[b]]
     delta_eff = [rq.delta for rq in reqs]
     pending = list(active)
-    ceil_dps: Dict[int, _BandedArgDP] = {}
+    ceil_dps: Dict[int, Union[_BandedArgDP, _BandedKDP]] = {}
     for round_ in range(max_tighten + 1):
         if not pending:
             break
@@ -367,7 +429,7 @@ def solve_many(profiles: Union[DNNProfile, Sequence[DNNProfile]],
             # one (2B, L-1, N, N) relaxation per shape for round 0 and the
             # ceil rescue pass
             fgs += _fgs(active, "ceil", [reqs[b].delta for b in active])
-        dps = _run_dp_batch(fgs, backend)
+        dps = _run_dp_batch(fgs, n_best, backend)
         if round_ == 0 and quantize != "ceil":
             ceil_dps = dict(zip(active, dps[len(pending):]))
         still = []

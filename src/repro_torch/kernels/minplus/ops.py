@@ -1,10 +1,12 @@
-"""Wrappers of the banded minplus kernels (B1 and its one-layer unit B1u).
+"""Wrappers of the banded minplus kernels: B1, its one-layer unit B1u, and
+the k-slot chain B3.
 
 For a CUDA tensor a wrapper launches the hand-written kernel
-(``csrc/banded_minplus.cu``) or raises; for a CPU tensor it runs the plain
-PyTorch version in ``ref.py``.  Each wrapper counts its kernel launches in
-a plain integer attribute, ``launches``, so a run can show that its main
-path went through the kernel.
+(``csrc/banded_minplus.cu``, ``csrc/banded_minplus_kbest.cu``) or raises;
+for a CPU tensor it runs the plain PyTorch version in ``ref.py``.  Each
+wrapper counts its kernel launches in a plain integer attribute,
+``launches``, so a run can show that its main path went through the
+kernel.
 """
 from __future__ import annotations
 
@@ -13,19 +15,25 @@ from typing import Optional, Tuple
 import torch
 
 from ._build import load_library
-from .ref import banded_minplus_chain_ref, banded_minplus_ref
+from .ref import (banded_minplus_chain_kbest_ref, banded_minplus_chain_ref,
+                  banded_minplus_ref)
 
 #: node and depth counts the kernel accepts (a block holds at least one
 #: scenario's two (N, G+1) grids in shared memory).  The solver needs
 #: N <= 5 and G+1 <= 26; the kernel tests go up to N = 23 and G+1 = 131.
 MAX_NODES = 32
 MAX_DEPTHS = 256
+#: shared memory a block may opt into on Hopper; B3 needs one scenario's
+#: two k-slot grids, their parents and one layer's E / st to fit in it.
+MAX_SMEM_BYTES = 232448
 
 _DTYPES = (torch.float64, torch.float32)
 
 
-def _launch_chain(dist: torch.Tensor, E: torch.Tensor, st: torch.Tensor,
-                  lo: Optional[int]) -> Tuple[torch.Tensor, torch.Tensor]:
+def _check_chain_inputs(dist: torch.Tensor, E: torch.Tensor,
+                        st: torch.Tensor) -> Tuple[int, int, int, int]:
+    """(B, L, N, G+1) of a chain launch; raises on what the kernels do not
+    take."""
     if dist.dim() != 3 or E.dim() != 4:
         raise ValueError(f"expected dist [B, N, G+1] and E/st [B, L, N, N], "
                          f"got {tuple(dist.shape)}, {tuple(E.shape)}")
@@ -49,21 +57,31 @@ def _launch_chain(dist: torch.Tensor, E: torch.Tensor, st: torch.Tensor,
                          f"1 <= G+1 <= {MAX_DEPTHS}, got N={N}, G+1={Gp1}")
     if B >= 2 ** 31:
         raise ValueError(f"batch of {B} rows exceeds the kernel's int32 count")
+    return B, L, N, Gp1
+
+
+def _launch(name: str, device: torch.device, *args) -> None:
+    """Launch C entry point ``name`` on ``device``'s current stream; a
+    refused launch raises (it never ran, and no synchronize reports it)."""
+    fn = load_library().fn(name)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = fn(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+
+
+def _launch_chain(dist: torch.Tensor, E: torch.Tensor, st: torch.Tensor,
+                  lo: Optional[int]) -> Tuple[torch.Tensor, torch.Tensor]:
+    B, L, N, Gp1 = _check_chain_inputs(dist, E, st)
     hist = torch.empty((B, L, N, Gp1), dtype=dist.dtype, device=dist.device)
     arg = torch.empty((B, L, N, Gp1), dtype=torch.int32, device=dist.device)
     if B == 0 or L == 0:
         return hist, arg
-    lib = load_library().lib
-    fn = lib.banded_chain_f64 if dist.dtype == torch.float64 \
-        else lib.banded_chain_f32
-    with torch.cuda.device(dist.device):
-        stream = torch.cuda.current_stream(dist.device).cuda_stream
-        rc = fn(dist.data_ptr(), E.data_ptr(), st.data_ptr(),
-                hist.data_ptr(), arg.data_ptr(), B, L, N, Gp1,
-                -1 if lo is None else int(lo), stream)
-    if rc != 0:
-        raise RuntimeError(f"banded minplus kernel launch failed: CUDA error "
-                           f"{rc}")
+    _launch("banded_chain_f64" if dist.dtype == torch.float64
+            else "banded_chain_f32", dist.device, dist.data_ptr(),
+            E.data_ptr(), st.data_ptr(), hist.data_ptr(), arg.data_ptr(), B,
+            L, N, Gp1, -1 if lo is None else int(lo))
     return hist, arg
 
 
@@ -114,3 +132,55 @@ def banded_minplus_argmin(dist: torch.Tensor, E: torch.Tensor,
 
 
 banded_minplus_argmin.launches = 0
+
+
+def kbest_smem_bytes(N: int, Gp1: int, K: int, dtype: torch.dtype) -> int:
+    """Shared memory of one scenario in the B3 kernel: two k-slot grids,
+    the parents' pool indices and one layer's E and st."""
+    item = torch.finfo(dtype).bits // 8
+    return N * Gp1 * K * (2 * item + 4) + N * N * (item + 4)
+
+
+def banded_minplus_chain_kbest(dist: torch.Tensor, E: torch.Tensor,
+                               st: torch.Tensor, K: int, *,
+                               lo: Optional[int] = None
+                               ) -> Tuple[torch.Tensor, torch.Tensor,
+                                          torch.Tensor]:
+    """Chained banded k-slot relaxation: the K cheapest paths per state (B3).
+
+    dist: [B, N, G+1] init grids; E: [B, L, N, N] in dist's dtype (+inf =
+    pruned); st: [B, L, N, N] int32 steepness; ``lo`` the lambda window or
+    None -> (hist [B, L, N, G+1, K], the k-slot grid after each layer, and
+    par_n / par_k [B, L, N, G+1, K] int32, the source node and slot of each
+    entry, -1 where a slot is unused).  Slot order is that of a stable
+    ascending sort of the node-major, slot-minor candidate pool.  float64
+    and float32.
+    """
+    if K < 1:
+        raise ValueError(f"K must be >= 1, got {K}")
+    if dist.device.type == "cpu":
+        return banded_minplus_chain_kbest_ref(dist, E, st, K, lo=lo)
+    if dist.device.type != "cuda":
+        raise ValueError(f"no banded minplus kernel for device {dist.device}")
+    B, L, N, Gp1 = _check_chain_inputs(dist, E, st)
+    need = kbest_smem_bytes(N, Gp1, K, dist.dtype)
+    if need > MAX_SMEM_BYTES:
+        raise ValueError(f"the k-slot kernel holds one scenario's grids in "
+                         f"shared memory: N={N}, G+1={Gp1}, K={K} in "
+                         f"{dist.dtype} need {need} B > {MAX_SMEM_BYTES} B")
+    shape = (B, L, N, Gp1, K)
+    hist = torch.empty(shape, dtype=dist.dtype, device=dist.device)
+    par_n = torch.empty(shape, dtype=torch.int32, device=dist.device)
+    par_k = torch.empty(shape, dtype=torch.int32, device=dist.device)
+    if B == 0 or L == 0:
+        return hist, par_n, par_k
+    _launch("banded_chain_kbest_f64" if dist.dtype == torch.float64
+            else "banded_chain_kbest_f32", dist.device, dist.data_ptr(),
+            E.data_ptr(), st.data_ptr(), hist.data_ptr(), par_n.data_ptr(),
+            par_k.data_ptr(), B, L, N, Gp1, int(K),
+            -1 if lo is None else int(lo))
+    banded_minplus_chain_kbest.launches += 1
+    return hist, par_n, par_k
+
+
+banded_minplus_chain_kbest.launches = 0

@@ -1,11 +1,13 @@
 """Plain PyTorch versions of the banded minplus kernels.
 
-They follow the float64 numpy engine of the reference
-(``repro/core/bellman_ford.py:347-448``): gather every candidate from a
-distance grid padded with one +inf sentinel column, add the edge energy
-(one IEEE add per candidate), then take the min and the first-occurrence
-argmin over the source-node axis.  The CPU path of the port runs on them,
-and the CUDA kernels are held bit-equal to them on the card.
+They follow the float64 numpy engines of the reference
+(``repro/core/bellman_ford.py:347-511``): gather every candidate from a
+distance grid padded with one +inf sentinel column and add the edge energy
+(one IEEE add per candidate); then take the min and the first-occurrence
+argmin over the source-node axis (B1), or keep the first K of a stable
+ascending sort of the source-node-major, slot-minor pool (B3).  The CPU
+path of the port runs on them, and the CUDA kernels are held bit-equal to
+them on the card.
 """
 from __future__ import annotations
 
@@ -70,3 +72,44 @@ def banded_minplus_ref(dist: torch.Tensor, E: torch.Tensor, st: torch.Tensor,
     hist, arg = banded_minplus_chain_ref(dist[None], E[None, None],
                                          st[None, None], lo=lo)
     return hist[0, 0], arg[0, 0]
+
+
+def banded_minplus_chain_kbest_ref(dist: torch.Tensor, E: torch.Tensor,
+                                   st: torch.Tensor, K: int, *,
+                                   lo: Optional[int] = None
+                                   ) -> Tuple[torch.Tensor, torch.Tensor,
+                                              torch.Tensor]:
+    """Chained banded k-slot relaxation (plain version of the B3 kernel).
+
+    dist: [B, N, G+1] init grids (slot 0; the other K-1 slots start at
+    +inf); E: [B, L, N, N] (+inf = pruned); st: [B, L, N, N] int steepness.
+    Returns (hist [B, L, N, G+1, K] in dist's dtype, the k-slot grid after
+    each layer, and par_n / par_k [B, L, N, G+1, K] int32, -1 where a slot
+    is unused).  Per target state the pool is (source node, source slot) in
+    node-major, slot-minor order; a stable sort keeps its K smallest, as the
+    reference's ``batched_banded_relax_kbest`` does.
+    """
+    B, N, Gp1 = dist.shape
+    L = E.shape[1]
+    shape = (B, L, N, Gp1, K)
+    hist = torch.empty(shape, dtype=dist.dtype, device=dist.device)
+    par_n = torch.empty(shape, dtype=torch.int32, device=dist.device)
+    par_k = torch.empty(shape, dtype=torch.int32, device=dist.device)
+    pad = torch.full((B, N, Gp1 + 1, K), float("inf"), dtype=dist.dtype,
+                     device=dist.device)
+    pad[:, :, :Gp1, 0] = dist
+    for l in range(L):
+        idx = banded_gather_idx(st[:, l], Gp1, lo).long()   # (B, N, N, G+1)
+        cand = torch.gather(pad[:, :, None].expand(B, N, N, Gp1 + 1, K), 3,
+                            idx[..., None].expand(B, N, N, Gp1, K))
+        cand = cand + E[:, l, :, :, None, None]         # (B, src, tgt, G+1, K)
+        pool = cand.permute(0, 1, 4, 2, 3).reshape(B, N * K, N, Gp1)
+        val, sel = torch.sort(pool, dim=1, stable=True)
+        d = val[:, :K].permute(0, 2, 3, 1)               # (B, N, G+1, K)
+        src = sel[:, :K].permute(0, 2, 3, 1)
+        ok = torch.isfinite(d)
+        hist[:, l] = d
+        par_n[:, l] = torch.where(ok, src // K, -1)
+        par_k[:, l] = torch.where(ok, src % K, -1)
+        pad[:, :, :Gp1] = d
+    return hist, par_n, par_k

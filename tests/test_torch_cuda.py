@@ -1,29 +1,39 @@
-"""The port's hand-written CUDA kernel and solver on the card.
+"""The port's hand-written CUDA kernels, solver and plan IR on the card.
 
-Every test here needs a CUDA card and ``nvcc`` (the kernel has no CPU or
+Every test here needs a CUDA card and ``nvcc`` (the kernels have no CPU or
 interpret mode) and skips, from a fixture, where there is none.  The file
 imports only the port, so it also runs on a machine without JAX:
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-The kernel must be bit-equal, distances and parents, to its plain PyTorch
-version on the same device (every candidate is one IEEE add and the min
-does not depend on order), and the solver on CUDA must equal its CPU path.
+The kernels must be bit-equal, distances and parents, to their plain
+PyTorch versions on the same device (every candidate is one IEEE add, the
+min does not depend on order, and the k-slot order is that of a stable
+sort), and the solver and the plan IR on CUDA must equal their CPU path.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 import repro_torch as T
 from repro_torch.core.bellman_ford import kernel_inputs
+from repro_torch.kernels.minplus import ops
 from repro_torch.kernels.minplus.ops import (banded_minplus_argmin,
-                                             banded_minplus_chain)
-from repro_torch.kernels.minplus.ref import (banded_minplus_chain_ref,
+                                             banded_minplus_chain,
+                                             banded_minplus_chain_kbest)
+from repro_torch.kernels.minplus.ref import (banded_minplus_chain_kbest_ref,
+                                             banded_minplus_chain_ref,
                                              banded_minplus_ref)
 
 # (B, L, N, G+1): a single state, the solver's width, the reference kernel
 # tests' widest N and deepest G+1
 CARD_SHAPES = [(1, 1, 4, 4), (64, 4, 5, 26), (8, 2, 23, 26), (4, 4, 8, 131)]
+# (B, L, N, G+1, K) of the k-slot kernel: a single state, the solver's width
+# at K = 4 and 32, and a wider node count at K = 32
+KBEST_SHAPES = [(1, 1, 4, 4, 1), (64, 4, 5, 26, 4), (8, 2, 8, 11, 32),
+                (4, 4, 5, 26, 32)]
 
 pytestmark = pytest.mark.cuda
 
@@ -97,3 +107,82 @@ def test_solve_many_on_card_equals_cpu_path(cuda_device, backend):
             {k: v for k, v in w.meta.items() if k != "batch_time"}
         if w.found:
             assert g.config == w.config and g.eval == w.eval
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("lo", [None, 2])
+@pytest.mark.parametrize("B,L,N,Gp1,K", KBEST_SHAPES)
+def test_kbest_kernel_bit_equal_to_plain_on_card(cuda_device, B, L, N, Gp1,
+                                                 K, lo, dtype):
+    d, Ek, st = _problem(B, L, N, Gp1, B + L + N + Gp1 + K, dtype,
+                         cuda_device)
+    n0 = banded_minplus_chain_kbest.launches
+    got = banded_minplus_chain_kbest(d, Ek, st, K, lo=lo)
+    assert banded_minplus_chain_kbest.launches == n0 + 1
+    want = banded_minplus_chain_kbest_ref(d, Ek, st, K, lo=lo)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_kbest_kernel_at_one_slot_equals_chain_kernel(cuda_device, dtype):
+    d, Ek, st = _problem(64, 4, 5, 26, 3, dtype, cuda_device)
+    hist, pn, pk = banded_minplus_chain_kbest(d, Ek, st, 1)
+    h1, p1 = banded_minplus_chain(d, Ek, st)
+    assert torch.equal(hist[..., 0], h1) and torch.equal(pn[..., 0], p1)
+    assert torch.equal(pk[..., 0], torch.where(p1 >= 0, 0, -1).int())
+
+
+def test_kbest_kernel_raises_beyond_shared_memory(cuda_device):
+    d, Ek, st = _problem(2, 2, 5, 26, 0, torch.float64, cuda_device)
+    K = 1
+    while ops.kbest_smem_bytes(5, 26, K, torch.float64) <= ops.MAX_SMEM_BYTES:
+        K += 1
+    n0 = banded_minplus_chain_kbest.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        banded_minplus_chain_kbest(d, Ek, st, K)
+    assert banded_minplus_chain_kbest.launches == n0
+
+
+@pytest.mark.parametrize("backend", ["minplus", "f32"])
+def test_kbest_solve_many_on_card_equals_cpu_path(cuda_device, backend):
+    ps, ns, rs = T.sweep_scenarios(deltas_ms=(1.5, 5.0), uplinks_bps=(0.3e9,
+                                                                     1e9),
+                                   n_extra_edge=2)
+    n0 = banded_minplus_chain_kbest.launches
+    got = T.solve_many(ps, ns, rs, gamma=10, n_best=4, backend=backend,
+                       device=cuda_device)
+    assert banded_minplus_chain_kbest.launches > n0
+    want = T.solve_many(ps, ns, rs, gamma=10, n_best=4, backend=backend,
+                        device="cpu")
+    for g, w in zip(got, want):
+        assert g.found == w.found
+        if w.found:
+            assert g.config == w.config and g.eval == w.eval
+
+
+@pytest.mark.parametrize("n_best", [1, 4])
+def test_plan_deltas_on_card_equal_cpu_path(cuda_device, n_best):
+    nw = T.paper_scenario(n_extra_edge=2)
+    pf = T.paper_profile("h2")
+    req = T.AppRequirements(0.55, 5e-3)
+    plans = [T.Plan(nw, pf, req, n_best=n_best, device=dev)
+             for dev in (cuda_device, "cpu")]
+    rng = np.random.default_rng(2)
+    for t in range(8):
+        bps = float(rng.uniform(0.3, 1.0)) * 1e9
+        for p in plans:
+            if t % 4 == 3:
+                p.update_slice(0.8)
+            elif t % 4 == 2:
+                p.update_backhaul(1.3)
+            else:
+                p.update_uplink(bps)
+        got, want = (p.solve() for p in plans)
+        assert got.config == want.config and got.eval == want.eval
+        assert dataclasses.asdict(plans[0].stats) == \
+            dataclasses.asdict(plans[1].stats)
+    for f in ("C", "T", "E", "TT", "mask", "init_T", "init_E", "init_mask"):
+        assert torch.equal(getattr(plans[0].ext, f).cpu(),
+                           getattr(plans[1].ext, f))

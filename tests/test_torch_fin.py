@@ -231,13 +231,17 @@ def test_unported_backends_raise(scenario, backend):
 
 
 def test_n_best_outside_one_raises(scenario):
+    """Only a slot count below one raises: n_best > 1 is the k-best DP
+    (``test_torch_frontier.py``)."""
     _, nw = scenario
     pf = profile_from(R.paper_profile("h6"))
     req = requirements_from(0.5, 5e-3)
-    with pytest.raises(ValueError, match="not ported"):
-        T.solve_fin(nw, pf, req, n_best=2, device=CPU)
-    with pytest.raises(ValueError, match="n_best"):
-        T.solve_many(pf, nw, req, n_best=0, device=CPU)
+    for bad in (0, -3):
+        with pytest.raises(ValueError, match="n_best"):
+            T.solve_fin(nw, pf, req, n_best=bad, device=CPU)
+        with pytest.raises(ValueError, match="n_best"):
+            T.solve_many(pf, nw, req, n_best=bad, device=CPU)
+    assert T.solve_fin(nw, pf, req, n_best=2, device=CPU).found
 
 
 def test_solve_many_broadcast_length_mismatch_raises(scenario):
