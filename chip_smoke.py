@@ -1,25 +1,31 @@
-"""Drive the PyTorch port of the FIN placement solver on one CUDA card.
+"""Drive the PyTorch port of the FIN placement system on one CUDA card.
 
 Run from the repository root:  python3 chip_smoke.py
 
-It builds the hand-written banded (min,+) kernels from ``src/repro_torch``
-(the argmin chain B1 and the k-slot chain B3, one ``nvcc`` per source, in
-parallel), holds them bit-equal to their plain PyTorch versions on the
-card, checks graph construction and the solver on CUDA against the port's
-CPU path, and drives each path of the port with the kernels' launch
-counters reset just before it and read just after:
+It builds every hand-written kernel of ``src/repro_torch`` (the banded
+(min,+) argmin chain B1 and k-slot chain B3, the exit gate B6 and the
+flash-decode attention B7; one ``nvcc`` per source, all in parallel), holds
+each against its plain PyTorch version on the card, checks graph
+construction and the solver on CUDA against the port's CPU path, and
+drives each path of the port with the kernels' launch counters reset just
+before it and read just after:
 
   [solve_many]        ``solve_many`` over the full-width 15,360-scenario grid;
   [solve_many_kbest]  the same grid with ``n_best=4`` (the k-slot chain);
   [plan]              768 ``Plan``s through 8 ticks of AR(1) uplink fading
                       and one tick of mask / slice / backhaul deltas;
-  [frontier]          96 ``Plan(n_best=4).frontier()`` calls.
+  [frontier]          96 ``Plan(n_best=4).frontier()`` calls;
+  [serve]             ``SplitServeEngine`` on qwen3-4b at full width in bf16
+                      (random weights from a seed): 16 requests, then a
+                      ``serve_with_churn`` trace with a node failure and its
+                      recovery (B1 through the engine's Plan, B6, B7);
+  [serve_parity]      qwen3-4b widths at 3 layers in float32: the engine and
+                      ``decode_step`` on CUDA against the port's CPU path.
 
-It then times the kernels at the main path's largest launch, relaxes 2^20
-scenario rows at population size, and prints the kernels JSON line
-followed by the final status line.  Every failing phase raises; without a
-CUDA card, or without the repository beside it, it exits non-zero and
-prints no result.
+It then times the kernels at their paths' shapes, relaxes 2^20 scenario
+rows at population size, and prints the kernels JSON line followed by the
+final status line.  Every failing phase raises; without a CUDA card, or
+without the repository beside it, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
@@ -39,6 +45,22 @@ PEAK_OPS_PER_S = {"float64": 34e12, "float32": 67e12}
 
 KERNEL_SOURCE = "src/repro_torch/kernels/minplus/csrc/banded_minplus.cu"
 KBEST_SOURCE = "src/repro_torch/kernels/minplus/csrc/banded_minplus_kbest.cu"
+GATE_SOURCE = "src/repro_torch/kernels/ee_gate/csrc/ee_gate.cu"
+ATTN_SOURCE = "src/repro_torch/kernels/decode_attn/csrc/decode_attn.cu"
+# (B, V) of the exit-gate checks; the qwen3-4b padded vocab has a -inf tail
+# of 153,600 - 151,936 = 1,664 columns
+GATE_SHAPES = [(1, 128), (5, 5000), (4, 153600), (16, 50304)]
+VOCAB_TAIL = 1664
+# (B, H, KV, D, T) of the attention checks: tests/test_kernels.py's four and
+# qwen3-4b's decode shape
+ATTN_SHAPES = [(1, 4, 4, 32, 128), (2, 8, 2, 64, 256), (1, 8, 1, 64, 300),
+               (3, 4, 2, 16, 64), (4, 32, 8, 80, 256)]
+SERVE_ARCH = "qwen3-4b"
+SERVE_BATCH = 4
+SERVE_CACHE = 256
+SERVE_REQUESTS = 16
+SERVE_NEW = 8
+SERVE_PROMPT = 3
 CARD_SHAPES = [(1, 1, 4, 4), (64, 4, 5, 26), (8, 2, 23, 26), (4, 4, 8, 131)]
 # (B, L, N, G+1, K) of the k-slot kernel checks
 KBEST_SHAPES = [(1, 1, 4, 4, 1), (64, 4, 5, 26, 4), (8, 2, 8, 11, 32),
@@ -237,7 +259,7 @@ def phase_profile(grid, dev, wall_s, n_best=1):
 
 def phase_environment():
     import torch
-    from repro_torch.kernels.minplus._build import load_library
+    from repro_torch.kernels._build import load_library
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60)
@@ -657,6 +679,28 @@ def phase_frontier(dev, counters):
         f"{wall_cpu:.3f}")
 
 
+def phase_dense_bounds(grid):
+    """Bounds of the unported dense kernels B4 (``minplus_argmin_pallas``)
+    and B5 (``minplus_pallas``) at the shapes the reference's ``dense``
+    path passes them on the full-width grid: one [1, S] x [S, S] float32
+    product per (scenario, layer) of the main and the ceil pass, S =
+    N * (G+1).  Computed from shapes, not measured: nothing launches."""
+    ps, ns, _ = grid
+    N, S = ns[0].n_nodes, ns[0].n_nodes * (GAMMA + 1)
+    pairs = 2 * sum(p.n_blocks - 1 for p in ps)
+    for name, outs, ops in (("B5 minplus", S, 2 * S * S),
+                            ("B4 minplus_argmin", 2 * S, 3 * S * S)):
+        nbytes = 4 * (S + S * S + outs)
+        t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS_PER_S["float32"]
+        bound = max(t_b, t_o) * 1e3
+        log("bounds", f"{name} f32 [1, {S}] x [{S}, {S}] (N = {N}, G+1 = "
+            f"{GAMMA + 1}): {nbytes} B and {ops} ops a launch, bound "
+            f"{bound:.3g} ms by {'bytes' if t_b >= t_o else 'operations'}; "
+            f"{pairs} launches on the {len(ps)}-scenario grid (main + ceil "
+            f"pass): {pairs * bound:.4f} ms, {pairs * nbytes} B (computed "
+            f"from shapes, not measured)")
+
+
 def phase_kernel_times(grid, dev, err):
     """Kernel, plain and bound at the main path's largest launch: round 0's
     five-block group (floor and ceil graphs of h1-h4) in float64.  Returns
@@ -788,17 +832,415 @@ def phase_population(grid, dev):
         del hist, par, hist_p, par_p, Ek, st, d
 
 
+# ---------------------------------------------------------------------------
+# serving: B6, B7 and the split-serving engine
+# ---------------------------------------------------------------------------
+
+def _rel_err(a, b) -> float:
+    return float(((a.double() - b.double()).abs() / b.double().abs()).max())
+
+
+def phase_kernels_serve(dev):
+    """B6 and B7 against their plain versions on the card, f32 and bf16."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.decode_attn.ops import decode_attn
+    from repro_torch.kernels.decode_attn.ref import decode_attn_ref
+    from repro_torch.kernels.ee_gate.ops import ee_gate
+    from repro_torch.kernels.ee_gate.ref import ee_gate_ref
+    err = {"ee_gate": 0.0, "decode_attn": 0.0}
+    for B, V in GATE_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            for tail in (0, min(VOCAB_TAIL, V // 4)):
+                x = np.random.default_rng(B + V).normal(size=(B, V)) * 4
+                x[:, V - tail:] = -np.inf
+                x = torch.as_tensor(x, dtype=torch.float32,
+                                    device=dev).to(dtype)
+                conf, arg = ee_gate(x)
+                conf_p, arg_p = ee_gate_ref(x)
+                torch.cuda.synchronize()
+                rel = _rel_err(conf, conf_p)
+                tag = f"B6 {(B, V)} {dtype} tail={tail}"
+                check(rel <= 1e-5, f"{tag}: conf off by {rel:.3g} relative "
+                      f"(> 1e-5)")
+                check(torch.equal(arg, arg_p), f"{tag}: argmax differs")
+                err["ee_gate"] = max(err["ee_gate"],
+                                     max_abs_err(conf, conf_p))
+                log("kernels_serve", f"{tag}: conf within {rel:.3g} "
+                    f"relative, argmax equal")
+    cases = [(s, 0) for s in ATTN_SHAPES] + [((1, 4, 2, 32, 256), w)
+                                             for w in (16, 64)]
+    for (B, H, KV, D, T), window in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            rng = np.random.default_rng(B + H + T + window)
+            q, k, v = (torch.as_tensor(rng.normal(size=s), dtype=torch.float32,
+                                       device=dev).to(dtype)
+                       for s in ((B, H, D), (B, T, KV, D), (B, T, KV, D)))
+            cpos = torch.arange(T, dtype=torch.int32, device=dev)
+            cpos[T - T // 4:] = -1                  # empty ring slots
+            pos = T - T // 4 - 3                    # and future ones
+            got = decode_attn(q, k, v, cpos, pos, window=window)
+            want = decode_attn_ref(q, k, v, cpos, pos, window=window)
+            torch.cuda.synchronize()
+            tol = 2e-5 if dtype == torch.float32 else 2e-2
+            e = max_abs_err(got.float(), want.float())
+            ok = bool(((got.float() - want.float()).abs()
+                       <= tol + tol * want.float().abs()).all())
+            tag = f"B7 {(B, H, KV, D, T)} {dtype} window={window}"
+            check(ok, f"{tag}: off by {e:.3g} (rtol = atol = {tol})")
+            err["decode_attn"] = max(err["decode_attn"], e)
+            log("kernels_serve", f"{tag}: max_abs_err {e:.3g} within "
+                f"rtol = atol = {tol}")
+    return err
+
+
+def _serve_cfg(**overrides):
+    import dataclasses
+    from repro_torch.configs import get
+    return dataclasses.replace(get(SERVE_ARCH), **overrides)
+
+
+def _probe_thresholds(params, cfg, dev, n=64):
+    """Exit thresholds from one probe step: the median confidence of each
+    early exit over ``n`` seeded tokens at position 0, so that at random
+    init (confidences near 1/vocab) early and late exits both fire."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.ee_gate.ops import ee_gate
+    from repro_torch.models import transformer as TT
+    caches = TT.init_caches(cfg, n, 8, device=dev)
+    toks = torch.as_tensor(np.random.default_rng(7).integers(
+        0, cfg.vocab_size, (n, 1)), device=dev)
+    _, _, exits = TT.decode_step(params, cfg, toks, caches, 0)
+    confs = {name: ee_gate(x)[0].cpu().numpy() for name, x in exits.items()}
+    del caches
+    return [float(np.median(confs[f"exit_{p}"])) for p in cfg.exit_layer_list]
+
+
+def _serve_engine(cfg, params, dev, thresholds, cache_len=SERVE_CACHE):
+    import repro_torch as T
+    from repro_torch.runtime.serve_engine import SplitServeEngine
+    return SplitServeEngine(
+        cfg, params, batch_size=SERVE_BATCH, cache_len=cache_len,
+        thresholds=thresholds, network=T.paper_scenario(),
+        profile=T.paper_profile("h2"),
+        req=T.AppRequirements(alpha=0.55, delta=8e-3), device=dev)
+
+
+def _churn_ticks(victim):
+    """Six ticks of AR(1) uplink fading (``churn_trace``, seed 5) with a
+    failure of ``victim`` at tick 1 and its recovery at tick 3."""
+    from repro_torch.core.scenarios import ChurnEvent, churn_trace
+    trace = churn_trace(1, 6, seed=5)
+    trace[1].append(ChurnEvent("fail", None, victim))
+    trace[3].append(ChurnEvent("recover", None, victim))
+    return trace
+
+
+def _weight_bytes(params, cfg):
+    """Bytes one decode step must read: every layer's weights once, the LM
+    head once per head (the exits are tied to it) and the norms."""
+    from repro_torch.models import transformer as TT
+    layers = sum(x.numel() * x.element_size()
+                 for x in TT._tree_leaves(params["layers"]))
+    w = TT._lm_head_params(params, cfg)["w"]
+    head = w.numel() * w.element_size()
+    return layers, head, layers + (len(cfg.exit_layer_list) + 1) * head
+
+
+def phase_serve(dev, counters):
+    """The serving path: qwen3-4b at full width in bf16 through the engine,
+    16 requests, then a churn trace with a failure and a recovery."""
+    import dataclasses
+    import torch
+    from repro_torch.models import transformer as TT
+    from repro_torch.runtime.serve_engine import serve_with_churn
+    cfg = _serve_cfg()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = TT.init_model(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    n_params = TT.param_count(params)
+    layer_b, head_b, step_b = _weight_bytes(params, cfg)
+    log("serve", f"{cfg.name}: {cfg.n_layers} layers d_model {cfg.d_model} "
+        f"heads {cfg.n_heads}/{cfg.n_kv_heads} head_dim {cfg.head_dim_} d_ff "
+        f"{cfg.d_ff} vocab {cfg.vocab_size} (padded {cfg.padded_vocab}) "
+        f"{cfg.dtype}, exits after periods {cfg.exit_layer_list}; "
+        f"{n_params} parameters drawn in {t_init:.3f} s; "
+        f"max_memory_allocated {torch.cuda.max_memory_allocated()} B")
+    thresholds = _probe_thresholds(params, cfg, dev)
+    log("serve", f"thresholds from a 64-token probe step (median conf per "
+        f"early exit): {thresholds}")
+
+    for c in counters:
+        c.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng = _serve_engine(cfg, params, dev, thresholds)
+    t_build = time.perf_counter() - t0
+    reqs = [eng.submit([1 + i % 7] + list(range(2, SERVE_PROMPT + 1)),
+                       SERVE_NEW) for i in range(SERVE_REQUESTS)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stats = eng.run(max_steps=1000)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    steps_run = stats.steps
+    check(all(r.done and len(r.tokens) == SERVE_NEW for r in reqs),
+          "serve: a request did not end with its tokens")
+    placement0 = list(eng.placement.placement)
+    # churn: a failure and a recovery of a non-source node mid-serving
+    src = eng.plan.network.source_node
+    victim = next((n for n in placement0 if n != src), 1)
+    more = [eng.submit([1 + i % 7, 2, 3], SERVE_NEW) for i in range(4)]
+    t0 = time.perf_counter()
+    reports = serve_with_churn(eng, _churn_ticks(victim), steps_per_tick=2)
+    eng.run(max_steps=1000)
+    torch.cuda.synchronize()
+    wall_churn = time.perf_counter() - t0
+    launches = {c.__name__: c.launches for c in counters}
+    st = eng.stats
+    check(all(r.done and len(r.tokens) == SERVE_NEW for r in more),
+          "serve: a request under churn did not end with its tokens")
+    check(sum(r["n_fail"] for r in reports) == 1
+          and sum(r["n_recover"] for r in reports) == 1,
+          "serve: the churn trace did not fail and recover one node")
+    check(st.contingency_hits + st.contingency_misses == 2,
+          "serve: the failure and the recovery did not go through the "
+          "contingency protocol")
+    check(launches["ee_gate"] == (len(cfg.exit_layer_list) + 1) * st.steps,
+          f"serve: B6 launched {launches['ee_gate']} times in {st.steps} "
+          f"steps, not {len(cfg.exit_layer_list) + 1} a step")
+    check(launches["decode_attn"] == cfg.n_layers * st.steps,
+          f"serve: B7 launched {launches['decode_attn']} times in "
+          f"{st.steps} steps, not {cfg.n_layers} a step")
+    check(launches["banded_minplus_chain"] > 0,
+          "serve: the engine's Plan did not launch B1")
+    check(len(st.exit_histogram) >= 2,
+          f"serve: one exit taken only ({st.exit_histogram})")
+    ms_step = wall / steps_run * 1e3
+    tok_s = SERVE_REQUESTS * SERVE_NEW / wall
+    bound_ms = step_b / HBM_BYTES_PER_S * 1e3
+    log("serve", f"engine built in {t_build:.3f} s (Plan, frontier, "
+        f"contingency library); {SERVE_REQUESTS} requests x {SERVE_NEW} "
+        f"tokens in {steps_run} steps, {wall:.3f} s wall (host clock, ending"
+        f" in synchronize): {ms_step:.3f} ms/step, {tok_s:.1f} tokens/s")
+    log("serve", f"byte bound of a step: {step_b} B (layers {layer_b} B + "
+        f"{len(cfg.exit_layer_list) + 1} x head {head_b} B) / 3.35 TB/s = "
+        f"{bound_ms:.4f} ms, {SERVE_BATCH / bound_ms * 1e3:.1f} tokens/s at "
+        f"B = {SERVE_BATCH}; the step takes {ms_step / bound_ms:.2f}x the "
+        f"bound")
+    log("serve", f"churn: {len(reports)} ticks, victim node {victim}, "
+        f"reports {reports}; {wall_churn:.3f} s with {st.steps - steps_run} "
+        f"more steps")
+    log("serve", f"kernel launches on the path {launches} over "
+        f"{st.steps} steps: B6 {launches['ee_gate'] / st.steps:.0f} and B7 "
+        f"{launches['decode_attn'] / st.steps:.0f} per step")
+    log("serve", f"placement {placement0} -> {list(eng.placement.placement)}"
+        f" (final exit {eng.placement.final_exit}); exit histogram "
+        f"{dict(sorted(st.exit_histogram.items()))}; stats "
+        f"{dataclasses.asdict(st)}")
+    prof = profile_serve(eng, dev)
+    return params, cfg, launches, dict(ms_step=ms_step, tok_s=tok_s,
+                                       bound_ms=bound_ms, **prof)
+
+
+def profile_serve(eng, dev, steps=6):
+    """Where a decode step's time goes: torch.profiler over ``steps``
+    engine steps, device time by kernel family, against the steps' wall."""
+    import torch
+    from torch.autograd import DeviceType
+    for i in range(SERVE_BATCH):
+        eng.submit([1 + i, 2, 3], 64)
+    for _ in range(4):                    # past the prompts
+        eng.step()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    t0 = time.perf_counter()
+    with torch.profiler.profile(activities=acts) as tp:
+        for _ in range(steps):
+            eng.step()
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    events = [e for e in tp.key_averages() if e.device_type != DeviceType.CPU]
+    busy = sum(e.self_device_time_total for e in events) / 1e3     # ms
+    if busy <= 0:
+        log("serve_profile", "device time: not measured (the profiler saw "
+            "no device time)")
+        return {}
+    fam = {"matmul": 0.0, "B7 decode_attn": 0.0, "B6 ee_gate": 0.0,
+           "copies": 0.0, "other": 0.0}
+    for e in events:
+        k = e.key.lower()
+        t = e.self_device_time_total / 1e3
+        if "decode_attn" in k:
+            fam["B7 decode_attn"] += t
+        elif "ee_gate" in k:
+            fam["B6 ee_gate"] += t
+        elif "memcpy" in k or "memset" in k:
+            fam["copies"] += t
+        elif any(w in k for w in ("gemm", "gemv", "sm90", "cutlass", "matmul",
+                                  "splitk", "xmma", "cublas", "nvjet")):
+            fam["matmul"] += t
+        else:
+            fam["other"] += t
+    per = {k: v / steps for k, v in fam.items()}
+    # host time blocked in the gates' device -> host copies (each .cpu()
+    # waits for the step's queued kernels): the runtime calls that block
+    sync = sum(e.self_cpu_time_total for e in tp.key_averages()
+               if e.device_type == DeviceType.CPU
+               and ("Synchronize" in e.key or "cudaMemcpy" in e.key)) / 1e3
+    log("serve_profile", f"{steps} steps under torch.profiler: wall "
+        f"{wall / steps * 1e3:.3f} ms/step, device busy {busy / steps:.3f} "
+        f"ms/step ({busy / (wall * 1e3):.1%}, idle "
+        f"{1 - busy / (wall * 1e3):.1%}); host blocked in syncs / copies "
+        f"{sync / steps:.3f} ms/step; device per step "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in per.items()))
+    for e in sorted(events, key=lambda e: e.self_device_time_total,
+                    reverse=True)[:8]:
+        log("serve_profile", f"device {e.key[:80]}: "
+            f"{e.self_device_time_total / 1e3 / steps:.4f} ms/step over "
+            f"{e.count // steps} calls/step")
+    return dict(busy_ms=busy / steps, wall_prof_ms=wall / steps * 1e3,
+                sync_ms=sync / steps, split=per)
+
+
+def phase_serve_parity(dev):
+    """qwen3-4b widths at 3 layers (exits after periods 1 and 2) in float32:
+    decode_step logits within 1e-4 and the engine's tokens, exits and
+    EngineStats identical on CUDA and the CPU path, same weights."""
+    import dataclasses
+    import torch
+    from repro_torch.models import transformer as TT
+    # float32 products in full float32 on the card (no TF32), as on the CPU
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _serve_cfg(n_layers=3, exit_layers=(1, 2), dtype="float32")
+    params = TT.init_model(cfg, seed=1, device=dev)
+    cpu = TT.tree_to(params, "cpu")
+    worst = 0.0
+    caches = {w: TT.init_caches(cfg, SERVE_BATCH, 32, device=w)
+              for w in (dev, "cpu")}
+    for pos in range(4):
+        toks = torch.tensor([[1 + pos], [2], [3 + 2 * pos], [4]])
+        lg, _, eg = TT.decode_step(params, cfg, toks.to(dev), caches[dev], pos)
+        lc, _, ec = TT.decode_step(cpu, cfg, toks, caches["cpu"], pos)
+        for name, a, b in [("final", lg, lc)] + [(n, eg[n], ec[n])
+                                                 for n in ec]:
+            e = max_abs_err(a.cpu(), b)
+            check(e <= 1e-4, f"serve_parity step {pos} {name}: logits off by "
+                  f"{e:.3g} (> 1e-4)")
+            worst = max(worst, e)
+    thresholds = _probe_thresholds(params, cfg, dev)
+    runs = {}
+    for where, p in ((dev, params), ("cpu", cpu)):
+        eng = _serve_engine(cfg, p, where, thresholds, cache_len=64)
+        reqs = [eng.submit([1 + i % 7, 2, 3], 6) for i in range(8)]
+        t0 = time.perf_counter()
+        eng.run(max_steps=200)
+        torch.cuda.synchronize()
+        runs[str(where)] = ([(r.tokens, r.exits_taken) for r in reqs],
+                            dataclasses.asdict(eng.stats),
+                            list(eng.placement.placement),
+                            time.perf_counter() - t0)
+    (tg, sg, pg, wg), (tc, sc, pc, wc) = runs[str(dev)], runs["cpu"]
+    check(tg == tc, "serve_parity: token streams or exits differ between "
+          "CUDA and the CPU path")
+    check(sg == sc and pg == pc, "serve_parity: EngineStats or placement "
+          "differ between CUDA and the CPU path")
+    log("serve_parity", f"{cfg.n_layers} layers at {SERVE_ARCH} widths, f32:"
+        f" decode_step logits (final and 2 exits, 4 steps) within {worst:.3g}"
+        f" of the CPU path; engine (thresholds {thresholds}) tokens, exits, "
+        f"EngineStats and placement identical; exit histogram "
+        f"{sg['exit_histogram']}; wall s cuda {wg:.3f} cpu {wc:.3f}")
+    del params, cpu, caches
+
+
+def serve_times(params, cfg, dev, err):
+    """B6 and B7 at the serving path's shapes: CUDA-event means against the
+    bound, the plain version and one library call."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attn.ops import decode_attn
+    from repro_torch.kernels.decode_attn.ref import decode_attn_ref
+    from repro_torch.kernels.ee_gate.ops import ee_gate
+    from repro_torch.kernels.ee_gate.ref import ee_gate_ref
+    from repro_torch.models.layers import lm_head_apply
+    rows = []
+    # B6 on the final head's logits: [B, V_pad] float32 with the -inf tail
+    g = torch.Generator(device=dev).manual_seed(3)
+    h = torch.randn(SERVE_BATCH, cfg.d_model, generator=g, device=dev).to(
+        params["lm_head"]["w"].dtype)
+    x = lm_head_apply(params["lm_head"], h, cfg.vocab_size).contiguous()
+    ms = cuda_ms(lambda: ee_gate(x), 200, 10)
+    plain = cuda_ms(lambda: ee_gate_ref(x), 50, 5)
+    lib = cuda_ms(lambda: torch.softmax(x, -1).max(-1), 50, 5)
+    B, V = x.shape
+    nbytes = x.numel() * 4 + B * 8
+    ops = 4 * x.numel()          # clamp, subtract, exp, add per element
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS_PER_S["float32"]
+    bound, by = max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
+    log("times", f"B6 f32 {(B, V)}: kernel {ms:.4f} ms, plain {plain:.4f} ms,"
+        f" bound {bound:.6f} ms by {by} ({nbytes} B, {ops} ops, "
+        f"{nbytes / (ms * 1e-3) / 1e9:.1f} GB/s achieved); library "
+        f"softmax(x).max(-1), two calls, {lib:.4f} ms")
+    rows.append(dict(name="ee_gate", route="cuda", source=GATE_SOURCE,
+                     replaces="src/repro/kernels/ee_gate/ee_gate.py:60",
+                     launches=None, max_abs_err=err["ee_gate"], ms=ms,
+                     plain_ms=plain, bound_ms=bound, bound_by=by,
+                     library_ms=lib))
+    # B7 at one layer of the decode step: a full cache, pos = T - 1
+    H, KV, D, T = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_, SERVE_CACHE
+    dt = torch.bfloat16
+    q = torch.randn(SERVE_BATCH, H, D, generator=g, device=dev).to(dt)
+    k = torch.randn(SERVE_BATCH, T, KV, D, generator=g, device=dev).to(dt)
+    v = torch.randn(SERVE_BATCH, T, KV, D, generator=g, device=dev).to(dt)
+    cpos = torch.arange(T, dtype=torch.int32, device=dev)
+    pos = T - 1
+    ms7 = cuda_ms(lambda: decode_attn(q, k, v, cpos, pos), 200, 10)
+    plain7 = cuda_ms(lambda: decode_attn_ref(q, k, v, cpos, pos), 50, 5)
+    qs = q[:, :, None].contiguous()                  # [B, H, 1, D]
+    ks, vs = (t.transpose(1, 2).contiguous() for t in (k, v))  # [B, KV, T, D]
+    mask = ((cpos >= 0) & (cpos <= pos))[None, None, None, :]
+    sdpa = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask,
+                                          enable_gqa=True)
+    e = max_abs_err(sdpa[:, :, 0].float(), decode_attn(q, k, v, cpos,
+                                                       pos).float())
+    check(e <= 2e-2, f"B7 vs scaled_dot_product_attention off by {e:.3g}")
+    lib7 = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qs, ks, vs, attn_mask=mask, enable_gqa=True), 200, 10)
+    nbytes = (q.numel() * 2 * 2 + (k.numel() + v.numel()) * 2 + T * 4)
+    ops = 4 * SERVE_BATCH * H * T * D      # QK^T and PV, multiply + add
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS_PER_S["float32"]
+    bound7, by7 = max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
+    log("times", f"B7 bf16 q {tuple(q.shape)} cache {tuple(k.shape)}: kernel "
+        f"{ms7:.4f} ms, plain {plain7:.4f} ms, bound {bound7:.6f} ms by {by7} "
+        f"({nbytes} B, {ops} ops); library scaled_dot_product_attention "
+        f"(enable_gqa, bool mask) {lib7:.4f} ms, within {e:.3g} of B7")
+    rows.append(dict(name="decode_attn", route="cuda", source=ATTN_SOURCE,
+                     replaces="src/repro/kernels/decode_attn/decode_attn.py:72",
+                     launches=None, max_abs_err=err["decode_attn"], ms=ms7,
+                     plain_ms=plain7, bound_ms=bound7, bound_by=by7,
+                     library_ms=lib7))
+    return rows
+
+
 def main() -> int:
     _preflight()
     import torch
+    from repro_torch.kernels.decode_attn.ops import decode_attn
+    from repro_torch.kernels.ee_gate.ops import ee_gate
     from repro_torch.kernels.minplus.ops import (banded_minplus_argmin,
                                                  banded_minplus_chain,
                                                  banded_minplus_chain_kbest)
     dev = torch.device("cuda", 0)
+    # float32 products in full float32: the f32 comparisons against the CPU
+    # path ([serve_parity]) rest on it
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     counters = (banded_minplus_chain, banded_minplus_argmin,
-                banded_minplus_chain_kbest)
+                banded_minplus_chain_kbest, ee_gate, decode_attn)
 
     phase_environment()
     err = phase_kernels(dev)
@@ -818,6 +1260,17 @@ def main() -> int:
         row["launches"] = path[row["name"]]
         check(row["launches"] > 0, f"{row['name']}: no launch on its path")
     phase_population(grid, dev)
+    phase_dense_bounds(grid)
+    err_serve = phase_kernels_serve(dev)
+    params, cfg, launches_s, serve = phase_serve(dev, counters)
+    serve_rows = serve_times(params, cfg, dev, err_serve)
+    for row in serve_rows:
+        row["launches"] = launches_s[row["name"]]
+        check(row["launches"] > 0, f"{row['name']}: no launch on its path")
+    rows += serve_rows
+    del params
+    torch.cuda.empty_cache()
+    phase_serve_parity(dev)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

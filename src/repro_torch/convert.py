@@ -1,16 +1,19 @@
-"""Carry scenario state across: build the port's host objects from plain
-fields (numpy arrays and Python scalars).
+"""Carry scenario and model state across: build the port's host objects
+and model parameters from plain fields (numpy arrays and Python scalars).
 
 Another implementation's ``Network``, ``DNNProfile``, ``AppRequirements``
 or ``Config`` is handed over field by field, so both solve the same
 scenario; nothing here imports that implementation.  Arrays are copied as
-float64, so the port's graphs are built from byte-equal inputs.
+float64, so the port's graphs are built from byte-equal inputs.  A
+transformer's parameter tree (nested mappings of numpy arrays) becomes the
+port's parameters leaf by leaf (``transformer_params_from``).
 """
 from __future__ import annotations
 
 from typing import Mapping, Optional, Sequence
 
 import numpy as np
+import torch
 
 from .core.dnn_profile import DNNProfile, ExitSpec
 from .core.problem import AppRequirements, Config
@@ -92,3 +95,45 @@ def scenarios_from(profiles: Sequence, networks: Sequence,
             [once(n, network_from) for n in networks],
             [requirements_from(r.alpha, r.delta, r.sigma)
              for r in requirements])
+
+
+def _tensor_from(x, device) -> torch.Tensor:
+    """A numpy array (float32, int, or ml_dtypes bfloat16) as a tensor."""
+    a = np.asarray(x)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16).copy()).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(np.ascontiguousarray(a).copy()).to(device)
+
+
+def transformer_params_from(params_np: Mapping, cfg, *,
+                            device="cpu") -> dict:
+    """The port's transformer parameters from another implementation's
+    parameter tree, given as nested mappings of numpy arrays.
+
+    Both trees share names and layouts: per-period layer stacks
+    ``[n_periods, ...]``, ``wq`` ``[d, H, hd]``, ``wo`` ``[H, hd, d]``, exits
+    keyed ``exit_{period}``, so each leaf is copied as it is (dtype kept).
+    Keys the port's model does not read raise ``ValueError``.
+    """
+    def conv(tree):
+        if isinstance(tree, Mapping):
+            return {k: conv(v) for k, v in tree.items()}
+        return _tensor_from(tree, device)
+
+    expect = {"embed", "layers", "final_norm", "exits"} | (
+        set() if cfg.tie_embeddings else {"lm_head"})
+    if set(params_np) != expect:
+        raise ValueError(f"parameter tree keys {sorted(params_np)} differ "
+                         f"from {sorted(expect)} of {cfg.name}")
+    want_exits = {f"exit_{p}" for p in cfg.exit_layer_list}
+    if set(params_np["exits"]) != want_exits:
+        raise ValueError(f"exit heads {sorted(params_np['exits'])} differ "
+                         f"from {sorted(want_exits)}")
+    out = conv(params_np)
+    for leaf in out["layers"].values():
+        n = leaf["norm1"]["scale"].shape[0]
+        if n != cfg.n_periods:
+            raise ValueError(f"layer stacks hold {n} periods, {cfg.name} "
+                             f"has {cfg.n_periods}")
+    return out

@@ -10,10 +10,14 @@ A copy of the reference's calibration (``repro/core/scenarios.py``):
   effective ~1 Gb/s mobile uplink (Table V's 0.1 Gb/s with 8-bit cut
   tensors makes every B-AlexNet split infeasible); ``paper_scenario``
   defaults to 1 Gb/s and keeps everything else at Table V values.
+
+``ChurnEvent`` / ``churn_trace`` are the reference's online-regime trace
+generator, copied (numpy, seeded): the same seed gives the same events.
 """
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
@@ -81,3 +85,103 @@ def sweep_scenarios(*, apps: Sequence[str] = ("h1", "h2", "h3", "h4", "h5",
                     rs.append(AppRequirements(alpha=alpha, delta=d * 1e-3,
                                               sigma=1.0))
     return ps, ns, rs
+
+
+# ---------------------------------------------------------------------------
+# Churn traces (online regime: mobility, fading, failures)
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class ChurnEvent:
+    """One churn event of an online trace.
+
+    kind:
+      ``uplink``   per-user channel draw; ``value`` is the quality factor in
+                   [0, 1] (the orchestrator scales it by its base uplink);
+      ``attach``   mobility re-association; ``value`` is the *edge slot*
+                   index (0..n_edge-1) the user now attaches to — the
+                   orchestrator maps slots to its network's edge nodes;
+      ``fail`` / ``recover``  node failure / recovery; ``value`` is the node
+                   index.  ``user=None`` means an infrastructure event that
+                   applies to every user's plan;
+      ``slice``    slice re-negotiation; ``value`` is the compute fraction.
+    """
+
+    kind: str
+    user: Optional[int]
+    value: Union[float, int]
+
+
+def churn_trace(n_users: int, n_ticks: int, *, seed: int = 0,
+                rho: float = 0.95, sigma: float = 0.05,
+                q_mean: float = 0.65, q_lo: float = 0.3, q_hi: float = 1.0,
+                p_fail: float = 0.0, p_recover: float = 0.5,
+                fail_nodes: Sequence[int] = (1,),
+                p_move: float = 0.0, n_edge: int = 1,
+                failure_mode: str = "iid",
+                tier_groups: Optional[Sequence[Sequence[int]]] = None,
+                ) -> List[List[ChurnEvent]]:
+    """Per-tick churn events for a user population (Sec. V online regime).
+
+    Channel fading is a Gauss-Markov (AR(1)) process per user — quality
+    q_{t+1} = q_mean + rho (q_t - q_mean) + N(0, sigma), clipped to
+    [q_lo, q_hi] — the standard mobile-channel shadowing model; ``rho``
+    close to 1 gives slowly varying channels whose *quantized* solver
+    tensors change only when a fade crosses a quantization cell (the
+    regime the incremental ``Plan`` layer exploits).  ``p_fail`` /
+    ``p_recover`` drive infrastructure node failures and recoveries on
+    ``fail_nodes``; ``p_move`` re-associates a user to a uniformly drawn
+    edge slot (mobility across ``n_edge`` helpers).  Deterministic per
+    seed; every tick emits one ``uplink`` event per user.
+
+    ``failure_mode`` picks the outage structure:
+
+    ``"iid"``   (default) one independent Markov chain per node of
+                ``fail_nodes`` — uncorrelated single-node failures;
+    ``"tier"``  one Markov chain per *group* of ``tier_groups`` (default:
+                all of ``fail_nodes`` as one group) — a group fails and
+                recovers jointly, emitting one event per member in the
+                same tick.  This is the correlated regional-outage model
+                (a rack / power-domain / backhaul-segment outage takes a
+                whole tier down at once), the failure masks the
+                contingency library's per-tier candidates precompute.
+    """
+    if failure_mode not in ("iid", "tier"):
+        raise ValueError(f"failure_mode must be 'iid' or 'tier', got "
+                         f"{failure_mode!r}")
+    if tier_groups is not None and failure_mode != "tier":
+        raise ValueError("tier_groups= only applies with "
+                         "failure_mode='tier'")
+    rng = np.random.default_rng(seed)
+    q = np.full(n_users, q_mean)
+    if failure_mode == "tier":
+        groups: List[Tuple[int, ...]] = (
+            [tuple(int(n) for n in fail_nodes)] if tier_groups is None
+            else [tuple(int(n) for n in g) for g in tier_groups])
+    else:
+        groups = [(int(n),) for n in fail_nodes]
+    failed: Dict[int, bool] = {g: False for g in range(len(groups))}
+    trace: List[List[ChurnEvent]] = []
+    for _ in range(n_ticks):
+        events: List[ChurnEvent] = []
+        q = np.clip(q_mean + rho * (q - q_mean)
+                    + rng.normal(0.0, sigma, n_users), q_lo, q_hi)
+        events.extend(ChurnEvent("uplink", u, float(q[u]))
+                      for u in range(n_users))
+        if p_move > 0 and n_edge > 1:
+            movers = np.nonzero(rng.random(n_users) < p_move)[0]
+            for u in movers:
+                events.append(ChurnEvent("attach", int(u),
+                                         int(rng.integers(n_edge))))
+        for g, nodes in enumerate(groups):
+            if failed[g]:
+                if rng.random() < p_recover:
+                    failed[g] = False
+                    events.extend(ChurnEvent("recover", None, node)
+                                  for node in nodes)
+            elif p_fail > 0 and rng.random() < p_fail:
+                failed[g] = True
+                events.extend(ChurnEvent("fail", None, node)
+                              for node in nodes)
+        trace.append(events)
+    return trace

@@ -14,7 +14,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from ._build import load_library
+from .._build import launch as _launch
 from .ref import (banded_minplus_chain_kbest_ref, banded_minplus_chain_ref,
                   banded_minplus_ref)
 
@@ -58,17 +58,6 @@ def _check_chain_inputs(dist: torch.Tensor, E: torch.Tensor,
     if B >= 2 ** 31:
         raise ValueError(f"batch of {B} rows exceeds the kernel's int32 count")
     return B, L, N, Gp1
-
-
-def _launch(name: str, device: torch.device, *args) -> None:
-    """Launch C entry point ``name`` on ``device``'s current stream; a
-    refused launch raises (it never ran, and no synchronize reports it)."""
-    fn = load_library().fn(name)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = fn(*args, stream)
-    if rc != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
 
 
 def _launch_chain(dist: torch.Tensor, E: torch.Tensor, st: torch.Tensor,

@@ -1,4 +1,5 @@
-"""The port's hand-written CUDA kernels, solver and plan IR on the card.
+"""The port's hand-written CUDA kernels, solver, plan IR and serving engine
+on the card.
 
 Every test here needs a CUDA card and ``nvcc`` (the kernels have no CPU or
 interpret mode) and skips, from a fixture, where there is none.  The file
@@ -6,10 +7,15 @@ imports only the port, so it also runs on a machine without JAX:
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-The kernels must be bit-equal, distances and parents, to their plain
-PyTorch versions on the same device (every candidate is one IEEE add, the
-min does not depend on order, and the k-slot order is that of a stable
+The (min,+) kernels must be bit-equal, distances and parents, to their
+plain PyTorch versions on the same device (every candidate is one IEEE add,
+the min does not depend on order, and the k-slot order is that of a stable
 sort), and the solver and the plan IR on CUDA must equal their CPU path.
+The exit gate (B6) holds conf to a relative 1e-5 (sums in another order)
+and its argmax exactly; decode attention (B7) holds 2e-5 in float32 and
+2e-2 in bf16 (its plain version rounds the probabilities to bf16 before
+the PV product, the kernel keeps them in float32).  The serving engine on
+CUDA, in float32, must serve the tokens its CPU path serves.
 """
 import dataclasses
 
@@ -18,7 +24,12 @@ import pytest
 import torch
 
 import repro_torch as T
+from repro_torch.configs import get
 from repro_torch.core.bellman_ford import kernel_inputs
+from repro_torch.kernels.decode_attn.ops import decode_attn
+from repro_torch.kernels.decode_attn.ref import decode_attn_ref
+from repro_torch.kernels.ee_gate.ops import ee_gate
+from repro_torch.kernels.ee_gate.ref import ee_gate_ref
 from repro_torch.kernels.minplus import ops
 from repro_torch.kernels.minplus.ops import (banded_minplus_argmin,
                                              banded_minplus_chain,
@@ -186,3 +197,98 @@ def test_plan_deltas_on_card_equal_cpu_path(cuda_device, n_best):
     for f in ("C", "T", "E", "TT", "mask", "init_T", "init_E", "init_mask"):
         assert torch.equal(getattr(plans[0].ext, f).cpu(),
                            getattr(plans[1].ext, f))
+
+
+@pytest.mark.parametrize("tail", [0, 1664])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,V", [(1, 128), (5, 5000), (4, 153600),
+                                 (16, 50304)])
+def test_ee_gate_kernel_matches_plain_on_card(cuda_device, B, V, dtype,
+                                              tail):
+    x = np.random.default_rng(B + V).normal(size=(B, V)) * 4
+    if tail:
+        x[:, V - tail:] = -np.inf
+    x = torch.as_tensor(x, dtype=torch.float32, device=cuda_device).to(dtype)
+    n0 = ee_gate.launches
+    conf, arg = ee_gate(x)
+    assert ee_gate.launches == n0 + 1
+    conf_p, arg_p = ee_gate_ref(x)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(conf, conf_p, rtol=1e-5, atol=0)
+    assert torch.equal(arg, arg_p)
+
+
+def test_ee_gate_kernel_ties_keep_the_first_index(cuda_device):
+    x = torch.full((3, 4096), -5.0, device=cuda_device)
+    x[0, [3000, 77]] = 20.0
+    x[1, [2049, 2048]] = 7.0
+    x[2] = -float("inf")
+    conf, arg = ee_gate(x)
+    assert arg.tolist() == [77, 2048, 0]
+    assert float(conf[2]) == 1 / 4096
+
+
+@pytest.mark.parametrize("window", [0, 16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,KV,D,T", [(1, 4, 4, 32, 128), (2, 8, 2, 64, 256),
+                                        (1, 8, 1, 64, 300), (3, 4, 2, 16, 64),
+                                        (4, 32, 8, 80, 256)])
+def test_decode_attn_kernel_matches_plain_on_card(cuda_device, B, H, KV, D,
+                                                  T, dtype, window):
+    rng = np.random.default_rng(B + H + T)
+    q, k, v = (torch.as_tensor(rng.normal(size=s), dtype=torch.float32,
+                               device=cuda_device).to(dtype)
+               for s in ((B, H, D), (B, T, KV, D), (B, T, KV, D)))
+    cache_pos = torch.arange(T, dtype=torch.int32, device=cuda_device)
+    cache_pos[T - T // 4:] = -1                 # empty ring slots
+    pos = T - T // 4 - 3                        # and future ones
+    n0 = decode_attn.launches
+    got = decode_attn(q, k, v, cache_pos, pos, window=window)
+    assert decode_attn.launches == n0 + 1
+    want = decode_attn_ref(q, k, v, cache_pos, pos, window=window)
+    torch.cuda.synchronize()
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    assert got.dtype == dtype
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_serving_kernel_wrappers_refuse_bad_inputs(cuda_device):
+    x = torch.zeros(4, 64, dtype=torch.float64, device=cuda_device)
+    q = torch.zeros(1, 4, 8, device=cuda_device)
+    kv = torch.zeros(1, 16, 2, 8, device=cuda_device)
+    cp = torch.arange(16, dtype=torch.int32, device=cuda_device)
+    n6, n7 = ee_gate.launches, decode_attn.launches
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        ee_gate(x)
+    with pytest.raises(ValueError, match="contiguous"):
+        ee_gate(x.float().t())
+    with pytest.raises(ValueError, match="share"):
+        decode_attn(q, kv.bfloat16(), kv, cp, 3)
+    with pytest.raises(ValueError, match="int32"):
+        decode_attn(q, kv, kv, cp.long(), 3)
+    assert (ee_gate.launches, decode_attn.launches) == (n6, n7)
+
+
+def test_serve_engine_on_card_equals_cpu_path(cuda_device):
+    """The reduced qwen3-4b in float32 through the engine with a placement:
+    tokens, exits and EngineStats equal on CUDA and the CPU path, with B6
+    launched 2 and B7 2 times per decode step (one exit, two layers)."""
+    from repro_torch.models import transformer as TT
+    from repro_torch.runtime.serve_engine import SplitServeEngine
+    cfg = get("qwen3-4b", reduced=True)
+    params = TT.init_model(cfg, seed=3, device=cuda_device)
+    runs = []
+    for dev, p in ((cuda_device, params), ("cpu", TT.tree_to(params, "cpu"))):
+        eng = SplitServeEngine(cfg, p, batch_size=4, cache_len=32,
+                               thresholds=[0.05], network=T.paper_scenario(),
+                               profile=T.paper_profile("h2"),
+                               req=T.AppRequirements(0.5, 8e-3), device=dev)
+        reqs = [eng.submit([1 + i % 7, 2, 3], 5) for i in range(6)]
+        n6, n7 = ee_gate.launches, decode_attn.launches
+        eng.run(max_steps=100)
+        runs.append(([(r.tokens, r.exits_taken) for r in reqs],
+                     dataclasses.asdict(eng.stats),
+                     ee_gate.launches - n6, decode_attn.launches - n7))
+    (tok_g, st_g, n6, n7), (tok_c, st_c, _, _) = runs
+    assert tok_g == tok_c and st_g == st_c
+    assert n6 == 2 * st_g["steps"] and n7 == 2 * st_g["steps"]

@@ -4,7 +4,8 @@
   ``jax`` or the JAX package ``repro`` (an AST scan of every import).
 * Importing ``repro_torch`` in a fresh interpreter leaves ``jax`` out of
   ``sys.modules``.
-* ``device=None`` means ``cuda:0`` and raises where CUDA is absent.
+* ``device=None`` means ``cuda:0`` and raises where CUDA is absent, for
+  the solvers and for the serving engine and its launcher.
 * ``chip_smoke.py`` exits non-zero, printing no result, without a card.
 """
 import ast
@@ -58,8 +59,11 @@ def test_import_in_fresh_interpreter_loads_no_jax_and_builds_nothing():
     """No jax in sys.modules after importing the port, and the kernel
     library is built at first launch, never at import."""
     code = ("import sys, repro_torch, repro_torch.core.fin, "
-            "repro_torch.kernels.minplus.ops, repro_torch.convert\n"
-            "from repro_torch.kernels.minplus import _build\n"
+            "repro_torch.kernels.minplus.ops, repro_torch.convert, "
+            "repro_torch.kernels.ee_gate.ops, "
+            "repro_torch.kernels.decode_attn.ops, "
+            "repro_torch.runtime.serve_engine, repro_torch.launch.serve\n"
+            "from repro_torch.kernels import _build\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "print(bad, _build._LIBRARY)\n"
@@ -92,6 +96,26 @@ def test_entry_points_do_not_fall_back_to_cpu():
                  lambda: T.solve_mcp(nw, pf, req),
                  lambda: T.build_extended_graph(nw, pf, req),
                  lambda: T.fin_all_exit_costs(nw, pf, req)):
+        with pytest.raises(RuntimeError, match="cuda"):
+            call()
+
+
+def test_serving_entry_points_default_to_cuda_and_raise_without_it():
+    """``SplitServeEngine``, ``init_model`` and ``launch/serve.py`` run on
+    ``cuda:0`` unless told otherwise, and raise where there is no card."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: device=None resolves to it")
+    from repro_torch.configs import get
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as TT
+    from repro_torch.runtime.serve_engine import SplitServeEngine
+    cfg = get("qwen3-4b", reduced=True)
+    params = TT.init_model(cfg, device="cpu")
+    for call in (lambda: SplitServeEngine(cfg, params, batch_size=2,
+                                          cache_len=8),
+                 lambda: TT.init_model(cfg),
+                 lambda: TT.init_caches(cfg, 2, 8),
+                 lambda: serve.main(["--arch", "qwen3-4b"])):
         with pytest.raises(RuntimeError, match="cuda"):
             call()
 

@@ -1,0 +1,382 @@
+"""The port's LM layers, exit gate, decode attention and decode step vs the
+JAX package.
+
+The same inputs, drawn from a seed with numpy, go through the reference
+function and its counterpart in the port (on the CPU, where the port's
+kernel wrappers run their plain versions), with these tolerances:
+
+* exit gate (B6): the plain version against the reference's Pallas kernel
+  in interpret mode, conf to a relative 1e-5 (sums in another order), the
+  argmax exactly;
+* decode attention (B7): the plain version against the reference's Pallas
+  kernel in interpret mode, rtol = atol = 2e-5 in float32 and 2e-2 in bf16
+  (the reference's own kernel-vs-oracle tolerances);
+* ``rmsnorm``, ``apply_rope``, ``mlp_apply``, ``attn_decode_step`` and
+  ``exit_head_apply``: 1e-5 in float32 (the same arithmetic in another
+  summation order);
+* ``decode_step`` logits and exit logits over 6 steps: 1e-4.
+
+Weights come from the reference's ``init_model`` through
+``convert.transformer_params_from``.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import ARCH_NAMES as REF_ARCH_NAMES
+from repro.configs import get as ref_get
+from repro.kernels.decode_attn.ops import decode_attn as ref_decode_attn
+from repro.kernels.ee_gate.ops import ee_gate as ref_ee_gate
+from repro.kernels.ee_gate.ref import ee_gate_ref as ref_ee_gate_oracle
+from repro.models import attention as RA
+from repro.models import early_exit as RE
+from repro.models import layers as RL
+from repro.models import transformer as RT
+
+from repro_torch.configs import ARCH_NAMES, get
+from repro_torch.convert import transformer_params_from
+from repro_torch.kernels.decode_attn.ops import decode_attn
+from repro_torch.kernels.ee_gate.ops import ee_gate
+from repro_torch.models import attention as TA
+from repro_torch.models import early_exit as TE
+from repro_torch.models import layers as TL
+from repro_torch.models import transformer as TT
+
+CPU = "cpu"
+
+
+def _t(x):
+    return torch.from_numpy(np.asarray(x, dtype=np.float32).copy())
+
+
+def _both(x, dtype):
+    """One float32 numpy array as (jnp, torch) arrays of ``dtype``; both
+    round a float32 to bf16 to nearest-even, so the inputs are equal."""
+    if dtype == "bfloat16":
+        return jnp.asarray(x, jnp.bfloat16), _t(x).to(torch.bfloat16)
+    return jnp.asarray(x, jnp.float32), _t(x)
+
+
+def _np(x):
+    return np.asarray(x, dtype=np.float32)
+
+
+def _close(got, want, tol):
+    np.testing.assert_allclose(_np(got), _np(want), rtol=tol, atol=tol)
+
+
+# ---------------------------------------------------------------------------
+# configs
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("reduced", [False, True])
+@pytest.mark.parametrize("arch", REF_ARCH_NAMES)
+def test_configs_equal_reference(arch, reduced):
+    """Every architecture comes across as data: all fields and the derived
+    exits, padded vocab, periods and head width."""
+    assert ARCH_NAMES == REF_ARCH_NAMES
+    ref, got = ref_get(arch, reduced=reduced), get(arch, reduced=reduced)
+    assert dataclasses.asdict(got) == dataclasses.asdict(ref)
+    assert got.exit_layer_list == ref.exit_layer_list
+    assert got.padded_vocab == ref.padded_vocab
+    assert got.n_periods == ref.n_periods
+    if ref.n_heads:
+        assert got.head_dim_ == ref.head_dim_
+
+
+# ---------------------------------------------------------------------------
+# B6: the exit gate
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("tail", [0, 24])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,V", [(1, 128), (8, 2048), (5, 5000), (16, 50304),
+                                 (2, 131)])
+def test_ee_gate_plain_matches_pallas(B, V, dtype, tail):
+    """conf to a relative 1e-5 and the argmax exactly, with and without a
+    -inf padded tail."""
+    x = np.random.default_rng(B + V).normal(size=(B, V)).astype(np.float32)
+    x *= 4
+    if tail:
+        x[:, V - tail:] = -np.inf
+    xj, xt = _both(x, dtype)
+    conf_r, arg_r = ref_ee_gate(xj)
+    conf, arg = ee_gate(xt)
+    assert conf.dtype == torch.float32 and arg.dtype == torch.int32
+    np.testing.assert_allclose(conf.numpy(), np.asarray(conf_r), rtol=1e-5)
+    np.testing.assert_array_equal(arg.numpy(), np.asarray(arg_r))
+
+
+def test_ee_gate_peaked_and_ties():
+    """A confident row gives conf ~ 1 at its token; a tie keeps the first
+    index; an all -inf row gives index 0, as both reference versions, and
+    conf 1/V, the max softmax probability of a uniform row.  There the
+    reference's versions disagree with each other: its Pallas kernel counts
+    its own -inf padding (1/2048), its oracle loses log(V) against the
+    NEG clamp in ``m + log(sum)`` and returns 1."""
+    x = np.full((3, 512), -5.0, np.float32)
+    x[0, 77] = 20.0
+    x[1, [300, 40]] = 20.0
+    x[2] = -np.inf
+    conf, arg = ee_gate(_t(x))
+    conf_r, arg_r = ref_ee_gate(jnp.asarray(x))
+    conf_o, arg_o = ref_ee_gate_oracle(jnp.asarray(x))
+    assert arg.tolist() == [77, 40, 0] == np.asarray(arg_r).tolist() \
+        == np.asarray(arg_o).tolist()
+    assert conf[0] > 0.999 and float(conf[2]) == 1 / 512
+    for want in (conf_r, conf_o):
+        np.testing.assert_allclose(conf[:2].numpy(), np.asarray(want)[:2],
+                                   rtol=1e-5)
+
+
+def test_kernel_wrappers_refuse_other_devices():
+    with pytest.raises(ValueError, match="device"):
+        ee_gate(torch.empty(2, 8, device="meta"))
+    q = torch.empty(1, 2, 4, device="meta")
+    kv = torch.empty(1, 3, 2, 4, device="meta")
+    with pytest.raises(ValueError, match="device"):
+        decode_attn(q, kv, kv, torch.empty(3, dtype=torch.int32,
+                                           device="meta"), 1)
+
+
+# ---------------------------------------------------------------------------
+# B7: decode attention
+# ---------------------------------------------------------------------------
+
+def _attn_inputs(B, H, KV, D, T, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(B, H, D)).astype(np.float32),
+            rng.normal(size=(B, T, KV, D)).astype(np.float32),
+            rng.normal(size=(B, T, KV, D)).astype(np.float32))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,H,KV,D,T,bt", [
+    (1, 4, 4, 32, 128, 64),       # MHA
+    (2, 8, 2, 64, 256, 128),      # GQA 4:1
+    (1, 8, 1, 64, 300, 128),      # MQA, ragged T
+    (3, 4, 2, 16, 64, 64),        # single block
+    (2, 8, 2, 80, 96, 32),        # qwen3-4b's head width
+])
+def test_decode_attn_plain_matches_pallas(B, H, KV, D, T, bt, dtype):
+    q, k, v = _attn_inputs(B, H, KV, D, T, B + H + T)
+    cache_pos = np.arange(T, dtype=np.int32)
+    pos = T - 3                       # the last slots are in the future
+    (qj, qt), (kj, kt), (vj, vt) = (_both(a, dtype) for a in (q, k, v))
+    want = ref_decode_attn(qj, kj, vj, jnp.asarray(cache_pos), jnp.int32(pos),
+                           block_t=bt)
+    got = decode_attn(qt, kt, vt, torch.from_numpy(cache_pos), pos)
+    assert got.dtype == qt.dtype
+    _close(got.float(), want, 2e-5 if dtype == "float32" else 2e-2)
+
+
+@pytest.mark.parametrize("window", [16, 64])
+def test_decode_attn_sliding_window(window):
+    B, H, KV, D, T = 1, 4, 2, 32, 256
+    q, k, v = _attn_inputs(B, H, KV, D, T, 9)
+    cache_pos = np.arange(T, dtype=np.int32)
+    want = ref_decode_attn(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                           jnp.asarray(cache_pos), jnp.int32(T - 1),
+                           window=window, block_t=64)
+    got = decode_attn(_t(q), _t(k), _t(v), torch.from_numpy(cache_pos),
+                      T - 1, window=window)
+    _close(got, want, 2e-5)
+
+
+def test_decode_attn_empty_slots_masked():
+    """Slots with cache_pos = -1 contribute nothing."""
+    B, H, KV, D, T = 1, 2, 2, 16, 64
+    q, k, v = _attn_inputs(B, H, KV, D, T, 5)
+    cache_pos = np.where(np.arange(T) < 10, np.arange(T), -1).astype(np.int32)
+    want = ref_decode_attn(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                           jnp.asarray(cache_pos), jnp.int32(9), block_t=32)
+    got = decode_attn(_t(q), _t(k), _t(v), torch.from_numpy(cache_pos), 9)
+    short = decode_attn(_t(q), _t(k[:, :10]), _t(v[:, :10]),
+                        torch.from_numpy(cache_pos[:10]), 9)
+    _close(got, want, 2e-5)
+    _close(got, short, 2e-5)
+
+
+# ---------------------------------------------------------------------------
+# layers
+# ---------------------------------------------------------------------------
+
+def test_rmsnorm_rope_mlp_match_reference():
+    rng = np.random.default_rng(3)
+    x = rng.normal(size=(2, 5, 64)).astype(np.float32)
+    scale = rng.uniform(0.5, 1.5, 64).astype(np.float32)
+    _close(TL.rmsnorm({"scale": _t(scale)}, _t(x), 1e-6),
+           RL.rmsnorm({"scale": jnp.asarray(scale)}, jnp.asarray(x), 1e-6),
+           1e-5)
+    xr = rng.normal(size=(2, 5, 4, 16)).astype(np.float32)
+    pos = rng.integers(0, 300, (2, 5)).astype(np.int32)
+    for theta in (1e4, 1e6):
+        _close(TL.apply_rope(_t(xr), torch.from_numpy(pos), theta),
+               RL.apply_rope(jnp.asarray(xr), jnp.asarray(pos), theta), 1e-5)
+    w = {n: rng.normal(size=s).astype(np.float32) / 8 for n, s in
+         (("w_gate", (64, 96)), ("w_up", (64, 96)), ("w_down", (96, 64)))}
+    _close(TL.mlp_apply({n: _t(a) for n, a in w.items()}, _t(x)),
+           RL.mlp_apply({n: jnp.asarray(a) for n, a in w.items()},
+                        jnp.asarray(x)), 1e-5)
+
+
+def test_lm_head_masks_padded_tail_like_reference():
+    rng = np.random.default_rng(4)
+    x = rng.normal(size=(3, 1, 16)).astype(np.float32)
+    w = rng.normal(size=(16, 40)).astype(np.float32)
+    got = TL.lm_head_apply({"w": _t(w)}, _t(x), 33)
+    want = RL.lm_head_apply({"w": jnp.asarray(w)}, jnp.asarray(x), 33)
+    assert torch.isinf(got[..., 33:]).all() and got.dtype == torch.float32
+    _close(got, want, 1e-5)
+
+
+# ---------------------------------------------------------------------------
+# models
+# ---------------------------------------------------------------------------
+
+def _cfg(variant):
+    """Reduced qwen3-4b (f32) and variants that exercise the other decode
+    paths: two exits, an int8 cache, a sliding-window ring buffer."""
+    cfg = ref_get("qwen3-4b", reduced=True)
+    return {
+        "base": cfg,
+        "two_exits": dataclasses.replace(cfg, n_layers=3, exit_layers=(1, 2)),
+        "int8": dataclasses.replace(cfg, kv_cache_dtype="int8"),
+        "window": dataclasses.replace(cfg, sliding_window=4),
+    }[variant]
+
+
+def _models(variant, seed=0):
+    ref_cfg = _cfg(variant)
+    cfg = dataclasses.replace(get("qwen3-4b", reduced=True), **{
+        f.name: getattr(ref_cfg, f.name) for f in dataclasses.fields(ref_cfg)
+        if f.name != "pattern"})
+    params_r = RT.init_model(jax.random.PRNGKey(seed), ref_cfg)
+    params = transformer_params_from(jax.tree.map(np.asarray, params_r), cfg)
+    return ref_cfg, cfg, params_r, params
+
+
+@pytest.mark.parametrize("variant", ["base", "int8", "window"])
+def test_attn_decode_step_matches_reference(variant):
+    """Ten steps through one layer's cache (the ring buffer wraps under the
+    window): outputs within 1e-5, slot positions equal."""
+    ref_cfg, cfg, params_r, params = _models(variant)
+    p_r = jax.tree.map(lambda x: x[0], params_r["layers"]["l0"]["mix"])
+    p_t = {k: (v[0] if not isinstance(v, dict) else
+               {kk: vv[0] for kk, vv in v.items()})
+           for k, v in params["layers"]["l0"]["mix"].items()}
+    B, T = 2, 8
+    c_r = RA.cache_spec(ref_cfg, B, T).init(jnp.float32)
+    c_t = TA.cache_spec(cfg, B, T).init(torch.float32, CPU)
+    rng = np.random.default_rng(11)
+    step = jax.jit(lambda p, x, c, pos: RA.attn_decode_step(p, ref_cfg, x, c,
+                                                            pos))
+    for pos in range(10):
+        x = rng.normal(size=(B, 1, cfg.d_model)).astype(np.float32)
+        y_r, c_r = step(p_r, jnp.asarray(x), c_r, jnp.int32(pos))
+        y_t, c_t = TA.attn_decode_step(p_t, cfg, _t(x), c_t, pos)
+        _close(y_t, y_r, 1e-5)
+        np.testing.assert_array_equal(c_t["pos"].numpy(),
+                                      np.asarray(c_r["pos"]))
+        if variant == "int8":
+            _close(c_t["k_scale"], c_r["k_scale"], 1e-6)
+        else:
+            _close(c_t["k"], c_r["k"], 1e-5)
+
+
+def test_exit_head_and_gate_statistics_match_reference():
+    ref_cfg, cfg, params_r, params = _models("base")
+    rng = np.random.default_rng(2)
+    h = rng.normal(size=(4, 3, cfg.d_model)).astype(np.float32)
+    head_r = RT._lm_head_params(params_r, ref_cfg)
+    head_t = TT._lm_head_params(params, cfg)
+    lr = RE.exit_head_apply(params_r["exits"]["exit_1"], ref_cfg,
+                            jnp.asarray(h), head_r)
+    lt = TE.exit_head_apply(params["exits"]["exit_1"], cfg, _t(h), head_t)
+    _close(lt, lr, 1e-5)
+    _close(TE.confidence_ref(lt), RE.confidence_ref(lr), 1e-5)
+    logits = {"exit_1": lt * 40, "exit_2": lt * 80}
+    thr = {"exit_1": float(np.median(TE.confidence_ref(lt * 40).numpy())),
+           "exit_2": 0.0}
+    got = TE.exit_statistics(logits, thr)
+    want = RE.exit_statistics({k: jnp.asarray(v.numpy())
+                               for k, v in logits.items()}, thr)
+    for name in want:
+        np.testing.assert_array_equal(got[name].numpy(),
+                                      np.asarray(want[name]))
+    assert TE.measure_phi(got) == RE.measure_phi(want)
+
+
+@pytest.mark.parametrize("variant", ["base", "two_exits", "int8", "window"])
+def test_decode_step_matches_reference(variant):
+    """Six steps: final and exit logits within 1e-4, the caches' slot
+    positions equal."""
+    ref_cfg, cfg, params_r, params = _models(variant)
+    B, T = 3, 16
+    c_r = RT.init_caches(ref_cfg, B, T)
+    c_t = TT.init_caches(cfg, B, T, device=CPU)
+    dec = jax.jit(lambda p, c, t, pos: RT.decode_step(p, ref_cfg, t, c, pos))
+    rng = np.random.default_rng(1)
+    for pos in range(6):
+        toks = rng.integers(0, cfg.vocab_size, (B, 1)).astype(np.int32)
+        l_r, c_r, e_r = dec(params_r, c_r, jnp.asarray(toks), jnp.int32(pos))
+        l_t, c_t, e_t = TT.decode_step(params, cfg, torch.from_numpy(toks),
+                                       c_t, pos)
+        assert l_t.shape == (B, cfg.padded_vocab) and set(e_t) == set(e_r)
+        _close(l_t, l_r, 1e-4)
+        for name in e_r:
+            _close(e_t[name], e_r[name], 1e-4)
+    np.testing.assert_array_equal(c_t["l0"]["pos"].numpy(),
+                                  np.asarray(c_r["l0"]["pos"]))
+
+
+@pytest.mark.parametrize("arch", ["qwen3-4b", "phi3-medium-14b",
+                                  "internvl2-2b", "granite-34b"])
+def test_init_model_and_caches_mirror_reference_tree(arch):
+    """Same tree, shapes and dtypes as the reference's params and caches."""
+    ref_cfg, cfg = ref_get(arch, reduced=True), get(arch, reduced=True)
+    params_r = RT.init_model(jax.random.PRNGKey(0), ref_cfg)
+    params = TT.init_model(cfg, seed=0, device=CPU)
+    flat_r = jax.tree_util.tree_flatten_with_path(params_r)[0]
+    flat_t = jax.tree_util.tree_flatten_with_path(params)[0]
+    assert [(jax.tree_util.keystr(p), tuple(x.shape)) for p, x in flat_r] == \
+        [(jax.tree_util.keystr(p), tuple(x.shape)) for p, x in flat_t]
+    assert TT.param_count(params) == RT.param_count(params_r)
+    c_r = RT.init_caches(ref_cfg, 2, 8)
+    c_t = TT.init_caches(cfg, 2, 8, device=CPU)
+    assert jax.tree.map(lambda x: (tuple(x.shape), str(x.dtype)), c_r) == \
+        jax.tree.map(lambda x: (tuple(x.shape),
+                                str(x.dtype).replace("torch.", "")), c_t)
+    assert (c_t["l0"]["pos"] == -1).all()
+
+
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "jamba-1.5-large-398b",
+                                  "mixtral-8x22b", "arctic-480b",
+                                  "hubert-xlarge"])
+def test_unported_layer_kinds_raise(arch):
+    """SSM and MoE layers name the later slice; encoder-only refuses."""
+    cfg = get(arch, reduced=True)
+    with pytest.raises(ValueError, match="later slice|encoder-only"):
+        TT.init_model(cfg, device=CPU)
+
+
+def test_transformer_params_from_checks_the_tree():
+    ref_cfg, cfg, params_r, _ = _models("base")
+    pnp = jax.tree.map(np.asarray, params_r)
+    with pytest.raises(ValueError, match="keys"):
+        transformer_params_from({k: v for k, v in pnp.items()
+                                 if k != "lm_head"}, cfg)
+    with pytest.raises(ValueError, match="exit heads"):
+        transformer_params_from({**pnp, "exits": {}}, cfg)
+    bf = transformer_params_from(
+        jax.tree.map(lambda x: np.asarray(jnp.asarray(x, jnp.bfloat16)),
+                     params_r), cfg)
+    assert bf["embed"]["table"].dtype == torch.bfloat16
+    np.testing.assert_array_equal(
+        bf["embed"]["table"].float().numpy(),
+        np.asarray(jnp.asarray(params_r["embed"]["table"], jnp.bfloat16),
+                   np.float32))
