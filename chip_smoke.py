@@ -3,14 +3,20 @@
 Run from the repository root:  python3 chip_smoke.py
 
 It builds every hand-written kernel of ``src/repro_torch`` (the banded
-(min,+) argmin chain B1 and k-slot chain B3, the exit gate B6 and the
-flash-decode attention B7; one ``nvcc`` per source, all in parallel), holds
-each against its plain PyTorch version on the card, checks graph
-construction and the solver on CUDA against the port's CPU path, and
-drives each path of the port with the kernels' launch counters reset just
-before it and read just after:
+(min,+) argmin chain B1 and k-slot chain B3, the dense (min,+) products B5
+and B4, the exit gate B6 and the flash-decode attention B7; one ``nvcc``
+per source, all in parallel), holds each against its plain PyTorch version
+on the card, checks graph construction and the solver on CUDA against the
+port's CPU path, and drives each path of the port with the kernels' launch
+counters reset just before it and read just after:
 
   [solve_many]        ``solve_many`` over the full-width 15,360-scenario grid;
+  [solve_many_dense]  the same grid with ``backend="dense"`` (B4 on the
+                      (S, S) layer matrices), identical to [solve_many];
+                      then the 48-scenario Fig. 5-7 sweep against the CPU
+                      path, k-best and the ``python`` oracle;
+  [table7_dense]      ``fin_all_exit_costs`` on the paper's Table VII large
+                      instance (15 nodes, 12 blocks; B5), dense == banded;
   [solve_many_kbest]  the same grid with ``n_best=4`` (the k-slot chain);
   [plan]              768 ``Plan``s through 8 ticks of AR(1) uplink fading
                       and one tick of mask / slice / backhaul deltas;
@@ -45,6 +51,7 @@ PEAK_OPS_PER_S = {"float64": 34e12, "float32": 67e12}
 
 KERNEL_SOURCE = "src/repro_torch/kernels/minplus/csrc/banded_minplus.cu"
 KBEST_SOURCE = "src/repro_torch/kernels/minplus/csrc/banded_minplus_kbest.cu"
+DENSE_SOURCE = "src/repro_torch/kernels/minplus/csrc/minplus_dense.cu"
 GATE_SOURCE = "src/repro_torch/kernels/ee_gate/csrc/ee_gate.cu"
 ATTN_SOURCE = "src/repro_torch/kernels/decode_attn/csrc/decode_attn.cu"
 # (B, V) of the exit-gate checks; the qwen3-4b padded vocab has a -inf tail
@@ -62,6 +69,13 @@ SERVE_REQUESTS = 16
 SERVE_NEW = 8
 SERVE_PROMPT = 3
 CARD_SHAPES = [(1, 1, 4, 4), (64, 4, 5, 26), (8, 2, 23, 26), (4, 4, 8, 131)]
+# (B, S, T) of the dense kernel checks: tests/test_kernels.py's shapes, then
+# S = 130 (N = 5, G+1 = 26) and S = 390 (N = 15, G+1 = 26)
+DENSE_SHAPES = [(1, 16, 16), (8, 128, 128), (3, 37, 65), (16, 300, 129),
+                (2, 1, 257), (64, 130, 130), (4, 390, 390)]
+# the paper's Table VII large instance (benchmarks/bench_table7.py:59-73)
+TABLE7_NODES = 15
+TABLE7_BLOCKS = 12
 # (B, L, N, G+1, K) of the k-slot kernel checks
 KBEST_SHAPES = [(1, 1, 4, 4, 1), (64, 4, 5, 26, 4), (8, 2, 8, 11, 32),
                 (4, 4, 5, 26, 32)]
@@ -355,6 +369,63 @@ def phase_kernels_kbest(dev) -> float:
     return err
 
 
+def dense_problem(B, S, T, seed, dtype, device, per_row):
+    """Seeded dense inputs with missing edges, a -inf and a NaN entry (both
+    missing) and a duplicated source state (ties)."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    dist = rng.uniform(0, 10, (B, S))
+    dist[rng.uniform(size=dist.shape) > 0.9] = np.inf
+    W = rng.uniform(0, 5, (B, S, T) if per_row else (S, T))
+    W[rng.uniform(size=W.shape) > 0.6] = np.inf
+    W.reshape(-1)[0] = -np.inf
+    W.reshape(-1)[-1] = np.nan
+    if S > 1:
+        dist[:, 1] = dist[:, 0]
+        W[..., 1, :] = W[..., 0, :]
+    return (torch.as_tensor(dist, device=device).to(dtype),
+            torch.as_tensor(W, device=device).to(dtype))
+
+
+def phase_kernels_dense(dev):
+    """B5 and B4 vs their plain versions on the card, float64 and float32,
+    with a shared W and a W per row: bit-equal values and argmins."""
+    import torch
+    from repro_torch.kernels.minplus.ops import (minplus_vecmat,
+                                                 minplus_vecmat_argmin)
+    from repro_torch.kernels.minplus.ref import minplus_argmin_ref, minplus_ref
+    minplus_vecmat.launches = minplus_vecmat_argmin.launches = 0
+    err = {"minplus_vecmat": 0.0, "minplus_vecmat_argmin": 0.0}
+    for B, S, T in DENSE_SHAPES:
+        for dtype in (torch.float64, torch.float32):
+            for per_row in (False, True):
+                d, W = dense_problem(B, S, T, B + S + T, dtype, dev, per_row)
+                out = minplus_vecmat(d, W)
+                got, arg = minplus_vecmat_argmin(d, W)
+                want_out = minplus_ref(d, W)
+                want, arg_p = minplus_argmin_ref(d, W)
+                torch.cuda.synchronize()
+                tag = (f"{(B, S, T)} {dtype} "
+                       f"{'per-row W' if per_row else 'shared W'}")
+                check(torch.equal(out, want_out),
+                      f"B5 {tag}: kernel differs from the plain version")
+                check(torch.equal(got, want) and torch.equal(arg, arg_p),
+                      f"B4 {tag}: kernel differs from the plain version")
+                err["minplus_vecmat"] = max(err["minplus_vecmat"],
+                                            max_abs_err(out, want_out))
+                err["minplus_vecmat_argmin"] = max(
+                    err["minplus_vecmat_argmin"], max_abs_err(got, want))
+                log("kernels_dense", f"B5, B4 {tag}: bit-equal (reached "
+                    f"{int((arg >= 0).sum())} of {arg.numel()} targets)")
+    log("kernels_dense", f"B5 minplus_vecmat: {minplus_vecmat.launches} "
+        f"launches, max_abs_err {err['minplus_vecmat']} | B4 "
+        f"minplus_vecmat_argmin: {minplus_vecmat_argmin.launches} launches, "
+        f"max_abs_err {err['minplus_vecmat_argmin']}; -inf and NaN entries "
+        f"counted as missing")
+    return err
+
+
 def full_grid():
     import numpy as np
     from repro_torch.core.scenarios import sweep_scenarios
@@ -495,8 +566,158 @@ def phase_solve_many(grid, dev, counters):
     log("solve_many", f"wall s (host clock, ending in synchronize): "
         f"minplus cuda {wall_f64:.3f} cpu {wall_cpu:.3f} | f32 cuda "
         f"{wall_f32:.3f} cpu {wall_cpu32:.3f}")
-    return launches, wall_f64
+    return launches, wall_f64, sols
 
+
+def same_all(a, b) -> bool:
+    """Same configuration, every ConfigEval field and every meta entry
+    other than the backend's name and the batch's wall time."""
+    skip = ("backend", "batch_time")
+    return (same_solution(a, b)
+            and {k: v for k, v in a.meta.items() if k not in skip}
+            == {k: v for k, v in b.meta.items() if k not in skip})
+
+
+def phase_solve_many_dense(grid, dev, counters, sols_minplus, wall_minplus):
+    """The dense path: solve_many(backend="dense") over the full-width grid
+    on the card (the (S, S) layer matrices built on the device, B4 per
+    layer), identical to the minplus solve; then the 48-scenario Fig. 5-7
+    sweep at gamma = 10 against the CPU path, at n_best = 4 against minplus,
+    and against the python oracle (as benchmarks/bench_table7.py:81-97)."""
+    import torch
+    import repro_torch as T
+    from repro_torch.core import fin
+    ps, ns, rs = grid
+    built = []
+    build = fin.batch_layer_tensors
+
+    def counted(fgs):          # the W bytes each dense chunk builds
+        Ws, init = build(fgs)
+        built.append(Ws.numel() * Ws.element_size())
+        return Ws, init
+
+    fin.batch_layer_tensors = counted
+    try:
+        for c in counters:
+            c.launches = 0
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        sols, wall = _timed(lambda: T.solve_many(ps, ns, rs, gamma=GAMMA,
+                                                 backend="dense", device=dev))
+        launches = {c.__name__: c.launches for c in counters}
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        fin.batch_layer_tensors = build
+    check(launches["minplus_vecmat_argmin"] > 0,
+          "solve_many dense did not launch B4")
+    check(all(same_all(a, b) for a, b in zip(sols, sols_minplus)),
+          "solve_many dense differs from minplus on CUDA")
+    log("solve_many_dense", f"{len(ps)} scenarios gamma={GAMMA} dense on "
+        f"CUDA: {wall:.3f} s wall (host clock, ending in synchronize; "
+        f"minplus {wall_minplus:.3f} s); Solutions identical to minplus "
+        f"(config, every ConfigEval field, meta); kernel launches "
+        f"{launches}; (S, S) matrices built {sum(built)} B in {len(built)} "
+        f"chunks (largest {max(built)} B); max_memory_allocated {peak} B")
+
+    sw = T.sweep_scenarios(deltas_ms=(2.0, 5.0, 8.0, 12.0),
+                           uplinks_bps=(1e9, 0.5e9))
+    cuda, w_cuda = _timed(lambda: T.solve_many(*sw, gamma=10,
+                                               backend="dense", device=dev))
+    t0 = time.perf_counter()
+    cpu = T.solve_many(*sw, gamma=10, backend="dense", device="cpu")
+    w_cpu = time.perf_counter() - t0
+    check(all(same_all(a, b) for a, b in zip(cuda, cpu)),
+          "sweep dense: CUDA differs from the CPU path")
+    k_dense, w_kd = _timed(lambda: T.solve_many(
+        *sw, gamma=10, n_best=N_BEST, backend="dense", device=dev))
+    k_minplus = T.solve_many(*sw, gamma=10, n_best=N_BEST, device=dev)
+    check(all(same_all(a, b) for a, b in zip(k_dense, k_minplus)),
+          f"sweep dense n_best={N_BEST} differs from minplus on CUDA")
+    t0 = time.perf_counter()
+    oracle = [T.solve_fin(n_, p_, r_, gamma=10, backend="python", device=dev)
+              for p_, n_, r_ in zip(*sw)]
+    w_py = time.perf_counter() - t0
+    agree = sum(a.found == b.found and (not a.found or (
+        a.config.placement == b.config.placement and a.energy == b.energy))
+        for a, b in zip(oracle, cuda))
+    check(agree == len(cuda), f"sweep dense: agree {agree}/{len(cuda)} "
+          f"with the python oracle")
+    log("solve_many_dense", f"Fig. 5-7 sweep, {len(cuda)} scenarios gamma=10:"
+        f" dense CUDA == CPU path; dense n_best={N_BEST} == minplus "
+        f"n_best={N_BEST} on CUDA; agree = {agree}/{len(cuda)} against "
+        f"backend='python'; wall s dense cuda {w_cuda:.3f} cpu {w_cpu:.3f}, "
+        f"n_best={N_BEST} cuda {w_kd:.3f}, python oracle (per-scenario "
+        f"solve_fin) {w_py:.3f}")
+    del sols
+    torch.cuda.empty_cache()
+    return launches, wall
+
+
+def table7_instance():
+    import repro_torch as T
+    tiers = ("mobile",) + ("edge",) * (TABLE7_NODES - 2) + ("cloud",)
+    return (T.make_network(tiers, compute_frac=[1e-3] * TABLE7_NODES),
+            T.synthetic_profile(TABLE7_BLOCKS, 4, seed=0, ops_scale=5e7),
+            T.AppRequirements(alpha=0.0, delta=20e-3))
+
+
+def phase_table7_dense(dev, counters):
+    """The paper's Table VII large instance through fin_all_exit_costs: the
+    dense float64 relaxation (B5 per layer) bit-equal to the banded one (B1)
+    on the card and to the CPU path; f32 (B5 in float32) within
+    RELAX_RTOL_F32.  Returns the phase's launch counts."""
+    import numpy as np
+    import torch
+    import repro_torch as T
+    from repro_torch.core.tolerances import RELAX_RTOL_F32
+    from repro_torch.kernels.minplus.ops import minplus_vecmat
+    nw, pf, req = table7_instance()
+    for c in counters:
+        c.launches = 0
+    reps = 5
+    for gamma in (10, 25):
+        S = TABLE7_NODES * (gamma + 1)
+        call = {}
+        for backend in ("numpy", "banded", "f32"):
+            T.fin_all_exit_costs(nw, pf, req, gamma=gamma, backend=backend,
+                                 device=dev)           # warm-up
+            n5 = minplus_vecmat.launches
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                out = T.fin_all_exit_costs(nw, pf, req, gamma=gamma,
+                                           backend=backend, device=dev)
+            torch.cuda.synchronize()
+            call[backend] = (out, (time.perf_counter() - t0) / reps,
+                             (minplus_vecmat.launches - n5) // reps)
+        t0 = time.perf_counter()
+        cpu = T.fin_all_exit_costs(nw, pf, req, gamma=gamma, backend="numpy",
+                                   device="cpu")
+        w_cpu = time.perf_counter() - t0
+        dense, banded, f32 = (call[b][0] for b in ("numpy", "banded", "f32"))
+        check(dense.tobytes() == banded.tobytes(),
+              f"table7 gamma={gamma}: dense differs from banded on CUDA")
+        check(dense.tobytes() == cpu.tobytes(),
+              f"table7 gamma={gamma}: dense CUDA differs from the CPU path")
+        check(bool(np.isfinite(dense).all()),
+              f"table7 gamma={gamma}: an exit is unreachable")
+        rel = float(np.max(np.abs(f32 - dense) / dense))
+        check(rel <= RELAX_RTOL_F32, f"table7 gamma={gamma}: f32 off by "
+              f"{rel:.3g} relative (> {RELAX_RTOL_F32})")
+        check(call["numpy"][2] == TABLE7_BLOCKS - 1,
+              f"table7: B5 launched {call['numpy'][2]} times a dense call, "
+              f"not {TABLE7_BLOCKS - 1}")
+        log("table7_dense", f"N={TABLE7_NODES} blocks={TABLE7_BLOCKS} gamma="
+            f"{gamma} (S = {S}, W {(TABLE7_BLOCKS - 1) * S * S * 8} B f64): "
+            f"dense == banded == CPU path bit for bit {dense.tolist()}; f32 "
+            f"within {rel:.3g} relative; B5 launches a call: numpy "
+            f"{call['numpy'][2]}, f32 {call['f32'][2]}; wall ms a call "
+            f"(host clock, mean of {reps}, ending in synchronize) numpy "
+            f"{call['numpy'][1] * 1e3:.3f} banded "
+            f"{call['banded'][1] * 1e3:.3f} f32 {call['f32'][1] * 1e3:.3f} | "
+            f"CPU numpy {w_cpu * 1e3:.3f}")
+    launches = {c.__name__: c.launches for c in counters}
+    log("table7_dense", f"kernel launches over the phase {launches}")
+    return launches
 
 def _timed(fn):
     import torch
@@ -679,26 +900,100 @@ def phase_frontier(dev, counters):
         f"{wall_cpu:.3f}")
 
 
-def phase_dense_bounds(grid):
-    """Bounds of the unported dense kernels B4 (``minplus_argmin_pallas``)
-    and B5 (``minplus_pallas``) at the shapes the reference's ``dense``
-    path passes them on the full-width grid: one [1, S] x [S, S] float32
-    product per (scenario, layer) of the main and the ceil pass, S =
-    N * (G+1).  Computed from shapes, not measured: nothing launches."""
-    ps, ns, _ = grid
-    N, S = ns[0].n_nodes, ns[0].n_nodes * (GAMMA + 1)
-    pairs = 2 * sum(p.n_blocks - 1 for p in ps)
-    for name, outs, ops in (("B5 minplus", S, 2 * S * S),
-                            ("B4 minplus_argmin", 2 * S, 3 * S * S)):
-        nbytes = 4 * (S + S * S + outs)
-        t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS_PER_S["float32"]
-        bound = max(t_b, t_o) * 1e3
-        log("bounds", f"{name} f32 [1, {S}] x [{S}, {S}] (N = {N}, G+1 = "
-            f"{GAMMA + 1}): {nbytes} B and {ops} ops a launch, bound "
-            f"{bound:.3g} ms by {'bytes' if t_b >= t_o else 'operations'}; "
-            f"{pairs} launches on the {len(ps)}-scenario grid (main + ceil "
-            f"pass): {pairs * bound:.4f} ms, {pairs * nbytes} B (computed "
-            f"from shapes, not measured)")
+def dense_bound(dist, W, argmin):
+    """(bound_ms, bound_by, bytes, ops) of one dense product on this data:
+    dist read once, each W row whose dist entry is finite read once (the
+    others cannot reach a target), out (and arg) written once, and one add
+    plus one compare per candidate with both operands finite."""
+    import torch
+    B, S = dist.shape
+    T_ = W.shape[-1]
+    item = dist.element_size()
+    live = torch.isfinite(dist)                              # (B, S)
+    w_rows = int(live.sum()) if W.dim() == 3 else int(live.any(0).sum())
+    nbytes = (dist.numel() * item + w_rows * T_ * item
+              + B * T_ * (item + (4 if argmin else 0)))
+    fin_w = torch.isfinite(W).to(dist.dtype)
+    per = (live.to(dist.dtype)[:, :, None] * fin_w).sum() if W.dim() == 3 \
+        else live.to(dist.dtype) @ fin_w.sum(1)[:, None]
+    ops = 2 * int(per.sum())
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = ops / PEAK_OPS_PER_S[str(dist.dtype).replace("torch.", "")]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", nbytes, ops)
+
+
+def dense_times(grid, dev, err):
+    """B4 and B5 at the dense path's largest launch: one layer of round 0's
+    h1-h4 group (floor and ceil graphs, 20,480 rows, S = 130) in float64
+    with a W per row, the layer whose input has the most reached states;
+    against the plain versions and the data's bound.  Float32 at the same
+    shape and B5 at one Table VII layer (B = 1, S = 390) for the record."""
+    import torch
+    from repro_torch.core import bellman_ford as bf
+    from repro_torch.core.extended_graph import build_extended_graphs
+    from repro_torch.core.feasible_graph import (batch_layer_tensors,
+                                                 build_feasible_graphs)
+    from repro_torch.kernels.minplus.ops import (minplus_vecmat,
+                                                 minplus_vecmat_argmin)
+    from repro_torch.kernels.minplus.ref import minplus_argmin_ref, minplus_ref
+    ps, ns, rs = grid
+    idx = [j for j, p in enumerate(ps) if p.n_blocks == 5]
+    exts = build_extended_graphs([ns[j] for j in idx], [ps[j] for j in idx],
+                                 [rs[j] for j in idx], device=dev)
+    fgs = [fg for q in ("floor", "ceil")
+           for fg in build_feasible_graphs(exts, GAMMA, quantize=q)]
+    Ws, init = batch_layer_tensors(fgs)
+    hist, _ = bf.batched_layered_relax_argmin(init, Ws)
+    reached = [int(torch.isfinite(hist[:, l]).sum())
+               for l in range(Ws.shape[1])]
+    layer = max(range(len(reached)), key=reached.__getitem__)
+    d = hist[:, layer].contiguous()
+    W = Ws[:, layer].contiguous()
+    del Ws, hist
+    torch.cuda.empty_cache()
+    rows = []
+    for name, kern, plain, argmin, replaces in (
+            ("minplus_vecmat_argmin", minplus_vecmat_argmin,
+             minplus_argmin_ref, True,
+             "src/repro/kernels/minplus/minplus.py:107"),
+            ("minplus_vecmat", minplus_vecmat, minplus_ref, False,
+             "src/repro/kernels/minplus/minplus.py:43")):
+        ms = cuda_ms(lambda: kern(d, W), 20)
+        plain_ms = cuda_ms(lambda: plain(d, W), 3, 1)
+        bound, by, nbytes, ops = dense_bound(d, W, argmin)
+        full = (d.numel() + W.numel() + d.shape[0] * W.shape[-1]) * 8 + (
+            d.shape[0] * W.shape[-1] * 4 if argmin else 0)
+        log("times", f"{'B4' if argmin else 'B5'} {name} f64 dist "
+            f"{tuple(d.shape)} W {tuple(W.shape)} per row (layer {layer}, "
+            f"{reached[layer]} of {d.numel()} states reached): kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.4f} ms by "
+            f"{by} ({nbytes} B, {ops} ops, this data); all of W read once: "
+            f"{full} B, {full / HBM_BYTES_PER_S * 1e3:.4f} ms "
+            f"({full / (ms * 1e-3) / 1e9:.1f} GB/s achieved)")
+        rows.append(dict(name=name, route="cuda", source=DENSE_SOURCE,
+                         replaces=replaces, launches=None,
+                         max_abs_err=err[name], ms=ms, plain_ms=plain_ms,
+                         bound_ms=bound, bound_by=by, library_ms=None))
+    d32, W32 = d.float(), W.float()
+    ms32 = cuda_ms(lambda: minplus_vecmat_argmin(d32, W32), 20)
+    b32, by32, _, _ = dense_bound(d32, W32, True)
+    log("times", f"B4 f32 at the same shape: kernel {ms32:.4f} ms, bound "
+        f"{b32:.4f} ms by {by32}")
+    del d, W, d32, W32
+    torch.cuda.empty_cache()
+    nw, pf, req = table7_instance()
+    fg = build_feasible_graphs(build_extended_graphs([nw], [pf], [req],
+                                                     device=dev), GAMMA)[0]
+    Wt = fg.layer_matrices()
+    dt = bf.layered_relax(fg.init_vector(), Wt)[-2][None].contiguous()
+    Wl = Wt[-1].contiguous()
+    ms_t = cuda_ms(lambda: minplus_vecmat(dt, Wl), 200, 10)
+    bt, byt, nbt, _ = dense_bound(dt, Wl, False)
+    log("times", f"B5 f64 one Table VII layer dist {tuple(dt.shape)} W "
+        f"{tuple(Wl.shape)} shared: kernel {ms_t:.4f} ms, bound {bt:.6f} ms "
+        f"by {byt} ({nbt} B)")
+    return rows
 
 
 def phase_kernel_times(grid, dev, err):
@@ -1233,21 +1528,28 @@ def main() -> int:
     from repro_torch.kernels.ee_gate.ops import ee_gate
     from repro_torch.kernels.minplus.ops import (banded_minplus_argmin,
                                                  banded_minplus_chain,
-                                                 banded_minplus_chain_kbest)
+                                                 banded_minplus_chain_kbest,
+                                                 minplus_vecmat,
+                                                 minplus_vecmat_argmin)
     dev = torch.device("cuda", 0)
     # float32 products in full float32: the f32 comparisons against the CPU
     # path ([serve_parity]) rest on it
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     counters = (banded_minplus_chain, banded_minplus_argmin,
-                banded_minplus_chain_kbest, ee_gate, decode_attn)
+                banded_minplus_chain_kbest, minplus_vecmat,
+                minplus_vecmat_argmin, ee_gate, decode_attn)
 
     phase_environment()
     err = phase_kernels(dev)
+    err.update(phase_kernels_dense(dev))
     grid = full_grid()
     phase_graphs(grid, dev)
     phase_solve_fin(dev)
-    launches, wall = phase_solve_many(grid, dev, counters)
+    launches, wall, sols = phase_solve_many(grid, dev, counters)
+    launches_d, _ = phase_solve_many_dense(grid, dev, counters, sols, wall)
+    del sols
+    launches_t7 = phase_table7_dense(dev, counters)
     launches_k, wall_k = phase_solve_many_kbest(grid, dev, counters, wall)
     phase_plan(dev, counters)
     phase_frontier(dev, counters)
@@ -1260,7 +1562,12 @@ def main() -> int:
         row["launches"] = path[row["name"]]
         check(row["launches"] > 0, f"{row['name']}: no launch on its path")
     phase_population(grid, dev)
-    phase_dense_bounds(grid)
+    # B4 on solve_many(backend="dense"), B5 on the Table VII path
+    dense_rows = dense_times(grid, dev, err)
+    for row, path in zip(dense_rows, (launches_d, launches_t7)):
+        row["launches"] = path[row["name"]]
+        check(row["launches"] > 0, f"{row['name']}: no launch on its path")
+    rows += dense_rows
     err_serve = phase_kernels_serve(dev)
     params, cfg, launches_s, serve = phase_serve(dev, counters)
     serve_rows = serve_times(params, cfg, dev, err_serve)

@@ -1,11 +1,11 @@
 """FIN feasible graph (Sec. III): depth-replicated, pruned, layered.
 
-Port of ``repro/core/feasible_graph.py`` (the banded half; the dense
-``layer_matrices`` / ``batch_layer_tensors`` wait for the dense engines).
-Every extended-graph vertex (n, l_i) is replicated gamma+1 times; replica g
-("depth") encodes quantized accumulated latency, and an edge
-v_{g1} -> v'_{g2} exists iff g2 - g1 equals the quantized edge latency
-(Eq. 4) and the local (3d)/(3e) pruning admits it.
+Port of ``repro/core/feasible_graph.py``: the compact banded tensors and
+the dense (S, S) layer matrices, S = N * (G+1).  Every extended-graph
+vertex (n, l_i) is replicated gamma+1 times; replica g ("depth") encodes
+quantized accumulated latency, and an edge v_{g1} -> v'_{g2} exists iff
+g2 - g1 equals the quantized edge latency (Eq. 4) and the local (3d)/(3e)
+pruning admits it.
 
 Quantization modes for Eq. (4): ``ceil`` (conservative), ``floor`` (the
 default; FIN exact-checks the result and tightens delta if needed) and
@@ -68,6 +68,29 @@ class FeasibleGraph:
         None when the window is inactive (lam == gamma)."""
         return self.gamma - self.lam if self.lam < self.gamma else None
 
+    @property
+    def n_vertices(self) -> int:
+        return self.ext.n_blocks * self.n_states + 1
+
+    @property
+    def n_edges(self) -> int:
+        """Source edges plus one feasible-graph edge per admissible
+        extended edge (n, n') and source depth g with g + steep <= gamma."""
+        n_init = int(torch.isfinite(self.init_depth).sum())
+        per_edge = torch.where(torch.isfinite(self.steep),
+                               (self.gamma + 1 - self.steep).clamp(min=0.0),
+                               0.0)
+        return n_init + int(per_edge.sum())
+
+    def layer_matrices(self) -> torch.Tensor:
+        """(L-1, S, S) dense (min,+) transition matrices over the states
+        s = n * (gamma+1) + g: energy weights, +inf for non-edges."""
+        return batch_layer_tensors([self])[0][0]
+
+    def init_vector(self) -> torch.Tensor:
+        """(S,) initial state distances (source edges)."""
+        return self.init_grid().reshape(-1)
+
     def banded_tensors(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """(E (L-1, N, N), steep (L-1, N, N)) -- the native banded form."""
         return self.ext.E, self.steep
@@ -103,6 +126,45 @@ def batch_banded_tensors(fgs: Sequence[FeasibleGraph]
     d0 = torch.stack([fg.init_depth for fg in fgs])
     iE = torch.stack([fg.ext.init_E for fg in fgs])
     return E, st, _init_grids(d0, iE, G)
+
+
+def batch_layer_tensors(fgs: Sequence[FeasibleGraph]
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Stacked ``layer_matrices`` / ``init_vector`` for a same-shape group.
+
+    Returns (Ws (D, L-1, S, S), init (D, S)) on the graphs' device, byte
+    for byte the reference's.  One scatter over the (D, L-1, N, G+1, N)
+    admissibility mask (Eq. 4 steepness, the depth budget and the lambda
+    window) builds Ws with no boolean filtering: each (source state (n, g),
+    target node n2) pair owns the G+1 columns of block n2 in row (n, g),
+    so an admissible edge writes its energy at column n2 * (G+1) + g2 and an
+    inadmissible one writes +inf at column n2 * (G+1), and no two writes
+    land on one entry.
+    """
+    f0 = fgs[0]
+    N, G, L, lam = f0.ext.n_nodes, f0.gamma, f0.ext.n_blocks, f0.lam
+    if not all(fg.ext.n_nodes == N and fg.gamma == G and fg.lam == lam
+               and fg.ext.n_blocks == L for fg in fgs):
+        raise ValueError("batch_layer_tensors needs one (L, N, gamma, lam) "
+                         "shape group")
+    D, S = len(fgs), N * (G + 1)
+    st = torch.stack([fg.steep for fg in fgs])          # (D, L-1, N, N)
+    E = torch.stack([fg.ext.E for fg in fgs])
+    dev = st.device
+    finite = torch.isfinite(st)[:, :, :, None, :]       # (D, L-1, N, 1, N)
+    g = torch.arange(G + 1, dtype=st.dtype, device=dev)[:, None]
+    g2 = st[:, :, :, None, :] + g                       # (D, L-1, N, G+1, N)
+    ok = finite & (g2 <= G)
+    if lam < G:
+        ok &= (g2 >= G - lam) | (g2 == g)               # Alg. 1, Fn II
+    n2 = torch.arange(N, device=dev) * (G + 1)
+    col = n2 + torch.where(ok, g2, 0.0).long()
+    val = torch.where(ok, E[:, :, :, None, :], _INF)
+    Ws = torch.full((D, L - 1, N, G + 1, S), _INF, dtype=E.dtype, device=dev)
+    Ws.scatter_(4, col, val)
+    d0 = torch.stack([fg.init_depth for fg in fgs])
+    iE = torch.stack([fg.ext.init_E for fg in fgs])
+    return Ws.reshape(D, L - 1, S, S), _init_grids(d0, iE, G).reshape(D, S)
 
 
 def _check_gamma_lam(gamma: int, lam: Optional[int]) -> int:

@@ -13,16 +13,23 @@ each relaxation chunk.  Backends:
   ``f32``      float32 relaxation (prune guard DIST_RTOL_F32), the
                counterpart of the reference's ``jnp`` / ``pallas`` backends
                at ``n_best == 1`` and of its ``pallas`` k-slot kernel at
-               ``n_best > 1``.
+               ``n_best > 1``;
+  ``dense``    the dense flattened-state float64 relaxation over (S, S)
+               layer matrices, S = N * (G+1) (alias ``numpy``) -- the
+               reference's equivalence backend, bit-exact against its
+               ``dense``; at ``n_best > 1`` the dense k-best oracle;
+  ``python``   the reference's loop DP, the oracle every other backend is
+               validated against; host code on host copies of the graphs.
 
 ``n_best == 1`` stores argmin parents; ``n_best > 1`` keeps the K cheapest
 paths per state with (node, slot) parents -- the beyond-paper fix for
 quantizer state collisions at small gamma, and the DP behind the Pareto
 frontier (``frontier.py``).  On CUDA the relaxation of a shape group is one
 launch of a hand-written chain kernel (B1 for one slot, B3 for K slots);
-on the CPU it runs the kernels' plain PyTorch versions in cache-sized
-chunks.  Not ported yet (they raise): the ``python`` oracle and the dense
-``dense``/``numpy`` backend.
+the dense backend launches B4 once per layer for a chunk of scenarios.  On
+the CPU they run the kernels' plain PyTorch versions in cache-sized
+chunks.  The reference's ``jnp`` / ``pallas`` names raise: their float32
+engine is the port's ``f32`` backend.
 
 One DP pass yields the best configuration for every candidate final exit,
 so accuracy filtering (3c) is a post-pass.  Quantization undershoot
@@ -39,14 +46,18 @@ import numpy as np
 import torch
 
 from .._device import DeviceLike, resolve_device
-from .bellman_ford import (batched_banded_relax_argmin,
+from .bellman_ford import (DENSE_DTYPES, DEVICE_DENSE_BUDGET_BYTES,
+                           batched_banded_relax_argmin,
                            batched_banded_relax_kbest,
-                           batched_banded_relax_min, device_chunk_rows,
-                           relax_chunk_rows)
+                           batched_banded_relax_min,
+                           batched_layered_relax_argmin,
+                           batched_layered_relax_kbest, device_chunk_rows,
+                           layered_relax, relax_chunk_rows)
 from .dnn_profile import DNNProfile
 from .extended_graph import build_extended_graph, build_extended_graphs
 from .feasible_graph import (FeasibleGraph, batch_banded_tensors,
-                             build_feasible_graph, build_feasible_graphs)
+                             batch_layer_tensors, build_feasible_graph,
+                             build_feasible_graphs)
 from .problem import AppRequirements, Config, ConfigEval, Solution, evaluate_config
 from .system_model import Network
 from .tolerances import dist_tol
@@ -56,9 +67,13 @@ DP_BACKENDS: Dict[str, str] = {
     "minplus": "banded",
     "banded": "banded",
     "f32": "f32",
+    "dense": "dense",
+    "numpy": "dense",
+    "python": "python",
 }
 
-_ENGINE_DTYPE = {"banded": torch.float64, "f32": torch.float32}
+_ENGINE_DTYPE = {"banded": torch.float64, "f32": torch.float32,
+                 "dense": torch.float64}
 
 
 def _engine(backend: str) -> str:
@@ -66,8 +81,8 @@ def _engine(backend: str) -> str:
     if engine is None:
         raise ValueError(
             f"unknown FIN backend {backend!r}: the port supports "
-            f"{sorted(DP_BACKENDS)}; the python and dense/numpy backends "
-            f"are not ported yet")
+            f"{sorted(DP_BACKENDS)}; the reference's float32 jnp / pallas "
+            f"engines are the port's f32 backend")
     return engine
 
 
@@ -125,6 +140,161 @@ class _BandedKDP:
                 int(self.par_k[i - 1, n, g, k]))
 
 
+class _DPResult:
+    """Layered DP over states (block, node, depth) with K slots, on the host.
+
+    dist[i, n, g, k] is the k-th cheapest energy reaching that state;
+    par_n / par_g / par_k give the (node, depth, rank) of its predecessor.
+    The result of the ``python`` loop DP and of the dense k-best engine.
+    """
+    __slots__ = ("dist", "par_n", "par_g", "par_k", "_dmin")
+
+    def __init__(self, dist: np.ndarray, par_n: np.ndarray,
+                 par_g: np.ndarray, par_k: np.ndarray):
+        self.dist = dist               # (L, N, G+1, K) float64
+        self.par_n = par_n             # (L, N, G+1, K) int32
+        self.par_g = par_g
+        self.par_k = par_k
+        self._dmin = {}
+
+    def parent(self, i: int, n: int, g: int, k: int) -> Tuple[int, int, int]:
+        pn = int(self.par_n[i, n, g, k])
+        assert pn >= 0
+        return pn, int(self.par_g[i, n, g, k]), int(self.par_k[i, n, g, k])
+
+
+class _FlatArgDP:
+    """Dense DP result with B4's stored parents, on the host (K = 1).
+
+    ``par[i-1, t]`` is the first-occurrence argmin source state of flat
+    state t at block i: the column scan over the same float64 sums that the
+    reference's lazy ``_FlatDP`` recomputes per backtracked step, so every
+    backtrack is identical, and no (L-1, S, S) matrix leaves the device.
+    """
+    __slots__ = ("hist", "par", "G", "dist", "_dmin")
+
+    def __init__(self, hist: np.ndarray, par: np.ndarray, N: int, G: int):
+        self.hist = hist               # (L, S) float64
+        self.par = par                 # (L-1, S) int32
+        self.G = G
+        self.dist = hist.reshape(hist.shape[0], N, G + 1, 1)
+        self._dmin = {}
+
+    def parent(self, i: int, n: int, g: int, k: int) -> Tuple[int, int, int]:
+        s = int(self.par[i - 1, n * (self.G + 1) + g])
+        assert s >= 0
+        return s // (self.G + 1), s % (self.G + 1), 0
+
+
+#: any DP result of this module: backtracked through ``parent`` and
+#: scanned through ``dist`` (L, N, G+1, K)
+_DPState = Union[_BandedArgDP, _BandedKDP, _FlatArgDP, _DPResult]
+
+
+def _run_dp(fg: FeasibleGraph, n_best: int = 1) -> _DPResult:
+    """The reference's loop DP, the oracle behind ``backend="python"``: host
+    code on host copies of the graph tensors."""
+    ext = fg.ext
+    N, L, G = ext.n_nodes, ext.n_blocks, fg.gamma
+    steep = fg.steep.cpu().numpy()
+    E = ext.E.cpu().numpy()
+    init_E = ext.init_E.cpu().numpy()
+    init_depth = fg.init_depth.cpu().numpy()
+    K = n_best
+    dist = np.full((L, N, G + 1, K), np.inf)
+    par_n = np.full((L, N, G + 1, K), -1, dtype=np.int32)
+    par_g = np.full((L, N, G + 1, K), -1, dtype=np.int32)
+    par_k = np.full((L, N, G + 1, K), -1, dtype=np.int32)
+
+    for n in range(N):
+        d0 = init_depth[n]
+        if np.isfinite(d0):
+            dist[0, n, int(d0), 0] = init_E[n]
+
+    lo = fg.gamma - fg.lam
+
+    def push(i, n2, g2, cand, pn, pg, pk):
+        row = dist[i, n2, g2]
+        if cand >= row[-1]:
+            return
+        j = int(np.searchsorted(row, cand))
+        dist[i, n2, g2, j + 1:] = row[j:-1]
+        par_n[i, n2, g2, j + 1:] = par_n[i, n2, g2, j:-1]
+        par_g[i, n2, g2, j + 1:] = par_g[i, n2, g2, j:-1]
+        par_k[i, n2, g2, j + 1:] = par_k[i, n2, g2, j:-1]
+        dist[i, n2, g2, j] = cand
+        par_n[i, n2, g2, j] = pn
+        par_g[i, n2, g2, j] = pg
+        par_k[i, n2, g2, j] = pk
+
+    for i in range(L - 1):
+        st = steep[i]             # (N, N)
+        ew = E[i]                 # (N, N)
+        for n in range(N):
+            for n2 in range(N):
+                s = st[n, n2]
+                if not np.isfinite(s):
+                    continue
+                s = int(s)
+                cost = ew[n, n2]
+                for g in range(G + 1 - s):
+                    g2 = g + s
+                    if fg.lam < fg.gamma and g2 != g and not (lo <= g2 <= G):
+                        continue  # lambda-proximity window (Alg. 1, Fn II)
+                    for k in range(K):
+                        d = dist[i, n, g, k]
+                        if not np.isfinite(d):
+                            break
+                        push(i + 1, n2, g2, d + cost, n, g, k)
+    return _DPResult(dist, par_n, par_g, par_k)
+
+
+def _dp_from_flat(hist: np.ndarray, par_s: np.ndarray, par_k: np.ndarray,
+                  N: int, G: int) -> _DPResult:
+    """Reshape flat-state k-best output (L, S, K) into a ``_DPResult``.
+
+    par_s / par_k cover layers 1..L-1 ((L-1, S, K)); layer 0 has no
+    parents.
+    """
+    L, S, K = hist.shape
+    dist = hist.reshape(L, N, G + 1, K)
+    par_n = np.full((L, S, K), -1, dtype=np.int32)
+    par_g = np.full((L, S, K), -1, dtype=np.int32)
+    par_k_ = np.full((L, S, K), -1, dtype=np.int32)
+    if L > 1:
+        valid = par_s >= 0
+        np.floor_divide(par_s, G + 1, out=par_n[1:], where=valid,
+                        casting="unsafe")
+        np.remainder(par_s, G + 1, out=par_g[1:], where=valid,
+                     casting="unsafe")
+        np.copyto(par_k_[1:], par_k, where=valid, casting="unsafe")
+    shape = (L, N, G + 1, K)
+    return _DPResult(dist, par_n.reshape(shape), par_g.reshape(shape),
+                     par_k_.reshape(shape))
+
+
+def _relax_dense(fgs: Sequence[FeasibleGraph], K: int
+                 ) -> List[Union[_FlatArgDP, _DPResult]]:
+    """Relax one same-shape chunk of feasible graphs over their dense
+    (S, S) layer matrices, built on the graphs' device: one B4 launch per
+    layer on CUDA for K == 1, the plain k-best engine for K > 1; the
+    results are copied to the host once."""
+    N, G = fgs[0].ext.n_nodes, fgs[0].gamma
+    Ws, init = batch_layer_tensors(fgs)
+    if K == 1:
+        hist, par = batched_layered_relax_argmin(init, Ws)
+        del Ws
+        hist_h, par_h = hist.cpu().numpy(), par.cpu().numpy()
+        return [_FlatArgDP(hist_h[r], par_h[r], N, G)
+                for r in range(len(fgs))]
+    hist, ps, pk = batched_layered_relax_kbest(init, Ws, K)
+    del Ws
+    hist_h, ps_h, pk_h = hist.cpu().numpy(), ps.cpu().numpy(), \
+        pk.cpu().numpy()
+    return [_dp_from_flat(hist_h[r], ps_h[r], pk_h[r], N, G)
+            for r in range(len(fgs))]
+
+
 def _relax_rows(init: torch.Tensor, E: torch.Tensor, steep: torch.Tensor,
                 lo: Optional[int], dtype: torch.dtype, K: int
                 ) -> List[Union[_BandedArgDP, _BandedKDP]]:
@@ -155,11 +325,24 @@ def _relax_group(fgs: Sequence[FeasibleGraph], dtype: torch.dtype, K: int
 
 
 def relax_rows_per_chunk(device: torch.device, L: int, N: int, Gp1: int,
-                         K: int, dtype: torch.dtype) -> int:
-    """Scenario rows per relaxation chunk.  On CUDA a chunk is one kernel
-    launch, split only when its outputs (history plus parents) would exceed
-    ``DEVICE_RELAX_BUDGET_BYTES``; on the CPU it is cache-resident, as in
-    the reference.  Neither split changes a number."""
+                         K: int, dtype: torch.dtype,
+                         engine: str = "banded") -> int:
+    """Scenario rows per relaxation chunk.  On CUDA a banded chunk is one
+    kernel launch, split only when its outputs (history plus parents) would
+    exceed ``DEVICE_RELAX_BUDGET_BYTES``; on the CPU it is cache-resident,
+    as in the reference.  A dense chunk counts its inputs too: the
+    (L-1, S, S) float64 matrices, the scatter that builds them (an int64
+    column and a value per mask entry), the outputs and the per-layer
+    candidate tensor of the plain engines (the (S*K, S) pool, its sort and
+    indices for K > 1), against ``DEVICE_DENSE_BUDGET_BYTES`` on CUDA.
+    No split changes a number."""
+    if engine == "dense":
+        S = N * Gp1
+        row = ((L - 1) * S * S * 8 + (L - 1) * N * S * 16
+               + L * S * K * 16 + S * S * K * (8 if K == 1 else 24))
+        if device.type == "cuda":
+            return device_chunk_rows(row, DEVICE_DENSE_BUDGET_BYTES)
+        return relax_chunk_rows(row)
     if device.type == "cuda":
         item = torch.finfo(dtype).bits // 8
         return device_chunk_rows(L * N * Gp1 * K
@@ -170,34 +353,39 @@ def relax_rows_per_chunk(device: torch.device, L: int, N: int, Gp1: int,
 
 
 def _run_dp_batch(fgs: Sequence[FeasibleGraph], n_best: int = 1,
-                  backend: str = "minplus"
-                  ) -> List[Union[_BandedArgDP, _BandedKDP]]:
+                  backend: str = "minplus") -> List[_DPState]:
     """Batched relaxation for a list of feasible graphs.
 
     Same-shape scenarios are grouped and each group's banded tensors are
     stacked into one (D, L-1, N, N) chain, relaxed in chunks of
     ``relax_rows_per_chunk`` rows: one kernel launch and one device -> host
-    copy per chunk on CUDA.  ``n_best > 1`` runs the k-slot engine.
+    copy per chunk on CUDA.  ``n_best > 1`` runs the k-slot engine.  The
+    dense backend scatters each chunk's (D, L-1, S, S) matrices instead;
+    ``python`` runs the loop DP per graph.
     """
     K = _validate_n_best(n_best)
-    dtype = _ENGINE_DTYPE[_engine(backend)]
+    engine = _engine(backend)
+    if engine == "python":
+        return [_run_dp(fg, K) for fg in fgs]
+    dtype = _ENGINE_DTYPE[engine]
     groups: Dict[Tuple[int, int, int, int], List[int]] = {}
     for j, fg in enumerate(fgs):
         groups.setdefault((fg.ext.n_blocks, fg.ext.n_nodes, fg.gamma, fg.lam),
                           []).append(j)
-    out: List[Optional[Union[_BandedArgDP, _BandedKDP]]] = [None] * len(fgs)
+    out: List[Optional[_DPState]] = [None] * len(fgs)
     for (L, N, G, lam), idxs in groups.items():
         chunk = relax_rows_per_chunk(fgs[idxs[0]].steep.device, L, N, G + 1,
-                                     K, dtype)
+                                     K, dtype, engine)
         for start in range(0, len(idxs), chunk):
-            part = idxs[start:start + chunk]
-            for j, dp in zip(part, _relax_group([fgs[j] for j in part], dtype,
-                                                K)):
+            part = [fgs[j] for j in idxs[start:start + chunk]]
+            dps = (_relax_dense(part, K) if engine == "dense"
+                   else _relax_group(part, dtype, K))
+            for j, dp in zip(idxs[start:start + chunk], dps):
                 out[j] = dp
     return out
 
 
-def _exit_dmin(dp: _BandedArgDP, block: int) -> float:
+def _exit_dmin(dp: _DPState, block: int) -> float:
     """Memoized min DP distance at a block (the exit-prune bound)."""
     v = dp._dmin.get(block)
     if v is None:
@@ -214,6 +402,25 @@ def _backtrack(dp, block: int, node: int, depth: int,
         place.append(n)
         i -= 1
     return place[::-1]
+
+
+def _configs_at_exit(dp: _DPState, profile: DNNProfile, k: int
+                     ) -> List[Tuple[Config, float]]:
+    """The reference's eager scan: every DP end state at exit k's block,
+    sorted by energy, every path backtracked up front.  Only the ``python``
+    oracle backend uses it, as in the reference."""
+    block = profile.exits[k].block
+    d = dp.dist[block]                      # (N, G+1, K)
+    flat = np.argsort(d, axis=None)
+    out: List[Tuple[Config, float]] = []
+    for idx in flat:
+        n, g, r = np.unravel_index(idx, d.shape)
+        if not np.isfinite(d[n, g, r]):
+            break
+        cfg = Config(placement=_backtrack(dp, block, int(n), int(g), int(r)),
+                     final_exit=k)
+        out.append((cfg, float(d[n, g, r])))
+    return out
 
 
 def _iter_configs_at_exit(dp, profile: DNNProfile, k: int
@@ -250,7 +457,7 @@ def _best_feasible(network: Network, profile: DNNProfile,
                    admissible_exits: Sequence[int],
                    check_aggregate_load: bool,
                    bound: Optional[Tuple[Config, ConfigEval]] = None,
-                   dist_tol: float = 1e-9
+                   dist_tol: float = 1e-9, oracle: bool = False
                    ) -> Optional[Tuple[Config, ConfigEval]]:
     """Exact (3a)-(3e) post-pass: cheapest feasible config over all exits.
 
@@ -259,16 +466,20 @@ def _best_feasible(network: Network, profile: DNNProfile,
     the graph distance IS the exact path energy, and the ``dist_tol``
     relative guard keeps rounding near-ties evaluated exactly.  ``bound``
     carries the bounding pass's (config, eval) pair, reused when a scanned
-    candidate is that configuration.
+    candidate is that configuration.  ``oracle=True`` is the reference's
+    seed pipeline (the ``python`` backend): eager per-exit config lists and
+    no exit pruning.
     """
     bound_energy = bound[1].energy if bound is not None else None
     found: Optional[Tuple[Config, ConfigEval]] = None
     for k in admissible_exits:
         best_e = found[1].energy if found is not None else bound_energy
-        if best_e is not None:
+        if not oracle and best_e is not None:
             if _exit_dmin(dp, profile.exits[k].block) > best_e * (1 + dist_tol):
                 continue
-        for cfg, _graph_e in _iter_configs_at_exit(dp, profile, k):
+        configs = (_configs_at_exit(dp, profile, k) if oracle
+                   else _iter_configs_at_exit(dp, profile, k))
+        for cfg, _graph_e in configs:
             if (bound is not None and cfg.final_exit == bound[0].final_exit
                     and cfg.placement == bound[0].placement):
                 ev = bound[1]
@@ -321,7 +532,7 @@ def solve_fin(network: Network, profile: DNNProfile, req: AppRequirements,
         dp = _run_dp_batch([fg], n_best, backend)[0]
         return _best_feasible(network, profile, req, dp, admissible_exits,
                               check_aggregate_load, bound=bound,
-                              dist_tol=tol)
+                              dist_tol=tol, oracle=backend == "python")
 
     delta_eff = req.delta
     best: Optional[Tuple[Config, ConfigEval]] = None
@@ -410,7 +621,8 @@ def solve_many(profiles: Union[DNNProfile, Sequence[DNNProfile]],
     def _scan(b: int, dp, bound: Optional[Tuple[Config, ConfigEval]] = None
               ) -> Optional[Tuple[Config, ConfigEval]]:
         return _best_feasible(nets[b], profs[b], reqs[b], dp, admissible[b],
-                              check_aggregate_load, bound=bound, dist_tol=tol)
+                              check_aggregate_load, bound=bound, dist_tol=tol,
+                              oracle=backend == "python")
 
     def _fgs(bs: List[int], qmode: str, d_effs: List[float]
              ) -> List[FeasibleGraph]:
@@ -420,7 +632,7 @@ def solve_many(profiles: Union[DNNProfile, Sequence[DNNProfile]],
     active = [b for b in range(B) if admissible[b]]
     delta_eff = [rq.delta for rq in reqs]
     pending = list(active)
-    ceil_dps: Dict[int, Union[_BandedArgDP, _BandedKDP]] = {}
+    ceil_dps: Dict[int, _DPState] = {}
     for round_ in range(max_tighten + 1):
         if not pending:
             break
@@ -476,15 +688,27 @@ def solve_many(profiles: Union[DNNProfile, Sequence[DNNProfile]],
 def fin_all_exit_costs(network: Network, profile: DNNProfile,
                        req: AppRequirements, *, gamma: int = 10,
                        lam: Optional[int] = None, quantize: str = "floor",
+                       backend: str = "numpy",
                        device: DeviceLike = None) -> np.ndarray:
-    """Graph cost (not exact eval) per exit from one banded float64
-    relaxation -- the reference's ``fin_all_exit_costs(backend="banded")``."""
+    """Graph cost (not exact eval) per exit -- the relaxation of the paper's
+    Table VII scaling path.  ``banded`` relaxes the compact (N, G+1) grid in
+    float64 (B1); ``numpy`` / ``dense`` scatter the dense (L-1, S, S)
+    matrices first and relax them in float64, one B5 launch per layer;
+    ``f32`` does the same in float32, the counterpart of the reference's
+    ``jnp`` / ``pallas``."""
+    if backend != "banded" and backend not in DENSE_DTYPES:
+        raise ValueError(f"unknown backend {backend!r} (expected banded or "
+                         f"one of {sorted(DENSE_DTYPES)})")
     ext = build_extended_graph(network, profile, req, device=device)
     fg = build_feasible_graph(ext, gamma, lam=lam, quantize=quantize)
-    E, steep = fg.banded_tensors()
-    hist = batched_banded_relax_min(fg.init_grid()[None], E[None],
-                                    steep[None], fg.depth_window_lo)
-    dist = hist[0].reshape(hist.shape[1], -1).cpu().numpy()   # (L, N*(G+1))
+    if backend == "banded":
+        E, steep = fg.banded_tensors()
+        hist = batched_banded_relax_min(fg.init_grid()[None], E[None],
+                                        steep[None], fg.depth_window_lo)
+        dist = hist[0].reshape(hist.shape[1], -1)         # (L, N*(G+1))
+    else:
+        dist = layered_relax(fg.init_vector(), fg.layer_matrices(), backend)
+    dist = dist.cpu().numpy()
     out = np.full(profile.n_exits, np.inf)
     for k, e in enumerate(profile.exits):
         out[k] = dist[e.block].min()

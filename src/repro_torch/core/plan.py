@@ -751,7 +751,8 @@ class Plan:
     def _scan(self, dp, bound: Optional[Tuple[Config, ConfigEval]] = None):
         return _best_feasible(self.network, self.profile, self.req, dp,
                               self._admissible, self.check_aggregate_load,
-                              bound=bound, dist_tol=self._dist_tol)
+                              bound=bound, dist_tol=self._dist_tol,
+                              oracle=self.backend == "python")
 
     def _dp_round0(self) -> List[object]:
         """Stage-3 DPs for the main + ceil passes at the base delta, cached

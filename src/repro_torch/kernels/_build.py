@@ -52,6 +52,11 @@ SOURCES: Tuple[Source, ...] = (
     Source(Path("minplus/csrc/banded_minplus_kbest.cu"), EXACT_FLAGS,
            {name: [_PTR] * 6 + [_INT] * 6 + [_PTR]
             for name in ("banded_chain_kbest_f64", "banded_chain_kbest_f32")}),
+    # dist, W, out, arg | B, S, T, W's batch stride | stream
+    Source(Path("minplus/csrc/minplus_dense.cu"), EXACT_FLAGS,
+           {name: [_PTR] * 4 + [_INT] * 4 + [_PTR]
+            for name in ("minplus_f64", "minplus_f32", "minplus_argmin_f64",
+                         "minplus_argmin_f32")}),
     # logits, conf, arg | B, V | stream
     Source(Path("ee_gate/csrc/ee_gate.cu"), (),
            {name: [_PTR] * 3 + [_INT] * 2 + [_PTR]

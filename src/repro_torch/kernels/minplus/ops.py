@@ -1,12 +1,12 @@
-"""Wrappers of the banded minplus kernels: B1, its one-layer unit B1u, and
-the k-slot chain B3.
+"""Wrappers of the minplus kernels: the banded chain B1, its one-layer unit
+B1u and the k-slot chain B3; the dense product B5 and its argmin variant B4.
 
 For a CUDA tensor a wrapper launches the hand-written kernel
-(``csrc/banded_minplus.cu``, ``csrc/banded_minplus_kbest.cu``) or raises;
-for a CPU tensor it runs the plain PyTorch version in ``ref.py``.  Each
-wrapper counts its kernel launches in a plain integer attribute,
-``launches``, so a run can show that its main path went through the
-kernel.
+(``csrc/banded_minplus.cu``, ``csrc/banded_minplus_kbest.cu``,
+``csrc/minplus_dense.cu``) or raises; for a CPU tensor it runs the plain
+PyTorch version in ``ref.py``.  Each kernel's wrapper counts its launches
+in a plain integer attribute, ``launches``, so a run can show that its main
+path went through the kernel.
 """
 from __future__ import annotations
 
@@ -16,7 +16,7 @@ import torch
 
 from .._build import launch as _launch
 from .ref import (banded_minplus_chain_kbest_ref, banded_minplus_chain_ref,
-                  banded_minplus_ref)
+                  banded_minplus_ref, minplus_argmin_ref, minplus_ref)
 
 #: node and depth counts the kernel accepts (a block holds at least one
 #: scenario's two (N, G+1) grids in shared memory).  The solver needs
@@ -173,3 +173,113 @@ def banded_minplus_chain_kbest(dist: torch.Tensor, E: torch.Tensor,
 
 
 banded_minplus_chain_kbest.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# dense (min,+) products: B5 and B4
+# ---------------------------------------------------------------------------
+
+_INT32_MAX = 2 ** 31 - 1
+#: targets a dense launch takes: 128 a block along a grid axis of 65,535
+MAX_DENSE_TARGETS = 128 * 65535
+
+
+def _check_dense_inputs(dist: torch.Tensor, W: torch.Tensor
+                        ) -> Tuple[int, int, int, int]:
+    """(B, S, T, W's batch stride in elements) of a dense launch; raises on
+    what the kernel does not take."""
+    if dist.dim() != 2 or W.dim() not in (2, 3):
+        raise ValueError(f"expected dist [B, S] and W [S, T] or [B, S, T], "
+                         f"got {tuple(dist.shape)}, {tuple(W.shape)}")
+    B, S = dist.shape
+    T = W.shape[-1]
+    if W.shape[-2] != S or (W.dim() == 3 and W.shape[0] != B):
+        raise ValueError(f"W must be [{S}, T] or [{B}, {S}, T], got "
+                         f"{tuple(W.shape)}")
+    if dist.dtype not in _DTYPES or W.dtype != dist.dtype:
+        raise ValueError(f"dist and W must share float64 or float32, got "
+                         f"{dist.dtype} / {W.dtype}")
+    if W.device != dist.device:
+        raise ValueError("dist and W must lie on one device")
+    mat_ok = (W.is_contiguous() if W.dim() == 2
+              else B == 0 or W[0].is_contiguous())
+    if not (dist.is_contiguous() and mat_ok):
+        raise ValueError("dist must be contiguous and each [S, T] matrix of "
+                         "W contiguous")
+    if S < 1:
+        raise ValueError("the dense (min,+) product needs S >= 1")
+    stride = W.stride(0) if W.dim() == 3 and B > 1 else 0
+    if max(B, S * T, stride) > _INT32_MAX or T > MAX_DENSE_TARGETS:
+        raise ValueError(f"B={B}, S*T={S * T}, batch stride {stride} or "
+                         f"T={T} exceed the kernel's int32 sizes")
+    return B, S, T, stride
+
+
+def _launch_dense(dist: torch.Tensor, W: torch.Tensor, argmin: bool
+                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    B, S, T, stride = _check_dense_inputs(dist, W)
+    out = torch.empty((B, T), dtype=dist.dtype, device=dist.device)
+    arg = (torch.empty((B, T), dtype=torch.int32, device=dist.device)
+           if argmin else None)
+    if B and T:
+        name = ("minplus_argmin" if argmin else "minplus") + (
+            "_f64" if dist.dtype == torch.float64 else "_f32")
+        _launch(name, dist.device, dist.data_ptr(), W.data_ptr(),
+                out.data_ptr(), 0 if arg is None else arg.data_ptr(), B, S,
+                T, stride)
+    return out, arg
+
+
+def _dense_device(dist: torch.Tensor) -> str:
+    if dist.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no dense minplus kernel for device {dist.device}")
+    return dist.device.type
+
+
+def minplus_vecmat(dist: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
+    """Dense (min,+) product (B5): ``out[b, t] = min_s dist[b, s] + W[s, t]``.
+
+    dist: [B, S]; W: [S, T] shared by every row (the TPU kernel's
+    contract), or [B, S, T] with one matrix per row (the batched dense
+    engines; each W[b] contiguous, any batch stride, so a layer of a
+    [B, L, S, T] stack goes in without a copy) -> out [B, T] in dist's
+    dtype, +inf where no finite candidate reaches t.  A non-finite input is
+    a missing edge.  float64 and float32.
+    """
+    if _dense_device(dist) == "cpu":
+        _check_dense_inputs(dist, W)
+        return minplus_ref(dist, W)
+    out, _ = _launch_dense(dist, W, argmin=False)
+    if out.numel():
+        minplus_vecmat.launches += 1
+    return out
+
+
+minplus_vecmat.launches = 0
+
+
+def minplus_matmat(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """Tropical matmul ``out[i, j] = min_k A[i, k] + B[k, j]``: the rows of
+    A are independent fronts sharing one transition matrix, so it is B5
+    (:func:`minplus_vecmat`) under its algebraic name."""
+    return minplus_vecmat(A, B)
+
+
+def minplus_vecmat_argmin(dist: torch.Tensor, W: torch.Tensor
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Dense (min,+) product with its argmin (B4), the parent-recovery
+    variant behind the dense FIN DP.
+
+    As :func:`minplus_vecmat`, plus arg [B, T] int32: the first s that
+    attains the min, -1 where no finite candidate reaches t.
+    """
+    if _dense_device(dist) == "cpu":
+        _check_dense_inputs(dist, W)
+        return minplus_argmin_ref(dist, W)
+    out, arg = _launch_dense(dist, W, argmin=True)
+    if out.numel():
+        minplus_vecmat_argmin.launches += 1
+    return out, arg
+
+
+minplus_vecmat_argmin.launches = 0

@@ -1,13 +1,14 @@
-"""Plain PyTorch versions of the banded minplus kernels.
+"""Plain PyTorch versions of the minplus kernels.
 
-They follow the float64 numpy engines of the reference
+The banded ones follow the float64 numpy engines of the reference
 (``repro/core/bellman_ford.py:347-511``): gather every candidate from a
 distance grid padded with one +inf sentinel column and add the edge energy
 (one IEEE add per candidate); then take the min and the first-occurrence
 argmin over the source-node axis (B1), or keep the first K of a stable
-ascending sort of the source-node-major, slot-minor pool (B3).  The CPU
-path of the port runs on them, and the CUDA kernels are held bit-equal to
-them on the card.
+ascending sort of the source-node-major, slot-minor pool (B3).  The dense
+ones (B5, B4) form every candidate ``dist[b, s] + W[s, t]`` and take the
+min and the first-occurrence argmin over s.  The CPU path of the port runs
+on them, and the CUDA kernels are held bit-equal to them on the card.
 """
 from __future__ import annotations
 
@@ -113,3 +114,32 @@ def banded_minplus_chain_kbest_ref(dist: torch.Tensor, E: torch.Tensor,
         par_k[:, l] = torch.where(ok, src % K, -1)
         pad[:, :, :Gp1] = d
     return hist, par_n, par_k
+
+
+def _missing_to_inf(x: torch.Tensor) -> torch.Tensor:
+    """Non-finite entries (+inf, -inf, NaN) are missing edges: +inf."""
+    return torch.where(torch.isfinite(x), x, float("inf"))
+
+
+def minplus_ref(dist: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
+    """Dense (min,+) product (plain version of the B5 kernel).
+
+    dist: [B, S]; W: [S, T] shared by every row, or [B, S, T], one matrix
+    per row.  Returns out [B, T] in dist's dtype: ``min_s dist[b, s] +
+    W[s, t]``, +inf where no finite candidate reaches t.  A non-finite
+    input counts as a missing edge.
+    """
+    cand = _missing_to_inf(dist)[:, :, None] + _missing_to_inf(W)
+    return cand.amin(dim=1)
+
+
+def minplus_argmin_ref(dist: torch.Tensor, W: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Dense (min,+) product with its argmin (plain version of the B4
+    kernel).  As :func:`minplus_ref`, plus arg [B, T] int32: the first s
+    that attains the min (torch's argmin takes the first occurrence on
+    every device), -1 where no finite candidate reaches t."""
+    cand = _missing_to_inf(dist)[:, :, None] + _missing_to_inf(W)
+    out = cand.amin(dim=1)
+    arg = cand.argmin(dim=1).to(torch.int32)
+    return out, torch.where(torch.isfinite(out), arg, -1)

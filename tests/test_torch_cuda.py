@@ -11,7 +11,10 @@ The (min,+) kernels must be bit-equal, distances and parents, to their
 plain PyTorch versions on the same device (every candidate is one IEEE add,
 the min does not depend on order, and the k-slot order is that of a stable
 sort), and the solver and the plan IR on CUDA must equal their CPU path.
-The exit gate (B6) holds conf to a relative 1e-5 (sums in another order)
+The dense (min,+) products (B5, and B4 with its argmin) are bit-equal to
+their plain versions too, with a shared W and with a W per row, and the
+dense engines and ``solve_many(backend="dense")`` on CUDA equal their CPU
+path.  The exit gate (B6) holds conf to a relative 1e-5 (sums in another order)
 and its argmax exactly; decode attention (B7) holds 2e-5 in float32 and
 2e-2 in bf16 (its plain version rounds the probabilities to bf16 before
 the PV product, the kernel keeps them in float32).  The serving engine on
@@ -34,9 +37,12 @@ from repro_torch.kernels.minplus import ops
 from repro_torch.kernels.minplus.ops import (banded_minplus_argmin,
                                              banded_minplus_chain,
                                              banded_minplus_chain_kbest)
+from repro_torch.kernels.minplus.ops import (minplus_matmat, minplus_vecmat,
+                                             minplus_vecmat_argmin)
 from repro_torch.kernels.minplus.ref import (banded_minplus_chain_kbest_ref,
                                              banded_minplus_chain_ref,
-                                             banded_minplus_ref)
+                                             banded_minplus_ref,
+                                             minplus_argmin_ref, minplus_ref)
 
 # (B, L, N, G+1): a single state, the solver's width, the reference kernel
 # tests' widest N and deepest G+1
@@ -45,6 +51,12 @@ CARD_SHAPES = [(1, 1, 4, 4), (64, 4, 5, 26), (8, 2, 23, 26), (4, 4, 8, 131)]
 # at K = 4 and 32, and a wider node count at K = 32
 KBEST_SHAPES = [(1, 1, 4, 4, 1), (64, 4, 5, 26, 4), (8, 2, 8, 11, 32),
                 (4, 4, 5, 26, 32)]
+
+# (B, S, T) of the dense kernels: the reference kernel tests' shapes
+# (tests/test_kernels.py), then S = 130 (N = 5, G+1 = 26) and S = 390
+# (N = 15, G+1 = 26)
+DENSE_SHAPES = [(1, 16, 16), (8, 128, 128), (3, 37, 65), (16, 300, 129),
+                (2, 1, 257), (64, 130, 130), (4, 390, 390)]
 
 pytestmark = pytest.mark.cuda
 
@@ -292,3 +304,132 @@ def test_serve_engine_on_card_equals_cpu_path(cuda_device):
     (tok_g, st_g, n6, n7), (tok_c, st_c, _, _) = runs
     assert tok_g == tok_c and st_g == st_c
     assert n6 == 2 * st_g["steps"] and n7 == 2 * st_g["steps"]
+
+
+def _dense_problem(B, S, T, seed, dtype, device, per_row, density=0.6):
+    """Seeded dense inputs with missing edges, a -inf and a NaN entry (both
+    missing) and a duplicated source state (ties)."""
+    rng = np.random.default_rng(seed)
+    dist = rng.uniform(0, 10, (B, S))
+    dist[rng.uniform(size=dist.shape) > 0.9] = np.inf
+    W = rng.uniform(0, 5, (B, S, T) if per_row else (S, T))
+    W[rng.uniform(size=W.shape) > density] = np.inf
+    W.reshape(-1)[0] = -np.inf
+    W.reshape(-1)[-1] = np.nan
+    if S > 1:
+        dist[:, 1] = dist[:, 0]
+        W[..., 1, :] = W[..., 0, :]
+    return (torch.as_tensor(dist, device=device).to(dtype),
+            torch.as_tensor(W, device=device).to(dtype))
+
+
+@pytest.mark.parametrize("per_row", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("B,S,T", DENSE_SHAPES)
+def test_dense_kernels_bit_equal_to_plain_on_card(cuda_device, B, S, T, dtype,
+                                                  per_row):
+    d, W = _dense_problem(B, S, T, B + S + T, dtype, cuda_device, per_row)
+    n5, n4 = minplus_vecmat.launches, minplus_vecmat_argmin.launches
+    out = minplus_vecmat(d, W)
+    got, arg = minplus_vecmat_argmin(d, W)
+    assert (minplus_vecmat.launches, minplus_vecmat_argmin.launches) == \
+        (n5 + 1, n4 + 1)
+    want, arg_p = minplus_argmin_ref(d, W)
+    torch.cuda.synchronize()
+    assert torch.equal(out, minplus_ref(d, W)) and torch.equal(out, want)
+    assert torch.equal(got, want) and torch.equal(arg, arg_p)
+    assert bool((arg >= 0).any())
+
+
+def test_dense_kernel_reads_a_layer_of_a_stack_in_place(cuda_device):
+    """A [B, L, S, T] stack's layer (batch stride L*S*T) and a shared W
+    expanded to [B, S, T] (batch stride 0) give the plain results."""
+    d, W = _dense_problem(16, 130, 130, 7, torch.float64, cuda_device, True)
+    stack = torch.stack([W, W.flip(0), W.roll(1, 0)], dim=1)
+    for l in range(3):
+        got = minplus_vecmat_argmin(d, stack[:, l])
+        want = minplus_argmin_ref(d, stack[:, l].contiguous())
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+    shared = W[3]
+    assert torch.equal(minplus_vecmat(d, shared.expand(16, 130, 130)),
+                       minplus_ref(d, shared))
+    assert torch.equal(minplus_matmat(d, shared), minplus_ref(d, shared))
+
+
+def test_dense_wrapper_raises_instead_of_falling_back(cuda_device):
+    d, W = _dense_problem(4, 32, 16, 1, torch.float64, cuda_device, False)
+    n5, n4 = minplus_vecmat.launches, minplus_vecmat_argmin.launches
+    with pytest.raises(ValueError, match="contiguous"):
+        minplus_vecmat(d, W.t().contiguous().t())
+    with pytest.raises(ValueError, match="float64 or float32"):
+        minplus_vecmat_argmin(d, W.float())
+    with pytest.raises(ValueError, match="W must be"):
+        minplus_vecmat(d, W[:16])
+    assert (minplus_vecmat.launches, minplus_vecmat_argmin.launches) == \
+        (n5, n4)
+
+
+@pytest.mark.parametrize("lam", [None, 4])
+def test_dense_engines_on_card_equal_cpu_path(cuda_device, lam):
+    """Graph tensors byte-equal, and every dense engine bit-equal, on CUDA
+    and the CPU path."""
+    from repro_torch.core import bellman_ford as bf
+    from repro_torch.core.feasible_graph import batch_layer_tensors
+    ps, ns, rs = T.sweep_scenarios(apps=("h2",), deltas_ms=(2.0, 8.0),
+                                   uplinks_bps=(0.5e9, 1e9), n_extra_edge=2)
+    runs = {}
+    for where in (cuda_device, "cpu"):
+        fgs = T.build_feasible_graphs(
+            T.build_extended_graphs(ns, ps, rs, device=where), 10, lam=lam)
+        Ws, init = batch_layer_tensors(fgs)
+        n0 = minplus_vecmat_argmin.launches
+        out = [Ws, init, *bf.batched_layered_relax_argmin(init, Ws),
+               bf.batched_layered_relax_min(init, Ws),
+               *bf.batched_layered_relax_kbest(init, Ws, 3),
+               bf.layered_relax(init[0], Ws[0], "f32"),
+               *bf.bellman_ford(Ws[0, 0], 0)]
+        if where != "cpu":
+            assert minplus_vecmat_argmin.launches > n0
+        runs[str(where)] = [x.cpu() for x in out]
+    for a, b in zip(runs[str(cuda_device)], runs["cpu"]):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("n_best", [1, 3])
+def test_dense_solve_many_on_card_equals_cpu_path(cuda_device, n_best):
+    ps, ns, rs = T.sweep_scenarios(deltas_ms=(1.5, 5.0, 12.0),
+                                   uplinks_bps=(0.3e9, 1e9), n_extra_edge=2)
+    n0 = minplus_vecmat_argmin.launches
+    got = T.solve_many(ps, ns, rs, gamma=25, backend="dense", n_best=n_best,
+                       device=cuda_device)
+    if n_best == 1:
+        assert minplus_vecmat_argmin.launches > n0
+    want = T.solve_many(ps, ns, rs, gamma=25, backend="dense", n_best=n_best,
+                        device="cpu")
+    banded = T.solve_many(ps, ns, rs, gamma=25, n_best=n_best,
+                          device=cuda_device)
+    for g, w, b in zip(got, want, banded):
+        assert g.found == w.found == b.found
+        assert {k: v for k, v in g.meta.items() if k != "batch_time"} == \
+            {k: v for k, v in w.meta.items() if k != "batch_time"}
+        if w.found:
+            assert g.config == w.config == b.config
+            assert g.eval == w.eval == b.eval
+
+
+def test_dense_fin_all_exit_costs_on_card(cuda_device):
+    nw = T.make_network(("mobile",) + ("edge",) * 5 + ("cloud",),
+                        compute_frac=[1e-3] * 7)
+    pf = T.synthetic_profile(6, 4, seed=0, ops_scale=5e7)
+    req = T.AppRequirements(0.0, 20e-3)
+    n0 = minplus_vecmat.launches
+    dense = T.fin_all_exit_costs(nw, pf, req, gamma=10, device=cuda_device)
+    assert minplus_vecmat.launches == n0 + pf.n_blocks - 1
+    assert dense.tobytes() == T.fin_all_exit_costs(
+        nw, pf, req, gamma=10, backend="banded", device=cuda_device).tobytes()
+    assert dense.tobytes() == T.fin_all_exit_costs(
+        nw, pf, req, gamma=10, device="cpu").tobytes()
+    f32 = T.fin_all_exit_costs(nw, pf, req, gamma=10, backend="f32",
+                               device=cuda_device)
+    assert f32.tobytes() == T.fin_all_exit_costs(
+        nw, pf, req, gamma=10, backend="f32", device="cpu").tobytes()

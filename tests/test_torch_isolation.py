@@ -95,7 +95,9 @@ def test_entry_points_do_not_fall_back_to_cpu():
                  lambda: T.solve_many(pf, nw, req),
                  lambda: T.solve_mcp(nw, pf, req),
                  lambda: T.build_extended_graph(nw, pf, req),
-                 lambda: T.fin_all_exit_costs(nw, pf, req)):
+                 lambda: T.fin_all_exit_costs(nw, pf, req),
+                 lambda: T.fin_all_exit_costs(nw, pf, req, backend="numpy"),
+                 lambda: T.solve_fin(nw, pf, req, backend="python")):
         with pytest.raises(RuntimeError, match="cuda"):
             call()
 
