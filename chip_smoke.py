@@ -32,6 +32,12 @@ It then times the kernels at their paths' shapes, relaxes 2^20 scenario
 rows at population size, and prints the kernels JSON line followed by the
 final status line.  Every failing phase raises; without a CUDA card, or
 without the repository beside it, it exits non-zero and prints no result.
+
+  python3 chip_smoke.py --times
+
+builds the kernels and runs only the B4 / B5 and B7 timings (no checks, no
+result line): run it from two checkouts in one call to compare two designs
+on one card.
 """
 from __future__ import annotations
 
@@ -58,10 +64,20 @@ ATTN_SOURCE = "src/repro_torch/kernels/decode_attn/csrc/decode_attn.cu"
 # of 153,600 - 151,936 = 1,664 columns
 GATE_SHAPES = [(1, 128), (5, 5000), (4, 153600), (16, 50304)]
 VOCAB_TAIL = 1664
-# (B, H, KV, D, T) of the attention checks: tests/test_kernels.py's four and
-# qwen3-4b's decode shape
+# (B, H, KV, D, T) of the attention checks: tests/test_kernels.py's four,
+# qwen3-4b's decode shape and two long caches at its widths (T = 4097 is
+# ragged against every split and tile)
 ATTN_SHAPES = [(1, 4, 4, 32, 128), (2, 8, 2, 64, 256), (1, 8, 1, 64, 300),
-               (3, 4, 2, 16, 64), (4, 32, 8, 80, 256)]
+               (3, 4, 2, 16, 64), (4, 32, 8, 80, 256), (4, 32, 8, 80, 8192),
+               (4, 32, 8, 80, 4097)]
+# (shape, mask) of the attention checks beyond the ring-slot mask: "range"
+# empties the second block's range of the cache (split_ranges); "dead"
+# leaves no slot live (the uniform average)
+ATTN_MASK_CASES = [((1, 32, 8, 80, 2048), "range"),
+                   ((4, 32, 8, 80, 4097), "range"),
+                   ((4, 32, 8, 80, 256), "dead"), ((1, 8, 1, 64, 300), "dead")]
+# cache lengths of the B7 timings: the serving shape and two long caches
+ATTN_TIME_T = (256, 8192, 32768)
 SERVE_ARCH = "qwen3-4b"
 SERVE_BATCH = 4
 SERVE_CACHE = 256
@@ -73,6 +89,8 @@ CARD_SHAPES = [(1, 1, 4, 4), (64, 4, 5, 26), (8, 2, 23, 26), (4, 4, 8, 131)]
 # S = 130 (N = 5, G+1 = 26) and S = 390 (N = 15, G+1 = 26)
 DENSE_SHAPES = [(1, 16, 16), (8, 128, 128), (3, 37, 65), (16, 300, 129),
                 (2, 1, 257), (64, 130, 130), (4, 390, 390)]
+# (B, S, T) of the sparse-dist checks (dense_sparse_problem)
+SPARSE_SHAPES = [(5, 37, 65), (64, 130, 130), (16, 300, 129), (8, 390, 390)]
 # the paper's Table VII large instance (benchmarks/bench_table7.py:59-73)
 TABLE7_NODES = 15
 TABLE7_BLOCKS = 12
@@ -134,6 +152,41 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def graph_ms(fn, reps: int, replays: int = 5):
+    """Device time of ``fn`` a call: ``reps`` calls captured into one CUDA
+    graph, replayed ``replays`` times between CUDA events.  A replay has no
+    Python or launch cost between the kernels, which a CUDA-event mean of
+    back-to-back calls of a short kernel measures instead.  None if the
+    calls cannot be captured."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph):
+            for _ in range(reps):
+                fn()
+    except RuntimeError as e:
+        log("times", f"CUDA graph capture failed ({str(e)[:120]}); "
+            f"graph time not measured")
+        return None
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / (replays * reps)
 
 
 def chain_bound(dist, Ek, st, lo):
@@ -388,25 +441,57 @@ def dense_problem(B, S, T, seed, dtype, device, per_row):
             torch.as_tensor(W, device=device).to(dtype))
 
 
+def dense_sparse_problem(B, S, T, seed, dtype, device, per_row):
+    """Seeded dense inputs whose dist is 90% +inf, as a layer of the solver
+    sees it, with a row of no finite entry (row 0), a row whose only finite
+    source is the last (row 1), -inf and NaN entries (row 2), and on every
+    row a skipped source (dist -inf) that ties a kept one (same W row) and
+    two kept sources that tie each other."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    dist = rng.uniform(0, 10, (B, S))
+    dist[rng.uniform(size=dist.shape) < 0.9] = np.inf
+    W = rng.uniform(0, 5, (B, S, T) if per_row else (S, T))
+    W[rng.uniform(size=W.shape) > 0.6] = np.inf
+    if S >= 6:
+        W[..., 3, :] = W[..., 4, :]          # 3 skipped, 4 kept: a tie
+        dist[:, 3], dist[:, 4] = -np.inf, 1.0
+        W[..., 5, :] = W[..., 4, :]          # 4 and 5 kept: first wins
+        dist[:, 5] = 1.0
+    dist[0] = np.inf
+    if B > 1:
+        dist[1] = np.inf
+        dist[1, -1] = 2.0
+    if B > 2:
+        dist[2, ::3] = -np.inf
+        dist[2, 1::3] = np.nan
+    return (torch.as_tensor(dist, device=device).to(dtype),
+            torch.as_tensor(W, device=device).to(dtype))
+
+
 def phase_kernels_dense(dev):
     """B5 and B4 vs their plain versions on the card, float64 and float32,
-    with a shared W and a W per row: bit-equal values and argmins."""
+    with a shared W and a W per row: bit-equal values and argmins, on the
+    dense inputs and on sparse dists."""
     import torch
     from repro_torch.kernels.minplus.ops import (minplus_vecmat,
                                                  minplus_vecmat_argmin)
     from repro_torch.kernels.minplus.ref import minplus_argmin_ref, minplus_ref
     minplus_vecmat.launches = minplus_vecmat_argmin.launches = 0
     err = {"minplus_vecmat": 0.0, "minplus_vecmat_argmin": 0.0}
-    for B, S, T in DENSE_SHAPES:
+    cases = [(s, dense_problem, "dense") for s in DENSE_SHAPES] + \
+        [(s, dense_sparse_problem, "sparse") for s in SPARSE_SHAPES]
+    for (B, S, T), make, kind in cases:
         for dtype in (torch.float64, torch.float32):
             for per_row in (False, True):
-                d, W = dense_problem(B, S, T, B + S + T, dtype, dev, per_row)
+                d, W = make(B, S, T, B + S + T, dtype, dev, per_row)
                 out = minplus_vecmat(d, W)
                 got, arg = minplus_vecmat_argmin(d, W)
                 want_out = minplus_ref(d, W)
                 want, arg_p = minplus_argmin_ref(d, W)
                 torch.cuda.synchronize()
-                tag = (f"{(B, S, T)} {dtype} "
+                tag = (f"{kind} {(B, S, T)} {dtype} "
                        f"{'per-row W' if per_row else 'shared W'}")
                 check(torch.equal(out, want_out),
                       f"B5 {tag}: kernel differs from the plain version")
@@ -421,8 +506,8 @@ def phase_kernels_dense(dev):
     log("kernels_dense", f"B5 minplus_vecmat: {minplus_vecmat.launches} "
         f"launches, max_abs_err {err['minplus_vecmat']} | B4 "
         f"minplus_vecmat_argmin: {minplus_vecmat_argmin.launches} launches, "
-        f"max_abs_err {err['minplus_vecmat_argmin']}; -inf and NaN entries "
-        f"counted as missing")
+        f"max_abs_err {err['minplus_vecmat_argmin']} over {len(cases)} shapes"
+        f" (sparse dists included); -inf and NaN entries counted as missing")
     return err
 
 
@@ -612,6 +697,7 @@ def phase_solve_many_dense(grid, dev, counters, sols_minplus, wall_minplus):
           "solve_many dense did not launch B4")
     check(all(same_all(a, b) for a, b in zip(sols, sols_minplus)),
           "solve_many dense differs from minplus on CUDA")
+    b4_ms = profile_dense_path(grid, dev)
     log("solve_many_dense", f"{len(ps)} scenarios gamma={GAMMA} dense on "
         f"CUDA: {wall:.3f} s wall (host clock, ending in synchronize; "
         f"minplus {wall_minplus:.3f} s); Solutions identical to minplus "
@@ -650,7 +736,37 @@ def phase_solve_many_dense(grid, dev, counters, sols_minplus, wall_minplus):
         f"solve_fin) {w_py:.3f}")
     del sols
     torch.cuda.empty_cache()
-    return launches, wall
+    return launches, wall, b4_ms
+
+
+def profile_dense_path(grid, dev):
+    """B4's whole device time on the dense path: torch.profiler over one
+    more solve_many(backend="dense") call over the grid, the device time of
+    the (min,+) kernels summed.  Returns it in ms (None if the profiler saw
+    no device time)."""
+    import torch
+    from torch.autograd import DeviceType
+    import repro_torch as T
+    ps, ns, rs = grid
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as tp:
+        T.solve_many(ps, ns, rs, gamma=GAMMA, backend="dense", device=dev)
+        torch.cuda.synchronize()
+    events = [e for e in tp.key_averages()
+              if e.device_type != DeviceType.CPU and "minplus" in e.key]
+    if not events:
+        log("solve_many_dense", "B4 device time on the path: not measured "
+            "(the profiler saw no (min,+) kernel)")
+        return None
+    total = sum(e.self_device_time_total for e in events) / 1e3
+    for e in events:
+        log("solve_many_dense", f"profiled call: device {e.key[:90]}: "
+            f"{e.self_device_time_total / 1e3:.4f} ms over {e.count} calls")
+    log("solve_many_dense", f"B4 device time on the path (torch.profiler, "
+        f"one solve_many dense call): {total:.4f} ms over "
+        f"{sum(e.count for e in events)} launches")
+    return total
 
 
 def table7_instance():
@@ -968,9 +1084,11 @@ def dense_times(grid, dev, err):
             f"{tuple(d.shape)} W {tuple(W.shape)} per row (layer {layer}, "
             f"{reached[layer]} of {d.numel()} states reached): kernel "
             f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.4f} ms by "
-            f"{by} ({nbytes} B, {ops} ops, this data); all of W read once: "
+            f"{by} ({nbytes} B, {ops} ops, this data; "
+            f"{nbytes / (ms * 1e-3) / 1e9:.1f} GB/s of them achieved, "
+            f"{bound / ms:.1%} of the bound); all of W read once: "
             f"{full} B, {full / HBM_BYTES_PER_S * 1e3:.4f} ms "
-            f"({full / (ms * 1e-3) / 1e9:.1f} GB/s achieved)")
+            f"({full / (ms * 1e-3) / 1e9:.1f} GB/s)")
         rows.append(dict(name=name, route="cuda", source=DENSE_SOURCE,
                          replaces=replaces, launches=None,
                          max_abs_err=err[name], ms=ms, plain_ms=plain_ms,
@@ -978,8 +1096,11 @@ def dense_times(grid, dev, err):
     d32, W32 = d.float(), W.float()
     ms32 = cuda_ms(lambda: minplus_vecmat_argmin(d32, W32), 20)
     b32, by32, _, _ = dense_bound(d32, W32, True)
+    ms32_5 = cuda_ms(lambda: minplus_vecmat(d32, W32), 20)
+    b32_5, _, _, _ = dense_bound(d32, W32, False)
     log("times", f"B4 f32 at the same shape: kernel {ms32:.4f} ms, bound "
-        f"{b32:.4f} ms by {by32}")
+        f"{b32:.4f} ms by {by32} | B5 f32: kernel {ms32_5:.4f} ms, bound "
+        f"{b32_5:.4f} ms")
     del d, W, d32, W32
     torch.cuda.empty_cache()
     nw, pf, req = table7_instance()
@@ -993,7 +1114,7 @@ def dense_times(grid, dev, err):
     log("times", f"B5 f64 one Table VII layer dist {tuple(dt.shape)} W "
         f"{tuple(Wl.shape)} shared: kernel {ms_t:.4f} ms, bound {bt:.6f} ms "
         f"by {byt} ({nbt} B)")
-    return rows
+    return rows, (ms_t, bt)
 
 
 def phase_kernel_times(grid, dev, err):
@@ -1163,30 +1284,57 @@ def phase_kernels_serve(dev):
                                      max_abs_err(conf, conf_p))
                 log("kernels_serve", f"{tag}: conf within {rel:.3g} "
                     f"relative, argmax equal")
-    cases = [(s, 0) for s in ATTN_SHAPES] + [((1, 4, 2, 32, 256), w)
-                                             for w in (16, 64)]
-    for (B, H, KV, D, T), window in cases:
+    cases = ([(s, 0, "tail") for s in ATTN_SHAPES]
+             + [((1, 4, 2, 32, 256), w, "tail") for w in (16, 64)]
+             + [(s, 0, m) for s, m in ATTN_MASK_CASES])
+    for (B, H, KV, D, T), window, mask in cases:
         for dtype in (torch.float32, torch.bfloat16):
-            rng = np.random.default_rng(B + H + T + window)
-            q, k, v = (torch.as_tensor(rng.normal(size=s), dtype=torch.float32,
-                                       device=dev).to(dtype)
-                       for s in ((B, H, D), (B, T, KV, D), (B, T, KV, D)))
-            cpos = torch.arange(T, dtype=torch.int32, device=dev)
-            cpos[T - T // 4:] = -1                  # empty ring slots
-            pos = T - T // 4 - 3                    # and future ones
+            q, k, v, cpos, pos = attn_inputs(B, H, KV, D, T, dtype, dev,
+                                             mask, B + H + T + window)
             got = decode_attn(q, k, v, cpos, pos, window=window)
+            again = decode_attn(q, k, v, cpos, pos, window=window)
             want = decode_attn_ref(q, k, v, cpos, pos, window=window)
             torch.cuda.synchronize()
             tol = 2e-5 if dtype == torch.float32 else 2e-2
             e = max_abs_err(got.float(), want.float())
             ok = bool(((got.float() - want.float()).abs()
                        <= tol + tol * want.float().abs()).all())
-            tag = f"B7 {(B, H, KV, D, T)} {dtype} window={window}"
+            tag = f"B7 {(B, H, KV, D, T)} {dtype} window={window} mask={mask}"
             check(ok, f"{tag}: off by {e:.3g} (rtol = atol = {tol})")
+            check(torch.equal(got, again), f"{tag}: a repeat call gave "
+                  f"other bits")
             err["decode_attn"] = max(err["decode_attn"], e)
             log("kernels_serve", f"{tag}: max_abs_err {e:.3g} within "
-                f"rtol = atol = {tol}")
+                f"rtol = atol = {tol}; a repeat call gives the same bits")
     return err
+
+
+def attn_inputs(B, H, KV, D, T, dtype, dev, mask, seed):
+    """Seeded decode-attention inputs.  mask "tail": the last quarter of the
+    ring is empty (cache_pos -1) and the three slots before it lie in the
+    future (pos = T - T/4 - 3); "range": the slots of the second block of
+    B7's cluster empty, pos = T - 1; "dead": every slot empty."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.decode_attn.ops import split_plan, split_ranges
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.as_tensor(rng.normal(size=s), dtype=torch.float32,
+                               device=dev).to(dtype)
+               for s in ((B, H, D), (B, T, KV, D), (B, T, KV, D)))
+    cpos = torch.arange(T, dtype=torch.int32, device=dev)
+    pos = T - 1
+    if mask == "tail":
+        cpos[T - T // 4:] = -1
+        pos = T - T // 4 - 3
+    elif mask == "range":
+        P = split_plan(B, KV, T, D, torch.empty((), dtype=dtype)
+                       .element_size())
+        check(P > 1, f"B7 {(B, H, KV, D, T)}: one block, no range to empty")
+        lo, hi = split_ranges(T, P)[1]
+        cpos[lo:hi] = -1
+    else:
+        cpos[:] = -1
+    return q, k, v, cpos, pos
 
 
 def _serve_cfg(**overrides):
@@ -1468,60 +1616,183 @@ def serve_times(params, cfg, dev, err):
     h = torch.randn(SERVE_BATCH, cfg.d_model, generator=g, device=dev).to(
         params["lm_head"]["w"].dtype)
     x = lm_head_apply(params["lm_head"], h, cfg.vocab_size).contiguous()
-    ms = cuda_ms(lambda: ee_gate(x), 200, 10)
-    plain = cuda_ms(lambda: ee_gate_ref(x), 50, 5)
-    lib = cuda_ms(lambda: torch.softmax(x, -1).max(-1), 50, 5)
+    ev = cuda_ms(lambda: ee_gate(x), 200, 10)
+    ms = graph_ms(lambda: ee_gate(x), 50) or ev
+    plain = graph_ms(lambda: ee_gate_ref(x), 20) or \
+        cuda_ms(lambda: ee_gate_ref(x), 50, 5)
+    lib = graph_ms(lambda: torch.softmax(x, -1).max(-1), 20) or \
+        cuda_ms(lambda: torch.softmax(x, -1).max(-1), 50, 5)
     B, V = x.shape
     nbytes = x.numel() * 4 + B * 8
     ops = 4 * x.numel()          # clamp, subtract, exp, add per element
     t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS_PER_S["float32"]
     bound, by = max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
-    log("times", f"B6 f32 {(B, V)}: kernel {ms:.4f} ms, plain {plain:.4f} ms,"
-        f" bound {bound:.6f} ms by {by} ({nbytes} B, {ops} ops, "
-        f"{nbytes / (ms * 1e-3) / 1e9:.1f} GB/s achieved); library "
-        f"softmax(x).max(-1), two calls, {lib:.4f} ms")
+    log("times", f"B6 f32 {(B, V)}: device ms a call (CUDA graph of 50 or "
+        f"20 calls): "
+        f"kernel {ms:.4f}, plain {plain:.4f}, library softmax(x).max(-1), "
+        f"two calls, {lib:.4f} | CUDA-event mean of back-to-back calls "
+        f"(host launch cost included): kernel {ev:.4f} | bound {bound:.6f} "
+        f"ms by {by} ({nbytes} B, {ops} ops, {nbytes / (ms * 1e-3) / 1e9:.1f}"
+        f" GB/s achieved)")
     rows.append(dict(name="ee_gate", route="cuda", source=GATE_SOURCE,
                      replaces="src/repro/kernels/ee_gate/ee_gate.py:60",
                      launches=None, max_abs_err=err["ee_gate"], ms=ms,
                      plain_ms=plain, bound_ms=bound, bound_by=by,
                      library_ms=lib))
-    # B7 at one layer of the decode step: a full cache, pos = T - 1
-    H, KV, D, T = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_, SERVE_CACHE
-    dt = torch.bfloat16
-    q = torch.randn(SERVE_BATCH, H, D, generator=g, device=dev).to(dt)
-    k = torch.randn(SERVE_BATCH, T, KV, D, generator=g, device=dev).to(dt)
-    v = torch.randn(SERVE_BATCH, T, KV, D, generator=g, device=dev).to(dt)
-    cpos = torch.arange(T, dtype=torch.int32, device=dev)
-    pos = T - 1
-    ms7 = cuda_ms(lambda: decode_attn(q, k, v, cpos, pos), 200, 10)
-    plain7 = cuda_ms(lambda: decode_attn_ref(q, k, v, cpos, pos), 50, 5)
-    qs = q[:, :, None].contiguous()                  # [B, H, 1, D]
-    ks, vs = (t.transpose(1, 2).contiguous() for t in (k, v))  # [B, KV, T, D]
-    mask = ((cpos >= 0) & (cpos <= pos))[None, None, None, :]
-    sdpa = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask,
-                                          enable_gqa=True)
-    e = max_abs_err(sdpa[:, :, 0].float(), decode_attn(q, k, v, cpos,
-                                                       pos).float())
-    check(e <= 2e-2, f"B7 vs scaled_dot_product_attention off by {e:.3g}")
-    lib7 = cuda_ms(lambda: F.scaled_dot_product_attention(
-        qs, ks, vs, attn_mask=mask, enable_gqa=True), 200, 10)
-    nbytes = (q.numel() * 2 * 2 + (k.numel() + v.numel()) * 2 + T * 4)
-    ops = 4 * SERVE_BATCH * H * T * D      # QK^T and PV, multiply + add
-    t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS_PER_S["float32"]
-    bound7, by7 = max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
-    log("times", f"B7 bf16 q {tuple(q.shape)} cache {tuple(k.shape)}: kernel "
-        f"{ms7:.4f} ms, plain {plain7:.4f} ms, bound {bound7:.6f} ms by {by7} "
-        f"({nbytes} B, {ops} ops); library scaled_dot_product_attention "
-        f"(enable_gqa, bool mask) {lib7:.4f} ms, within {e:.3g} of B7")
-    rows.append(dict(name="decode_attn", route="cuda", source=ATTN_SOURCE,
-                     replaces="src/repro/kernels/decode_attn/decode_attn.py:72",
-                     launches=None, max_abs_err=err["decode_attn"], ms=ms7,
-                     plain_ms=plain7, bound_ms=bound7, bound_by=by7,
-                     library_ms=lib7))
+    rows.append(attn_times(cfg, dev, err["decode_attn"]))
     return rows
 
 
-def main() -> int:
+def ptxas_usage(fragment):
+    """{kernel: (registers, static shared bytes, spill bytes)} from the
+    ptxas report of the build, for entry functions whose name holds
+    ``fragment``."""
+    import re
+    from repro_torch.kernels._build import load_library
+    out, name = {}, None
+    for line in load_library().log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1) if fragment in m.group(1) else None
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            out.setdefault(name, [None, 0, 0])[2] = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            smem = re.search(r"(\d+) bytes smem", line)
+            rec = out.setdefault(name, [None, 0, 0])
+            rec[0], rec[1] = int(m.group(1)), int(smem.group(1)) if smem else 0
+    return {k: tuple(v) for k, v in out.items()}
+
+
+def attn_times(cfg, dev, err):
+    """B7 at one layer of the decode step, a full cache and pos = T - 1, at
+    the serving cache (T = 256) and two long ones: CUDA-event means against
+    the byte bound, the plain version and scaled_dot_product_attention.
+    Returns the kernels-line row of the serving shape."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attn import ops as attn_ops
+    from repro_torch.kernels.decode_attn.ops import decode_attn
+    from repro_torch.kernels.decode_attn.ref import decode_attn_ref
+    B, H, KV, D = SERVE_BATCH, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    dt = torch.bfloat16
+    for kern, (regs, smem, spill) in ptxas_usage("decode_attn").items():
+        log("times", f"B7 ptxas {kern[:70]}: {regs} registers, {smem} B "
+            f"static shared memory, {spill} B spilled")
+    g = torch.Generator(device=dev).manual_seed(4)
+    row = None
+    for T in ATTN_TIME_T:
+        q = torch.randn(B, H, D, generator=g, device=dev).to(dt)
+        k = torch.randn(B, T, KV, D, generator=g, device=dev).to(dt)
+        v = torch.randn(B, T, KV, D, generator=g, device=dev).to(dt)
+        cpos = torch.arange(T, dtype=torch.int32, device=dev)
+        pos = T - 1
+        reps = max(10, 200 * 256 // T)
+        kern = lambda: decode_attn(q, k, v, cpos, pos)
+        ev = cuda_ms(kern, reps, 5)
+        ms = graph_ms(kern, 20) or ev
+        plain_fn = lambda: decode_attn_ref(q, k, v, cpos, pos)
+        plain = graph_ms(plain_fn, 5) or cuda_ms(plain_fn, 5, 1)
+        # the library call on the same cache: [B, KV, T, D] views of it;
+        # for the record also on a contiguous copy (the copy not timed)
+        qs = q[:, :, None].contiguous()                  # [B, H, 1, D]
+        ks, vs = (t.transpose(1, 2) for t in (k, v))
+        kc, vc = ks.contiguous(), vs.contiguous()
+        mask = ((cpos >= 0) & (cpos <= pos))[None, None, None, :]
+        sdpa = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask,
+                                              enable_gqa=True)
+        e = max_abs_err(sdpa[:, :, 0].float(),
+                        decode_attn(q, k, v, cpos, pos).float())
+        check(e <= 2e-2, f"B7 T={T} vs scaled_dot_product_attention off by "
+              f"{e:.3g}")
+        lib_fn = lambda: F.scaled_dot_product_attention(
+            qs, ks, vs, attn_mask=mask, enable_gqa=True)
+        lib_ev = cuda_ms(lib_fn, reps, 5)
+        lib = graph_ms(lib_fn, 20) or lib_ev
+        lib_c = graph_ms(lambda: F.scaled_dot_product_attention(
+            qs, kc, vc, attn_mask=mask, enable_gqa=True), 20)
+        nbytes = q.numel() * 2 * 2 + (k.numel() + v.numel()) * 2 + T * 4
+        ops = 4 * B * H * T * D          # QK^T and PV, multiply + add
+        t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS_PER_S["float32"]
+        bound, by = max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else \
+            "operations"
+        log("times", f"B7 bf16 q {tuple(q.shape)} cache {tuple(k.shape)} "
+            f"(blocks a cluster P = {attn_ops.split_plan(B, KV, T, D, 2)}, "
+            f"dynamic shared memory {attn_ops.smem_bytes(D, 2)} B): device ms "
+            f"a call (CUDA graph of 20 calls, plain 5): kernel {ms:.4f}, plain "
+            f"{plain:.4f}, library scaled_dot_product_attention (enable_gqa, "
+            f"bool mask, the cache's [B, KV, T, D] view) {lib:.4f}, within "
+            f"{e:.3g} of B7; on a contiguous copy {lib_c or math.nan:.4f} | "
+            f"CUDA-event mean "
+            f"of back-to-back calls (host launch cost included): kernel "
+            f"{ev:.4f}, library {lib_ev:.4f} | bound {bound:.6f} ms by {by} "
+            f"({nbytes} B, {ops} ops); {nbytes / (ms * 1e-3) / 1e9:.1f} GB/s "
+            f"achieved, {bound / ms:.1%} of the bound")
+        if T == SERVE_CACHE:
+            row = dict(name="decode_attn", route="cuda", source=ATTN_SOURCE,
+                       replaces="src/repro/kernels/decode_attn/"
+                                "decode_attn.py:72",
+                       launches=None, max_abs_err=err, ms=ms,
+                       plain_ms=plain, bound_ms=bound, bound_by=by,
+                       library_ms=lib)
+        del q, k, v, ks, vs, kc, vc, qs, sdpa
+        torch.cuda.empty_cache()
+    attn_split_sweep(B, H, KV, D, dev, g)
+    # float32 at the longest cache: the kernel's FMA path, twice the bytes
+    T = ATTN_TIME_T[-1]
+    q = torch.randn(B, H, D, generator=g, device=dev)
+    k = torch.randn(B, T, KV, D, generator=g, device=dev)
+    v = torch.randn(B, T, KV, D, generator=g, device=dev)
+    cpos = torch.arange(T, dtype=torch.int32, device=dev)
+    ms32 = graph_ms(lambda: decode_attn(q, k, v, cpos, T - 1), 10)
+    if ms32:
+        nbytes = (k.numel() + v.numel()) * 4
+        log("times", f"B7 f32 cache {tuple(k.shape)}: device {ms32:.4f} ms a "
+            f"call, {nbytes / (ms32 * 1e-3) / 1e9:.1f} GB/s (float32 runs "
+            f"both products on the FMA pipe, bf16 on the tensor cores)")
+    del q, k, v
+    torch.cuda.empty_cache()
+    return row
+
+
+def attn_split_sweep(B, H, KV, D, dev, g):
+    """B7 at the long caches with each cluster size P (the C entry point
+    called directly): the measurement behind split_plan's block target."""
+    import torch
+    from repro_torch.kernels._build import launch
+    for T in ATTN_TIME_T[1:]:
+        q = torch.randn(B, H, D, generator=g, device=dev).bfloat16()
+        k = torch.randn(B, T, KV, D, generator=g, device=dev).bfloat16()
+        v = torch.randn(B, T, KV, D, generator=g, device=dev).bfloat16()
+        cpos = torch.arange(T, dtype=torch.int32, device=dev)
+        out = torch.empty_like(q)
+        cols = []
+        for P in (1, 2, 3, 4, 8):
+            ms = graph_ms(lambda: launch(
+                "decode_attn_bf16", dev, q.data_ptr(), k.data_ptr(),
+                v.data_ptr(), cpos.data_ptr(), out.data_ptr(), B, T, H, KV,
+                D, T - 1, 0, P), 10)
+            cols.append(f"P = {P} ({B * KV * P} blocks) "
+                        + ("not measured" if ms is None else f"{ms:.4f} ms"))
+        log("times", f"B7 bf16 cache {tuple(k.shape)} by cluster size, device "
+            f"ms a call (CUDA graph of 10 calls): " + ", ".join(cols))
+        del q, k, v
+        torch.cuda.empty_cache()
+
+
+def times_only(dev) -> None:
+    """``--times``: the B4 / B5 and B7 timings alone, for comparing two
+    checkouts in one call on one card."""
+    dense_times(full_grid(), dev, {"minplus_vecmat": None,
+                                   "minplus_vecmat_argmin": None})
+    attn_times(_serve_cfg(), dev, None)
+
+
+def main(argv) -> int:
     _preflight()
     import torch
     from repro_torch.kernels.decode_attn.ops import decode_attn
@@ -1540,14 +1811,22 @@ def main() -> int:
                 banded_minplus_chain_kbest, minplus_vecmat,
                 minplus_vecmat_argmin, ee_gate, decode_attn)
 
+    if argv not in ([], ["--times"]):
+        print(f"usage: python3 chip_smoke.py [--times]; got {argv}",
+              file=sys.stderr)
+        return 2
     phase_environment()
+    if argv == ["--times"]:
+        times_only(dev)
+        return 0
     err = phase_kernels(dev)
     err.update(phase_kernels_dense(dev))
     grid = full_grid()
     phase_graphs(grid, dev)
     phase_solve_fin(dev)
     launches, wall, sols = phase_solve_many(grid, dev, counters)
-    launches_d, _ = phase_solve_many_dense(grid, dev, counters, sols, wall)
+    launches_d, _, b4_path_ms = phase_solve_many_dense(grid, dev, counters,
+                                                       sols, wall)
     del sols
     launches_t7 = phase_table7_dense(dev, counters)
     launches_k, wall_k = phase_solve_many_kbest(grid, dev, counters, wall)
@@ -1563,7 +1842,7 @@ def main() -> int:
         check(row["launches"] > 0, f"{row['name']}: no launch on its path")
     phase_population(grid, dev)
     # B4 on solve_many(backend="dense"), B5 on the Table VII path
-    dense_rows = dense_times(grid, dev, err)
+    dense_rows, table7_layer = dense_times(grid, dev, err)
     for row, path in zip(dense_rows, (launches_d, launches_t7)):
         row["launches"] = path[row["name"]]
         check(row["launches"] > 0, f"{row['name']}: no launch on its path")
@@ -1578,6 +1857,17 @@ def main() -> int:
     del params
     torch.cuda.empty_cache()
     phase_serve_parity(dev)
+    # B5's launches on its path are Table VII layers, not the [times] shape
+    at_path = {r["name"]: (r["ms"], r["bound_ms"]) for r in rows}
+    at_path["minplus_vecmat"] = table7_layer
+    order = sorted(((r["launches"] * (at_path[r["name"]][0]
+                                      - at_path[r["name"]][1]), r["name"])
+                    for r in rows), reverse=True)
+    log("order", "launches x (time - bound) on each kernel's path (B5 at a "
+        "Table VII layer, the others at their [times] shape): "
+        + ", ".join(f"{n} {v:.4f} ms" for v, n in order)
+        + "; B4's whole device time on [solve_many_dense] (torch.profiler): "
+        + ("not measured" if b4_path_ms is None else f"{b4_path_ms:.4f} ms"))
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1586,4 +1876,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -15,6 +15,7 @@ from typing import Mapping, Optional, Sequence
 import numpy as np
 import torch
 
+from ._device import DeviceLike, resolve_device
 from .core.dnn_profile import DNNProfile, ExitSpec
 from .core.problem import AppRequirements, Config
 from .core.system_model import Network, NodeSpec
@@ -107,19 +108,22 @@ def _tensor_from(x, device) -> torch.Tensor:
 
 
 def transformer_params_from(params_np: Mapping, cfg, *,
-                            device="cpu") -> dict:
+                            device: DeviceLike = None) -> dict:
     """The port's transformer parameters from another implementation's
-    parameter tree, given as nested mappings of numpy arrays.
+    parameter tree, given as nested mappings of numpy arrays, on
+    ``device`` (``None``: ``cuda:0``, raising without a card).
 
     Both trees share names and layouts: per-period layer stacks
     ``[n_periods, ...]``, ``wq`` ``[d, H, hd]``, ``wo`` ``[H, hd, d]``, exits
     keyed ``exit_{period}``, so each leaf is copied as it is (dtype kept).
     Keys the port's model does not read raise ``ValueError``.
     """
+    dev = resolve_device(device)
+
     def conv(tree):
         if isinstance(tree, Mapping):
             return {k: conv(v) for k, v in tree.items()}
-        return _tensor_from(tree, device)
+        return _tensor_from(tree, dev)
 
     expect = {"embed", "layers", "final_norm", "exits"} | (
         set() if cfg.tie_embeddings else {"lm_head"})

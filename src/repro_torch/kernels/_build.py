@@ -61,9 +61,9 @@ SOURCES: Tuple[Source, ...] = (
     Source(Path("ee_gate/csrc/ee_gate.cu"), (),
            {name: [_PTR] * 3 + [_INT] * 2 + [_PTR]
             for name in ("ee_gate_f32", "ee_gate_bf16")}),
-    # q, k, v, cache_pos, out | B, T, H, KV, D, pos, window | stream
+    # q, k, v, cache_pos, out | B, T, H, KV, D, pos, window, P | stream
     Source(Path("decode_attn/csrc/decode_attn.cu"), (),
-           {name: [_PTR] * 5 + [_INT] * 7 + [_PTR]
+           {name: [_PTR] * 5 + [_INT] * 8 + [_PTR]
             for name in ("decode_attn_f32", "decode_attn_bf16")}),
 )
 

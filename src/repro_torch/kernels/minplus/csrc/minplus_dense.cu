@@ -34,34 +34,56 @@
 // dense engines, and the float32 one to the TPU kernel's single float32
 // add per candidate.
 //
-// Bound: bytes.  Each row must read dist (S values) and its W (S*T values,
-// or one shared W for all rows) and write out (and arg): two operations
-// (an add and a compare) per candidate, 2*B*S*T in all.  With a W per row
-// that is 2 operations per 8 bytes of W in float64, 0.25 operations per
-// byte, far below the card's balance point (about 10 for float64); with a
-// shared W it is 2*B operations per W value, still below it for the
-// batches the path passes (B <= 8 rows a block share one W load).
+// Bound: bytes.  Each row must read dist (S values), the rows of its W
+// that can reach a target, and write out (and arg).  A W row s can change
+// row b's result only where dist[b,s] is finite; the solver's layers reach
+// few states (10.8% of them at the dense path's largest launch), so the
+// bytes this data needs are a tenth of W.  Two operations (an add and a
+// compare) per candidate: 0.25 operations per byte of W in float64, far
+// below the card's balance point.
 //
-// Design against that bound: each byte of W crosses device memory once.  A
-// block owns a tile of 128 consecutive targets t (one per thread) and R
-// rows: R = 8 when W is shared, so each W[s,t] load serves 8 rows, and
-// R = 1 when each row has its own W.  Each thread walks s = 0..S-1 in
-// ascending order; dist[b,s] comes from a tile staged in shared memory
-// (read as a broadcast), and W[s,t] is read coalesced across the warp.
-// (best, arg) stay in registers.  The TPU kernel's (8, 128, 128) VMEM
-// blocks and its padding are dropped.  Making it fast (several targets a
-// thread, vector loads, the second T tile of S = 130 folded into the
-// first) is later work.
+// B5 (`minplus_kernel<T, R, false>`): a block owns a tile of 128
+// consecutive targets t (one per thread) and R rows (8 when W is shared, so
+// each W[s,t] load serves 8 rows, 1 when each row has its own W).  Each
+// thread walks every s = 0..S-1 in ascending order; dist comes from a chunk
+// staged in shared memory and W[s,t] is read coalesced across the warp.
+// It reads every W row, reached or not, and at T = 130 the second target
+// tile holds 2 live threads of 128; the next redesign moves it onto B4's.
+//
+// B4 (`minplus_argmin_kernel<T, R>`), redesigned for this card: read only
+// the W rows that can reach a target.
+//   * Compaction.  A block first loads its R rows' dist for a chunk of
+//     sources and compacts the s where any of them is finite into a list
+//     in shared memory, in ascending order: a warp ballot per 32 sources
+//     and a popc prefix over the block's warps (no atomics, which would
+//     lose the order).  With a shared W (R = 8) the list is the union of
+//     the rows' live sources; a row that is non-finite at such an s gets
+//     +inf from edge() and adds nothing.
+//   * Walk.  Each thread walks only the listed s, in list order, for its
+//     target t: c = dist + W[s,t], taken when c < best.  Skipping an s
+//     whose dist is +inf, -inf or NaN cannot change the result: every such
+//     candidate is +inf (edge() makes the dist +inf), never < the +inf the
+//     scan starts from, and never < a finite best; the listed s stay in
+//     ascending order, so the first s that attains the min is the one the
+//     full scan finds.  Values and argmins stay bit-equal.
+//   * Targets.  The block has T threads rounded up to a warp (split into
+//     passes of at most 512 threads for a long T, each pass re-walking the
+//     list, so each needed W byte is still read once): at T = 130 one block
+//     of 160 threads covers a row, and the grid is one block per row (per 8
+//     rows with a shared W).
+// (best, arg) stay in registers; the TPU kernel's (8, 128, 128) VMEM blocks
+// and its padding are dropped.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
 namespace {
 
-constexpr int kTile = 128;    // targets a block, one a thread
-constexpr int kChunk = 256;   // source states of dist staged per pass
+constexpr int kTile = 128;    // B5: targets a block, one a thread
+constexpr int kChunk = 256;   // B5: source states of dist staged per pass
 constexpr int kSharedRows = 8;
-constexpr int kMaxTiles = 65535;   // gridDim.y
+constexpr int kMaxTiles = 65535;   // B5: gridDim.y
+constexpr int kMaxThreads = 512;   // B4: targets (and sources) of a pass
 
 template <typename T>
 __device__ __forceinline__ T pos_inf();
@@ -134,6 +156,106 @@ __global__ void minplus_kernel(const T* __restrict__ dist,
   }
 }
 
+// B4: out / arg of R rows over every target, walking only the sources at
+// which one of the rows' dist is finite (see the note at the top).
+template <typename T, int R>
+__global__ void __launch_bounds__(kMaxThreads)
+minplus_argmin_kernel(const T* __restrict__ dist, const T* __restrict__ W,
+                      T* __restrict__ out, int* __restrict__ arg, int B,
+                      int S, int Tn, long long w_stride) {
+  __shared__ int live_s[kMaxThreads];        // a chunk's live sources
+  __shared__ T live_d[R][kMaxThreads];       // the rows' dist at them
+  __shared__ unsigned warp_live[kMaxThreads / 32];
+  const long long b0 = static_cast<long long>(blockIdx.x) * R;
+  const long long left = B - b0;
+  const int nb = left < R ? static_cast<int>(left) : R;
+  // R > 1 only with a shared W (w_stride == 0)
+  const T* w = W + b0 * w_stride;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+
+  for (int t0 = 0; t0 < Tn; t0 += blockDim.x) {       // target passes
+    const int t = t0 + threadIdx.x;
+    T best[R];
+    int a[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      best[r] = pos_inf<T>();
+      a[r] = -1;
+    }
+    for (int s0 = 0; s0 < S; s0 += blockDim.x) {      // source chunks
+      // compact the chunk's live sources, in ascending order
+      const int s = s0 + threadIdx.x;
+      T d[R];
+      bool live = false;
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        d[r] = r < nb && s < S ? edge(dist[(b0 + r) * S + s]) : pos_inf<T>();
+        live |= d[r] < pos_inf<T>();
+      }
+      const unsigned mask = __ballot_sync(0xffffffffu, live);
+      if (lane == 0) warp_live[warp] = mask;
+      __syncthreads();
+      int at = __popc(mask & ((1u << lane) - 1u));
+      int n = 0;
+      for (int i = 0; i < nwarps; ++i) {
+        const int c = __popc(warp_live[i]);
+        at += i < warp ? c : 0;
+        n += c;
+      }
+      if (live) {
+        live_s[at] = s;
+#pragma unroll
+        for (int r = 0; r < R; ++r) live_d[r][at] = d[r];
+      }
+      __syncthreads();
+      // walk them for this thread's target
+      if (t < Tn) {
+        const T* wt = w + t;
+#pragma unroll 8
+        for (int i = 0; i < n; ++i) {
+          const int si = live_s[i];
+          const T wv = edge(wt[static_cast<long long>(si) * Tn]);
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            const T c = live_d[r][i] + wv;
+            if (c < best[r]) {
+              best[r] = c;
+              a[r] = si;
+            }
+          }
+        }
+      }
+      __syncthreads();   // the list is consumed before the next chunk
+    }
+    if (t < Tn) {
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        if (r < nb) {
+          const long long o = (b0 + r) * Tn + t;
+          out[o] = best[r];
+          arg[o] = a[r];
+        }
+      }
+    }
+  }
+}
+
+template <typename T, int R>
+int launch_argmin(const void* dist, const void* W, void* out, void* arg,
+                  int B, int S, int Tn, long long w_stride,
+                  cudaStream_t stream) {
+  // T threads rounded up to a warp, in passes of at most kMaxThreads
+  const int passes = (Tn + kMaxThreads - 1) / kMaxThreads;
+  const int per = (Tn + passes - 1) / passes;
+  const int threads = (per + 31) / 32 * 32;
+  minplus_argmin_kernel<T, R><<<static_cast<unsigned int>((B + R - 1) / R),
+                                threads, 0, stream>>>(
+      static_cast<const T*>(dist), static_cast<const T*>(W),
+      static_cast<T*>(out), static_cast<int*>(arg), B, S, Tn, w_stride);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T, int R, bool kArg>
 int launch_rows(const void* dist, const void* W, void* out, void* arg, int B,
                 int S, int Tn, long long w_stride, cudaStream_t stream) {
@@ -149,15 +271,26 @@ template <typename T, bool kArg>
 int launch_minplus(const void* dist, const void* W, void* out, void* arg,
                    int B, int S, int Tn, int w_stride, void* stream) {
   if (B <= 0 || Tn <= 0) return 0;
-  if ((Tn + kTile - 1) / kTile > kMaxTiles || S < 0 || w_stride < 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (S < 0 || w_stride < 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (w_stride == 0 && B > 1) {
-    return launch_rows<T, kSharedRows, kArg>(dist, W, out, arg, B, S, Tn, 0,
-                                             st);
+  const bool shared = w_stride == 0 && B > 1;
+  if constexpr (kArg) {
+    if (shared) {
+      return launch_argmin<T, kSharedRows>(dist, W, out, arg, B, S, Tn, 0,
+                                           st);
+    }
+    return launch_argmin<T, 1>(dist, W, out, arg, B, S, Tn, w_stride, st);
+  } else {
+    if ((Tn + kTile - 1) / kTile > kMaxTiles) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    if (shared) {
+      return launch_rows<T, kSharedRows, false>(dist, W, out, arg, B, S, Tn,
+                                                0, st);
+    }
+    return launch_rows<T, 1, false>(dist, W, out, arg, B, S, Tn, w_stride,
+                                    st);
   }
-  return launch_rows<T, 1, kArg>(dist, W, out, arg, B, S, Tn, w_stride, st);
 }
 
 }  // namespace

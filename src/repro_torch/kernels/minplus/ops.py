@@ -180,14 +180,16 @@ banded_minplus_chain_kbest.launches = 0
 # ---------------------------------------------------------------------------
 
 _INT32_MAX = 2 ** 31 - 1
-#: targets a dense launch takes: 128 a block along a grid axis of 65,535
+#: targets a B5 launch takes: 128 a block along a grid axis of 65,535.  B4
+#: covers every target of its rows inside one block (a loop over passes),
+#: so only the int32 bound on S*T limits its T.
 MAX_DENSE_TARGETS = 128 * 65535
 
 
-def _check_dense_inputs(dist: torch.Tensor, W: torch.Tensor
-                        ) -> Tuple[int, int, int, int]:
-    """(B, S, T, W's batch stride in elements) of a dense launch; raises on
-    what the kernel does not take."""
+def _check_dense_inputs(dist: torch.Tensor, W: torch.Tensor,
+                        argmin: bool = False) -> Tuple[int, int, int, int]:
+    """(B, S, T, W's batch stride in elements) of a dense launch of B4
+    (``argmin``) or B5; raises on what the kernel does not take."""
     if dist.dim() != 2 or W.dim() not in (2, 3):
         raise ValueError(f"expected dist [B, S] and W [S, T] or [B, S, T], "
                          f"got {tuple(dist.shape)}, {tuple(W.shape)}")
@@ -209,15 +211,18 @@ def _check_dense_inputs(dist: torch.Tensor, W: torch.Tensor
     if S < 1:
         raise ValueError("the dense (min,+) product needs S >= 1")
     stride = W.stride(0) if W.dim() == 3 and B > 1 else 0
-    if max(B, S * T, stride) > _INT32_MAX or T > MAX_DENSE_TARGETS:
-        raise ValueError(f"B={B}, S*T={S * T}, batch stride {stride} or "
-                         f"T={T} exceed the kernel's int32 sizes")
+    if max(B, S * T, stride) > _INT32_MAX:
+        raise ValueError(f"B={B}, S*T={S * T} or batch stride {stride} "
+                         f"exceed the kernel's int32 sizes")
+    if not argmin and T > MAX_DENSE_TARGETS:
+        raise ValueError(f"T={T} exceeds the {MAX_DENSE_TARGETS} targets of "
+                         f"the min-only kernel's grid")
     return B, S, T, stride
 
 
 def _launch_dense(dist: torch.Tensor, W: torch.Tensor, argmin: bool
                   ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    B, S, T, stride = _check_dense_inputs(dist, W)
+    B, S, T, stride = _check_dense_inputs(dist, W, argmin)
     out = torch.empty((B, T), dtype=dist.dtype, device=dist.device)
     arg = (torch.empty((B, T), dtype=torch.int32, device=dist.device)
            if argmin else None)
@@ -274,7 +279,7 @@ def minplus_vecmat_argmin(dist: torch.Tensor, W: torch.Tensor
     attains the min, -1 where no finite candidate reaches t.
     """
     if _dense_device(dist) == "cpu":
-        _check_dense_inputs(dist, W)
+        _check_dense_inputs(dist, W, argmin=True)
         return minplus_argmin_ref(dist, W)
     out, arg = _launch_dense(dist, W, argmin=True)
     if out.numel():

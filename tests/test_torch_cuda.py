@@ -17,7 +17,8 @@ dense engines and ``solve_many(backend="dense")`` on CUDA equal their CPU
 path.  The exit gate (B6) holds conf to a relative 1e-5 (sums in another order)
 and its argmax exactly; decode attention (B7) holds 2e-5 in float32 and
 2e-2 in bf16 (its plain version rounds the probabilities to bf16 before
-the PV product, the kernel keeps them in float32).  The serving engine on
+the PV product, the kernel keeps them in float32), with whole split ranges
+dead, and gives the same bits on a repeat call.  The serving engine on
 CUDA, in float32, must serve the tokens its CPU path serves.
 """
 import dataclasses
@@ -29,7 +30,8 @@ import torch
 import repro_torch as T
 from repro_torch.configs import get
 from repro_torch.core.bellman_ford import kernel_inputs
-from repro_torch.kernels.decode_attn.ops import decode_attn
+from repro_torch.kernels.decode_attn.ops import (decode_attn, split_plan,
+                                                 split_ranges)
 from repro_torch.kernels.decode_attn.ref import decode_attn_ref
 from repro_torch.kernels.ee_gate.ops import ee_gate
 from repro_torch.kernels.ee_gate.ref import ee_gate_ref
@@ -240,28 +242,83 @@ def test_ee_gate_kernel_ties_keep_the_first_index(cuda_device):
     assert float(conf[2]) == 1 / 4096
 
 
-@pytest.mark.parametrize("window", [0, 16])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,H,KV,D,T", [(1, 4, 4, 32, 128), (2, 8, 2, 64, 256),
-                                        (1, 8, 1, 64, 300), (3, 4, 2, 16, 64),
-                                        (4, 32, 8, 80, 256)])
-def test_decode_attn_kernel_matches_plain_on_card(cuda_device, B, H, KV, D,
-                                                  T, dtype, window):
-    rng = np.random.default_rng(B + H + T)
-    q, k, v = (torch.as_tensor(rng.normal(size=s), dtype=torch.float32,
-                               device=cuda_device).to(dtype)
-               for s in ((B, H, D), (B, T, KV, D), (B, T, KV, D)))
-    cache_pos = torch.arange(T, dtype=torch.int32, device=cuda_device)
-    cache_pos[T - T // 4:] = -1                 # empty ring slots
-    pos = T - T // 4 - 3                        # and future ones
+def _attn_inputs(B, H, KV, D, T, dtype, device, seed):
+    rng = np.random.default_rng(seed)
+    return [torch.as_tensor(rng.normal(size=s), dtype=torch.float32,
+                            device=device).to(dtype)
+            for s in ((B, H, D), (B, T, KV, D), (B, T, KV, D))]
+
+
+def _attn_close(q, k, v, cache_pos, pos, window=0):
+    """B7 within 2e-5 (float32) / 2e-2 (bf16) of its plain version, one
+    launch, and the same bits on a repeat call."""
     n0 = decode_attn.launches
     got = decode_attn(q, k, v, cache_pos, pos, window=window)
     assert decode_attn.launches == n0 + 1
     want = decode_attn_ref(q, k, v, cache_pos, pos, window=window)
+    again = decode_attn(q, k, v, cache_pos, pos, window=window)
     torch.cuda.synchronize()
-    tol = 2e-5 if dtype == torch.float32 else 2e-2
-    assert got.dtype == dtype
+    tol = 2e-5 if q.dtype == torch.float32 else 2e-2
+    assert got.dtype == q.dtype
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("window", [0, 16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,KV,D,T", [(1, 4, 4, 32, 128), (2, 8, 2, 64, 256),
+                                        (1, 8, 1, 64, 300), (3, 4, 2, 16, 64),
+                                        (4, 32, 8, 80, 256),
+                                        (4, 32, 8, 80, 8192),
+                                        (4, 32, 8, 80, 4097)])
+def test_decode_attn_kernel_matches_plain_on_card(cuda_device, B, H, KV, D,
+                                                  T, dtype, window):
+    q, k, v = _attn_inputs(B, H, KV, D, T, dtype, cuda_device, B + H + T)
+    cache_pos = torch.arange(T, dtype=torch.int32, device=cuda_device)
+    cache_pos[T - T // 4:] = -1                 # empty ring slots
+    pos = T - T // 4 - 3                        # and future ones
+    _attn_close(q, k, v, cache_pos, pos, window)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mask", ["first", "second", "last", "future", "dead"])
+@pytest.mark.parametrize("B,H,KV,D,T", [(1, 32, 8, 80, 4097),
+                                        (4, 32, 8, 80, 4097),
+                                        (1, 8, 2, 64, 1000)])
+def test_decode_attn_kernel_with_a_dead_split_range_on_card(
+        cuda_device, B, H, KV, D, T, mask, dtype):
+    """A whole split range empty (cache_pos -1: the first, the second or
+    the last block's), the last range in the future (beyond pos), or no
+    live slot at all (the uniform average)."""
+    P = split_plan(B, KV, T, D, torch.empty((), dtype=dtype).element_size())
+    assert P > 1
+    ranges = split_ranges(T, P)
+    q, k, v = _attn_inputs(B, H, KV, D, T, dtype, cuda_device, T + P)
+    cache_pos = torch.arange(T, dtype=torch.int32, device=cuda_device)
+    pos = T - 1
+    if mask == "dead":
+        cache_pos[:] = -1
+    elif mask == "future":
+        pos = ranges[-1][0] - 1
+    else:
+        lo, hi = ranges[{"first": 0, "second": 1, "last": -1}[mask]]
+        cache_pos[lo:hi] = -1
+    _attn_close(q, k, v, cache_pos, pos)
+
+
+def test_decode_attn_kernel_refuses_rows_it_cannot_load(cuda_device):
+    kv = torch.zeros(1, 16, 2, 8, device=cuda_device)
+    cp = torch.arange(16, dtype=torch.int32, device=cuda_device)
+    n7 = decode_attn.launches
+    with pytest.raises(ValueError, match="16-byte words"):   # 6 * 4 = 24 B
+        decode_attn(torch.zeros(1, 4, 6, device=cuda_device),
+                    kv[..., :6].contiguous(), kv[..., :6].contiguous(), cp, 3)
+    shifted = torch.zeros(kv.numel() + 1, device=cuda_device)[1:].view(
+        kv.shape)
+    with pytest.raises(ValueError, match="aligned"):
+        decode_attn(torch.zeros(1, 4, 8, device=cuda_device), shifted, kv,
+                    cp, 3)
+    assert decode_attn.launches == n7
 
 
 def test_serving_kernel_wrappers_refuse_bad_inputs(cuda_device):
@@ -323,12 +380,28 @@ def _dense_problem(B, S, T, seed, dtype, device, per_row, density=0.6):
             torch.as_tensor(W, device=device).to(dtype))
 
 
-@pytest.mark.parametrize("per_row", [False, True])
-@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-@pytest.mark.parametrize("B,S,T", DENSE_SHAPES)
-def test_dense_kernels_bit_equal_to_plain_on_card(cuda_device, B, S, T, dtype,
-                                                  per_row):
-    d, W = _dense_problem(B, S, T, B + S + T, dtype, cuda_device, per_row)
+def _sparse_dense_problem(B, S, T, seed, dtype, device, per_row):
+    """Seeded inputs whose dist is 90% +inf, with a row of no finite entry
+    (row 0), a row whose only finite source is the last (row 1), -inf and
+    NaN entries (row 2), and on every row a skipped source (dist -inf)
+    that ties a kept one (same W row) and two kept sources that tie."""
+    rng = np.random.default_rng(seed)
+    dist = rng.uniform(0, 10, (B, S))
+    dist[rng.uniform(size=dist.shape) < 0.9] = np.inf
+    W = rng.uniform(0, 5, (B, S, T) if per_row else (S, T))
+    W[rng.uniform(size=W.shape) > 0.6] = np.inf
+    W[..., 3, :] = W[..., 5, :] = W[..., 4, :]
+    dist[:, 3], dist[:, 4], dist[:, 5] = -np.inf, 1.0, 1.0
+    dist[0] = np.inf
+    dist[1] = np.inf
+    dist[1, -1] = 2.0
+    dist[2, ::3] = -np.inf
+    dist[2, 1::3] = np.nan
+    return (torch.as_tensor(dist, device=device).to(dtype),
+            torch.as_tensor(W, device=device).to(dtype))
+
+
+def _dense_bit_equal(d, W):
     n5, n4 = minplus_vecmat.launches, minplus_vecmat_argmin.launches
     out = minplus_vecmat(d, W)
     got, arg = minplus_vecmat_argmin(d, W)
@@ -339,6 +412,35 @@ def test_dense_kernels_bit_equal_to_plain_on_card(cuda_device, B, S, T, dtype,
     assert torch.equal(out, minplus_ref(d, W)) and torch.equal(out, want)
     assert torch.equal(got, want) and torch.equal(arg, arg_p)
     assert bool((arg >= 0).any())
+    return arg
+
+
+@pytest.mark.parametrize("per_row", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("B,S,T", [(5, 37, 65), (64, 130, 130),
+                                   (16, 300, 129), (8, 390, 390),
+                                   (3, 6, 1100)])
+def test_dense_kernels_bit_equal_on_sparse_dists_on_card(cuda_device, B, S, T,
+                                                         dtype, per_row):
+    """B4 walks only the sources some row reaches: rows with no finite
+    source, with the last only, with -inf / NaN entries, and ties between
+    a skipped and a kept source stay bit-equal (T = 1100 takes three
+    passes over the targets)."""
+    d, W = _sparse_dense_problem(B, S, T, B + S + T, dtype, cuda_device,
+                                 per_row)
+    arg = _dense_bit_equal(d, W)
+    assert bool((arg[0] == -1).all())
+    assert set(arg[1].unique().tolist()) <= {-1, S - 1}
+    assert bool((arg[3:] != 3).all())
+
+
+@pytest.mark.parametrize("per_row", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("B,S,T", DENSE_SHAPES)
+def test_dense_kernels_bit_equal_to_plain_on_card(cuda_device, B, S, T, dtype,
+                                                  per_row):
+    d, W = _dense_problem(B, S, T, B + S + T, dtype, cuda_device, per_row)
+    _dense_bit_equal(d, W)
 
 
 def test_dense_kernel_reads_a_layer_of_a_stack_in_place(cuda_device):

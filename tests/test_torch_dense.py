@@ -8,7 +8,9 @@ port's CPU path.  Tolerances, stated per test:
     (``minplus_vecmat`` / ``minplus_vecmat_argmin`` / ``minplus_matmat``):
     values bit-equal and argmins identical -- both do one float32 add per
     candidate, the min does not depend on order, and both take the first
-    occurrence;
+    occurrence; on sparse dists (90% +inf, -inf and NaN entries, ties
+    between a skipped and a kept source) too, and in float64 against the
+    reference's numpy engine with the missing entries made +inf;
   * the dense graph tensors: byte-equal;
   * the float64 dense engines against the reference's numpy ones:
     bit-equal (one IEEE add per candidate, first-occurrence argmin, a
@@ -137,6 +139,95 @@ def test_minplus_wrappers_raise_on_bad_inputs():
     with pytest.raises(ValueError, match="device"):
         ops.minplus_vecmat(d.to("meta"), torch.zeros(8, 3, device="meta",
                                                      dtype=torch.float64))
+
+
+def _sparse_dist(B, S, seed, special=True):
+    """A dist the solver's layers give B4: 90% +inf, a row with no finite
+    entry (row 0), a row whose only finite source is the last (row 1); with
+    ``special``, -inf and NaN entries (row 2) and, on every row, a skipped
+    source 3 (dist -inf; +inf without ``special``) that ties the kept
+    source 4 and a kept source 5 that ties source 4 too (their W rows are
+    made equal by the caller)."""
+    rng = np.random.default_rng(seed)
+    dist = rng.uniform(0, 10, (B, S))
+    dist[rng.uniform(size=dist.shape) < 0.9] = np.inf
+    dist[:, 3] = -np.inf if special else np.inf
+    dist[:, 4] = dist[:, 5] = 1.0
+    dist[0] = np.inf
+    dist[1] = np.inf
+    dist[1, -1] = 2.0
+    if special:
+        dist[2, ::3] = -np.inf
+        dist[2, 1::3] = np.nan
+    return dist
+
+
+def _tied_w(shape, seed):
+    """W with 40% missing edges whose source rows 3, 4 and 5 are equal."""
+    rng = np.random.default_rng(seed)
+    W = rng.uniform(0, 5, shape)
+    W[rng.uniform(size=W.shape) > 0.6] = np.inf
+    W[..., 3, :] = W[..., 5, :] = W[..., 4, :]
+    return W
+
+
+SPARSE_SHAPES = [(5, 37, 65), (16, 130, 130), (4, 300, 129)]
+
+
+@pytest.mark.parametrize("per_row", [False, True])
+@pytest.mark.parametrize("B,S,T", SPARSE_SHAPES)
+def test_minplus_argmin_on_sparse_dist_equals_numpy_engine(B, S, T, per_row):
+    """Float64, bit for bit: the plain B4 (and its wrapper) on a sparse
+    dist with -inf / NaN entries equals the reference's numpy engine on the
+    same dist with its missing entries made +inf; the skipped source 3
+    never wins its tie, and the kept 4 beats its twin 5 (but on row 2,
+    where 4 is NaN)."""
+    dist = _sparse_dist(B, S, B + S + T)
+    W = _tied_w((B, S, T) if per_row else (S, T), B * S + T)
+    clean = np.where(np.isfinite(dist), dist, np.inf)
+    d, w = torch.as_tensor(dist), torch.as_tensor(W)
+    for out, arg in (minplus_argmin_ref(d, w),
+                     ops.minplus_vecmat_argmin(d, w)):
+        for b in range(B):
+            want, want_arg = rbf.minplus_vecmat_np(clean[b],
+                                                   W[b] if per_row else W)
+            assert _same_bits(out[b], want)
+            reached = np.isfinite(want)
+            assert np.array_equal(arg[b].numpy()[reached], want_arg[reached])
+            assert (arg[b].numpy()[~reached] == -1).all()
+        assert (arg[0] == -1).all() and set(arg[1].tolist()) <= {-1, S - 1}
+        rest = arg[[b for b in range(B) if b != 2]]   # row 2: 4 is NaN
+        assert not (rest == 3).any() and not (rest == 5).any()
+
+
+@pytest.mark.parametrize("B,S,T", SPARSE_SHAPES)
+def test_minplus_argmin_on_sparse_dist_f32_bit_equal_to_pallas(B, S, T):
+    """Float32 with the -inf / NaN entries as they are: the plain B4 equals
+    the reference's Pallas kernel in interpret mode, values and argmins."""
+    dist = _sparse_dist(B, S, B + S + T + 1).astype(np.float32)
+    W = _tied_w((S, T), B + T).astype(np.float32)
+    out, arg = rops.minplus_vecmat_argmin(jnp.asarray(dist), jnp.asarray(W))
+    got, got_arg = minplus_argmin_ref(torch.as_tensor(dist),
+                                      torch.as_tensor(W))
+    assert _same_bits(got, np.asarray(out))
+    assert _same_bits(got_arg, np.asarray(arg))
+
+
+@pytest.mark.parametrize("B,L,S", [(6, 3, 37), (8, 2, 130)])
+def test_batched_dense_engines_on_sparse_init_bit_equal(B, L, S):
+    """The batched dense engines (B4's and B5's callers) from a sparse init
+    equal the reference's numpy engines bit for bit, parents included."""
+    init = _sparse_dist(B, S, B + L + S, special=False)
+    Ws = np.ascontiguousarray(_tied_w((B, L, S, S), B * L + S))
+    hist_r, par_r = rbf.batched_layered_relax_argmin(init, Ws, "numpy")
+    hist, par = bf.batched_layered_relax_argmin(torch.as_tensor(init),
+                                                torch.as_tensor(Ws))
+    assert _same_bits(hist, hist_r)
+    assert np.array_equal(par.numpy(), par_r)
+    assert _same_bits(bf.batched_layered_relax_min(torch.as_tensor(init),
+                                                   torch.as_tensor(Ws)),
+                      rbf.batched_layered_relax_min(init, Ws))
+    assert (par[0, 0] == -1).all()
 
 
 # ---------------------------------------------------------------------------

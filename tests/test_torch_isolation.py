@@ -122,6 +122,28 @@ def test_serving_entry_points_default_to_cuda_and_raise_without_it():
             call()
 
 
+def test_transformer_params_from_defaults_to_cuda_and_raises_without_it():
+    """``convert.transformer_params_from`` resolves ``device=None`` as every
+    entry point does: ``cuda:0``, raising where there is no card."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: device=None resolves to it")
+    from repro_torch.configs import get
+    from repro_torch.convert import transformer_params_from
+    from repro_torch.models import transformer as TT
+    cfg = get("qwen3-4b", reduced=True)
+    params_np = _numpy_tree(TT.init_model(cfg, device="cpu"))
+    with pytest.raises(RuntimeError, match="cuda"):
+        transformer_params_from(params_np, cfg)
+    params = transformer_params_from(params_np, cfg, device="cpu")
+    assert params["embed"]["table"].device == torch.device("cpu")
+
+
+def _numpy_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _numpy_tree(v) for k, v in tree.items()}
+    return tree.numpy()
+
+
 def test_chip_smoke_fails_without_a_card(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present")

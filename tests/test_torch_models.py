@@ -8,9 +8,11 @@ kernel wrappers run their plain versions), with these tolerances:
 * exit gate (B6): the plain version against the reference's Pallas kernel
   in interpret mode, conf to a relative 1e-5 (sums in another order), the
   argmax exactly;
-* decode attention (B7): the plain version against the reference's Pallas
+* decode attention (B7): the plain version, and the float32 mirror of the
+  CUDA kernel's split-and-merge arithmetic, against the reference's Pallas
   kernel in interpret mode, rtol = atol = 2e-5 in float32 and 2e-2 in bf16
-  (the reference's own kernel-vs-oracle tolerances);
+  (the reference's own kernel-vs-oracle tolerances); the kernel's split
+  plan covers the cache with whole tiles;
 * ``rmsnorm``, ``apply_rope``, ``mlp_apply``, ``attn_decode_step`` and
   ``exit_head_apply``: 1e-5 in float32 (the same arithmetic in another
   summation order);
@@ -39,7 +41,10 @@ from repro.models import transformer as RT
 
 from repro_torch.configs import ARCH_NAMES, get
 from repro_torch.convert import transformer_params_from
+from repro_torch.kernels.decode_attn import ops as attn_ops
 from repro_torch.kernels.decode_attn.ops import decode_attn
+from repro_torch.kernels.decode_attn.ref import (decode_attn_ref,
+                                                 decode_attn_split_ref)
 from repro_torch.kernels.ee_gate.ops import ee_gate
 from repro_torch.models import attention as TA
 from repro_torch.models import early_exit as TE
@@ -201,6 +206,88 @@ def test_decode_attn_empty_slots_masked():
     _close(got, short, 2e-5)
 
 
+@pytest.mark.parametrize("T", [1, 31, 64, 255, 256, 257, 300, 513, 1000,
+                               4097, 8192, 32768])
+@pytest.mark.parametrize("B,KV,D,itemsize", [(1, 1, 80, 2), (1, 8, 80, 2),
+                                             (2, 2, 128, 2), (4, 8, 80, 2),
+                                             (3, 5, 64, 4), (64, 8, 80, 2)])
+def test_split_plan_covers_the_cache_with_whole_tiles(B, KV, D, itemsize, T):
+    """1 <= P <= 8; the ranges cover [0, T) in order with none empty and
+    none shorter than a tile; P = 1 when T is one tile or less; B*KV*P
+    stays within the block target, and P is the largest that does."""
+    P = attn_ops.split_plan(B, KV, T, D, itemsize)
+    tile = attn_ops.tile_slots(D, itemsize)
+    assert 1 <= P <= attn_ops.MAX_CLUSTER
+    ranges = attn_ops.split_ranges(T, P)
+    assert len(ranges) == P and ranges[0][0] == 0 and ranges[-1][1] == T
+    assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+    assert all(hi - lo >= (tile if P > 1 else 1) for lo, hi in ranges)
+    if T <= tile:
+        assert P == 1
+    assert P == 1 or B * KV * P <= attn_ops.TARGET_BLOCKS
+    assert P == attn_ops.MAX_CLUSTER or T // (P + 1) < tile or \
+        B * KV * (P + 1) > attn_ops.TARGET_BLOCKS
+
+
+def test_split_plan_at_the_serving_shape():
+    """qwen3-4b's B = 4, KV = 8 in bf16 (256-slot tiles): one block a
+    (sequence, kv-head) at T = 256, clusters of 3 (96 blocks of a third of
+    the cache) at T = 8192 and 32,768."""
+    for T, P, per in ((256, 1, {256}), (8192, 3, {2730, 2731}),
+                      (32768, 3, {10922, 10923})):
+        assert attn_ops.split_plan(4, 8, T) == P
+        assert {hi - lo for lo, hi in attn_ops.split_ranges(T, P)} == per
+
+
+def _split_case(case):
+    """(B, H, KV, D, T, P, cache_pos, pos, window, block_t) of a mirror
+    check; block_t divides T where no slot is live, since the Pallas
+    kernel's padding slots would join the uniform average."""
+    B, H, KV, D, T, P = {
+        "ragged": (2, 8, 2, 32, 300, 7),        # T % P != 0, empty warps
+        "dead_range": (1, 8, 2, 64, 256, 8),    # rank 2's slots empty
+        "future_range": (1, 4, 1, 32, 256, 5),  # the last range beyond pos
+        "window": (1, 4, 2, 32, 256, 8),        # all but one range out
+        "no_live": (2, 4, 2, 16, 128, 4),       # the uniform average
+        "qwen_widths": (1, 32, 8, 80, 600, 2),
+    }[case]
+    cache_pos = np.arange(T, dtype=np.int32)
+    pos, window = T - 3, 0
+    ranges = attn_ops.split_ranges(T, P)
+    if case == "dead_range":
+        lo, hi = ranges[2]
+        cache_pos[lo:hi] = -1
+    elif case == "future_range":
+        pos = ranges[-1][0] - 1
+    elif case == "window":
+        pos, window = T - 1, 16
+    elif case == "no_live":
+        cache_pos[:] = -1
+    if case == "qwen_widths":
+        assert P == attn_ops.split_plan(B, KV, T)
+    return B, H, KV, D, T, P, cache_pos, pos, window, 32 if T % 64 else 64
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", ["ragged", "dead_range", "future_range",
+                                  "window", "no_live", "qwen_widths"])
+def test_decode_attn_split_mirror_matches_pallas(case, dtype):
+    """The CUDA kernel's split over a cluster and its merges, mirrored in
+    float32, against the reference's Pallas kernel and the plain version."""
+    B, H, KV, D, T, P, cache_pos, pos, window, bt = _split_case(case)
+    q, k, v = _attn_inputs(B, H, KV, D, T, T + P)
+    (qj, qt), (kj, kt), (vj, vt) = (_both(a, dtype) for a in (q, k, v))
+    want = ref_decode_attn(qj, kj, vj, jnp.asarray(cache_pos), jnp.int32(pos),
+                           window=window, block_t=bt)
+    cp = torch.from_numpy(cache_pos)
+    got = decode_attn_split_ref(qt, kt, vt, cp, pos, P, window=window)
+    tol = 2e-5 if dtype == "float32" else 2e-2
+    assert got.dtype == qt.dtype
+    _close(got.float(), want, tol)
+    _close(got.float(), decode_attn_ref(qt, kt, vt, cp, pos,
+                                        window=window).float(), tol)
+
+
 # ---------------------------------------------------------------------------
 # layers
 # ---------------------------------------------------------------------------
@@ -256,7 +343,8 @@ def _models(variant, seed=0):
         f.name: getattr(ref_cfg, f.name) for f in dataclasses.fields(ref_cfg)
         if f.name != "pattern"})
     params_r = RT.init_model(jax.random.PRNGKey(seed), ref_cfg)
-    params = transformer_params_from(jax.tree.map(np.asarray, params_r), cfg)
+    params = transformer_params_from(jax.tree.map(np.asarray, params_r), cfg,
+                                     device="cpu")
     return ref_cfg, cfg, params_r, params
 
 
@@ -369,12 +457,12 @@ def test_transformer_params_from_checks_the_tree():
     pnp = jax.tree.map(np.asarray, params_r)
     with pytest.raises(ValueError, match="keys"):
         transformer_params_from({k: v for k, v in pnp.items()
-                                 if k != "lm_head"}, cfg)
+                                 if k != "lm_head"}, cfg, device="cpu")
     with pytest.raises(ValueError, match="exit heads"):
-        transformer_params_from({**pnp, "exits": {}}, cfg)
+        transformer_params_from({**pnp, "exits": {}}, cfg, device="cpu")
     bf = transformer_params_from(
         jax.tree.map(lambda x: np.asarray(jnp.asarray(x, jnp.bfloat16)),
-                     params_r), cfg)
+                     params_r), cfg, device="cpu")
     assert bf["embed"]["table"].dtype == torch.bfloat16
     np.testing.assert_array_equal(
         bf["embed"]["table"].float().numpy(),

@@ -55,7 +55,8 @@ def setup():
     cfg_r = ref_get("qwen3-4b", reduced=True)
     params_r = RT.init_model(jax.random.PRNGKey(0), cfg_r)
     cfg = get("qwen3-4b", reduced=True)
-    params = transformer_params_from(jax.tree.map(np.asarray, params_r), cfg)
+    params = transformer_params_from(jax.tree.map(np.asarray, params_r), cfg,
+                                     device="cpu")
     return cfg_r, params_r, cfg, params
 
 
