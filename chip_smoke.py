@@ -33,11 +33,17 @@ rows at population size, and prints the kernels JSON line followed by the
 final status line.  Every failing phase raises; without a CUDA card, or
 without the repository beside it, it exits non-zero and prints no result.
 
-  python3 chip_smoke.py --times
+  python3 chip_smoke.py --times [dense] [gate] [attn] [plan]
 
-builds the kernels and runs only the B4 / B5 and B7 timings (no checks, no
-result line): run it from two checkouts in one call to compare two designs
-on one card.
+builds the kernels and runs only the timings (no checks, no result line):
+B4 / B5 at the dense path's largest launch and at both Table VII layers,
+B6 at [4, 153,600] in float32 and bf16 on seeded logits, B7, and the
+[plan] wall (768 plans, 9 ticks, CUDA and the CPU path); all of them
+without a name, else the named ones.  The kernels are timed as CUDA-graph
+replays beside CUDA-event means.  The timings use only the kernels' public
+wrappers, so a copy of this script run from an older checkout times that
+checkout's kernels: run two in turns in one call to compare two designs on
+one card.
 """
 from __future__ import annotations
 
@@ -64,6 +70,11 @@ ATTN_SOURCE = "src/repro_torch/kernels/decode_attn/csrc/decode_attn.cu"
 # of 153,600 - 151,936 = 1,664 columns
 GATE_SHAPES = [(1, 128), (5, 5000), (4, 153600), (16, 50304)]
 VOCAB_TAIL = 1664
+# (B, V) of the split-gate checks (gate_rows): V below, at and above one
+# block's 2,048 elements, V = 4097 (rows not 16-byte aligned), B above the
+# SM count (one block a row)
+GATE_SPLIT_SHAPES = [(4, 153600), (3, 4097), (1, 4097), (3, 2047), (3, 2048),
+                     (3, 2049), (4, 5000), (200, 4097), (3, 9)]
 # (B, H, KV, D, T) of the attention checks: tests/test_kernels.py's four,
 # qwen3-4b's decode shape and two long caches at its widths (T = 4097 is
 # ragged against every split and tile)
@@ -91,6 +102,10 @@ DENSE_SHAPES = [(1, 16, 16), (8, 128, 128), (3, 37, 65), (16, 300, 129),
                 (2, 1, 257), (64, 130, 130), (4, 390, 390)]
 # (B, S, T) of the sparse-dist checks (dense_sparse_problem)
 SPARSE_SHAPES = [(5, 37, 65), (64, 130, 130), (16, 300, 129), (8, 390, 390)]
+# S = T of the one-scenario checks (B = 1: the Table VII layers, and 397,
+# not a multiple of a source slice) and their dists (one_scenario_dist)
+ONE_SCENARIO_S = (165, 390, 397)
+ONE_SCENARIO_CASES = ("layer", "first_slice_dead", "last_only", "nonfinite")
 # the paper's Table VII large instance (benchmarks/bench_table7.py:59-73)
 TABLE7_NODES = 15
 TABLE7_BLOCKS = 12
@@ -470,31 +485,73 @@ def dense_sparse_problem(B, S, T, seed, dtype, device, per_row):
             torch.as_tensor(W, device=device).to(dtype))
 
 
+def one_scenario_dist(S, seed, case):
+    """A B = 1 dist as a Table VII layer gives it (about 10% reached), or:
+    "first_slice_dead" (no live source in the first source slice of the
+    kernel's plan at 132 SMs), "last_only" (only the last source live),
+    "nonfinite" (-inf and NaN entries beside the finite ones)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    dist = rng.uniform(0, 10, (1, S))
+    dist[rng.uniform(size=dist.shape) < 0.9] = np.inf
+    if case == "first_slice_dead":
+        from repro_torch.kernels.minplus.ops import dense_plan
+        _, Q = dense_plan(1, S, S, False, 132)
+        dist[0, :-(-S // Q)] = np.inf
+    elif case == "last_only":
+        dist[:] = np.inf
+        dist[0, -1] = 1.0
+    elif case == "nonfinite":
+        dist[0, ::5] = -np.inf
+        dist[0, 1::7] = np.nan
+    return dist
+
+
 def phase_kernels_dense(dev):
     """B5 and B4 vs their plain versions on the card, float64 and float32,
     with a shared W and a W per row: bit-equal values and argmins, on the
-    dense inputs and on sparse dists."""
+    dense inputs, on sparse dists and at one scenario (B = 1, the sources
+    split over a cluster), where a repeat call gives the same bits."""
     import torch
     from repro_torch.kernels.minplus.ops import (minplus_vecmat,
                                                  minplus_vecmat_argmin)
     from repro_torch.kernels.minplus.ref import minplus_argmin_ref, minplus_ref
     minplus_vecmat.launches = minplus_vecmat_argmin.launches = 0
     err = {"minplus_vecmat": 0.0, "minplus_vecmat_argmin": 0.0}
+    from repro_torch.kernels._build import sm_count
+    from repro_torch.kernels.minplus.ops import dense_plan
+
+    def one_scenario(case):
+        def make(B, S, T, seed, dtype, device, per_row):
+            W = dense_problem(1, S, S, S + 1, torch.float64, "cpu",
+                              per_row)[1]
+            return (torch.as_tensor(one_scenario_dist(S, S, case),
+                                    device=device).to(dtype),
+                    W.to(device=device, dtype=dtype))
+        return make
     cases = [(s, dense_problem, "dense") for s in DENSE_SHAPES] + \
-        [(s, dense_sparse_problem, "sparse") for s in SPARSE_SHAPES]
+        [(s, dense_sparse_problem, "sparse") for s in SPARSE_SHAPES] + \
+        [((1, S, S), one_scenario(c), f"one-scenario {c}")
+         for S in ONE_SCENARIO_S for c in ONE_SCENARIO_CASES]
     for (B, S, T), make, kind in cases:
         for dtype in (torch.float64, torch.float32):
             for per_row in (False, True):
                 d, W = make(B, S, T, B + S + T, dtype, dev, per_row)
                 out = minplus_vecmat(d, W)
                 got, arg = minplus_vecmat_argmin(d, W)
+                again = minplus_vecmat(d, W)
                 want_out = minplus_ref(d, W)
                 want, arg_p = minplus_argmin_ref(d, W)
                 torch.cuda.synchronize()
+                per, Q = dense_plan(B, S, T, not per_row and B > 1,
+                                    sm_count(dev))
                 tag = (f"{kind} {(B, S, T)} {dtype} "
-                       f"{'per-row W' if per_row else 'shared W'}")
+                       f"{'per-row W' if per_row else 'shared W'} (per "
+                       f"{per}, Q {Q})")
                 check(torch.equal(out, want_out),
                       f"B5 {tag}: kernel differs from the plain version")
+                check(torch.equal(out, again),
+                      f"B5 {tag}: a repeat call gave other bits")
                 check(torch.equal(got, want) and torch.equal(arg, arg_p),
                       f"B4 {tag}: kernel differs from the plain version")
                 err["minplus_vecmat"] = max(err["minplus_vecmat"],
@@ -506,8 +563,9 @@ def phase_kernels_dense(dev):
     log("kernels_dense", f"B5 minplus_vecmat: {minplus_vecmat.launches} "
         f"launches, max_abs_err {err['minplus_vecmat']} | B4 "
         f"minplus_vecmat_argmin: {minplus_vecmat_argmin.launches} launches, "
-        f"max_abs_err {err['minplus_vecmat_argmin']} over {len(cases)} shapes"
-        f" (sparse dists included); -inf and NaN entries counted as missing")
+        f"max_abs_err {err['minplus_vecmat_argmin']} over {len(cases)} cases"
+        f" (sparse dists and one-scenario splits included); -inf and NaN "
+        f"entries counted as missing")
     return err
 
 
@@ -914,45 +972,48 @@ def _mixed_tick(plans, rng) -> None:
             p.update_backhaul(scale)
 
 
+def _plan_ticks(where, counters):
+    """768 plans through the [plan] ticks on ``where``: (plans, solutions
+    a tick, build s, ticks s, the kernels' launches over the ticks)."""
+    import numpy as np
+    import torch
+    import repro_torch as T
+    t0 = time.perf_counter()
+    plans = _plan_population(where, PLAN_USERS)
+    t_build = time.perf_counter() - t0
+    rng = np.random.default_rng(11)
+    q = np.full(len(plans), 0.65)
+    for c in counters:
+        c.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sols = []
+    for t in range(PLAN_TICKS):
+        if t == PLAN_TICKS // 2 + 1:
+            for p in plans:
+                for n in p.masked_nodes:
+                    p.unmask_node(n)
+        q = np.clip(0.65 + 0.95 * (q - 0.65)
+                    + rng.normal(0, 0.05, len(plans)), 0.3, 1.0)
+        T.update_uplinks(plans, q * 1e9)
+        sols.append(T.solve_plans(plans))
+        if t == PLAN_TICKS // 2:
+            _mixed_tick(plans, rng)
+            sols.append(T.solve_plans(plans))
+    torch.cuda.synchronize()
+    return (plans, sols, t_build, time.perf_counter() - t0,
+            {c.__name__: c.launches for c in counters})
+
+
 def phase_plan(dev, counters):
     """The plan IR at population size: 6 apps x 128 users at gamma = 25
     through AR(1) uplink ticks (rho 0.95, sigma 0.05, on [0.3, 1] Gb/s, as
     benchmarks/bench_online.py draws them) and one mixed delta tick, on CUDA
     and on the CPU path with identical solutions and PlanStats; then a
     cold solve_many over the plans' networks equals the warm solutions."""
-    import numpy as np
-    import torch
     import repro_torch as T
-    walls = {}
-    final = {}
-    for where in (dev, "cpu"):
-        t0 = time.perf_counter()
-        plans = _plan_population(where, PLAN_USERS)
-        t_build = time.perf_counter() - t0
-        rng = np.random.default_rng(11)
-        q = np.full(len(plans), 0.65)
-        for c in counters:
-            c.launches = 0
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        sols = []
-        for t in range(PLAN_TICKS):
-            if t == PLAN_TICKS // 2 + 1:
-                for p in plans:
-                    for n in p.masked_nodes:
-                        p.unmask_node(n)
-            q = np.clip(0.65 + 0.95 * (q - 0.65)
-                        + rng.normal(0, 0.05, len(plans)), 0.3, 1.0)
-            T.update_uplinks(plans, q * 1e9)
-            sols.append(T.solve_plans(plans))
-            if t == PLAN_TICKS // 2:
-                _mixed_tick(plans, rng)
-                sols.append(T.solve_plans(plans))
-        torch.cuda.synchronize()
-        walls[str(where)] = (t_build, time.perf_counter() - t0)
-        final[str(where)] = (plans, sols,
-                             {c.__name__: c.launches for c in counters})
-    (gpu, gsols, launches), (cpu, csols, _) = final[str(dev)], final["cpu"]
+    gpu, gsols, b_gpu, w_gpu, launches = _plan_ticks(dev, counters)
+    cpu, csols, b_cpu, w_cpu, _ = _plan_ticks("cpu", counters)
     for tick, (a, b) in enumerate(zip(gsols, csols)):
         check(all(same_solution(x, y) for x, y in zip(a, b)),
               f"plan tick {tick}: CUDA solutions differ from the CPU path")
@@ -972,8 +1033,23 @@ def phase_plan(dev, counters):
         f"PlanStats every tick); cold solve_many == warm ({found} found); "
         f"kernel launches {launches}; stats {stat}")
     log("plan", f"wall s (host clock, ending in synchronize): build "
-        f"cuda {walls[str(dev)][0]:.3f} cpu {walls['cpu'][0]:.3f} | ticks "
-        f"cuda {walls[str(dev)][1]:.3f} cpu {walls['cpu'][1]:.3f}")
+        f"cuda {b_gpu:.3f} cpu {b_cpu:.3f} | ticks cuda {w_gpu:.3f} cpu "
+        f"{w_cpu:.3f}")
+
+
+def plan_times(dev, counters, reps=2):
+    """The [plan] walls alone (no checks), ``reps`` times each on CUDA and
+    on the CPU path, in turns."""
+    for rep in range(reps):
+        for where in (dev, "cpu"):
+            plans, sols, t_build, t_ticks, launches = _plan_ticks(where,
+                                                                  counters)
+            log("times", f"[plan] {len(plans)} plans x {len(sols)} ticks on "
+                f"{where} (run {rep + 1} of {reps}): wall s (host clock, "
+                f"ending in synchronize) build {t_build:.3f}, ticks "
+                f"{t_ticks:.3f}; B1 launches "
+                f"{launches['banded_minplus_chain']}")
+            del plans, sols
 
 
 def phase_frontier(dev, counters):
@@ -1039,12 +1115,36 @@ def dense_bound(dist, W, argmin):
             "bytes" if t_bytes >= t_ops else "operations", nbytes, ops)
 
 
+def _plan_note(kind, *args) -> str:
+    """The split a redesigned kernel takes at these sizes, or a note that
+    this checkout's kernel has no plan (its first design)."""
+    import torch
+    dev = torch.device("cuda", 0)
+    try:
+        from repro_torch.kernels._build import sm_count
+        if kind == "dense":
+            from repro_torch.kernels.minplus.ops import dense_plan
+            per, Q = dense_plan(*args, sm_count(dev))
+            B, S, T, shared = args
+            blocks = -(-B // (8 if shared else 1)) * -(-T // per) * Q
+            return f"per {per}, Q {Q}, {blocks} blocks"
+        from repro_torch.kernels.ee_gate.ops import gate_plan
+        P = gate_plan(*args, sm_count(dev))
+        return f"P {P}, {args[0] * P} blocks"
+    except ImportError:
+        return "first design"
+
+
 def dense_times(grid, dev, err):
     """B4 and B5 at the dense path's largest launch: one layer of round 0's
     h1-h4 group (floor and ceil graphs, 20,480 rows, S = 130) in float64
     with a W per row, the layer whose input has the most reached states;
     against the plain versions and the data's bound.  Float32 at the same
-    shape and B5 at one Table VII layer (B = 1, S = 390) for the record."""
+    shape, and B5 at the last layer of the Table VII instance at gamma 10
+    and 25 (B = 1, S = T = 165 and 390; B5's launches on its path) in
+    float64 and float32.  Device ms a call from CUDA-graph replays beside
+    CUDA-event means of back-to-back calls.  Returns the kernels-line rows
+    and B5's (graph ms, bound ms) at the gamma-25 Table VII layer."""
     import torch
     from repro_torch.core import bellman_ford as bf
     from repro_torch.core.extended_graph import build_extended_graphs
@@ -1053,6 +1153,10 @@ def dense_times(grid, dev, err):
     from repro_torch.kernels.minplus.ops import (minplus_vecmat,
                                                  minplus_vecmat_argmin)
     from repro_torch.kernels.minplus.ref import minplus_argmin_ref, minplus_ref
+    for kern, (regs, smem, spill) in ptxas_usage("minplus").items():
+        if "banded" not in kern:
+            log("times", f"B4/B5 ptxas {kern[:90]}: {regs} registers, {smem} "
+                f"B static shared memory, {spill} B spilled")
     ps, ns, rs = grid
     idx = [j for j, p in enumerate(ps) if p.n_blocks == 5]
     exts = build_extended_graphs([ns[j] for j in idx], [ps[j] for j in idx],
@@ -1069,52 +1173,70 @@ def dense_times(grid, dev, err):
     del Ws, hist
     torch.cuda.empty_cache()
     rows = []
+    B, S = d.shape
+    T_ = W.shape[-1]
     for name, kern, plain, argmin, replaces in (
             ("minplus_vecmat_argmin", minplus_vecmat_argmin,
              minplus_argmin_ref, True,
              "src/repro/kernels/minplus/minplus.py:107"),
             ("minplus_vecmat", minplus_vecmat, minplus_ref, False,
              "src/repro/kernels/minplus/minplus.py:43")):
-        ms = cuda_ms(lambda: kern(d, W), 20)
+        ev = cuda_ms(lambda: kern(d, W), 20)
+        ms = graph_ms(lambda: kern(d, W), 10) or ev
         plain_ms = cuda_ms(lambda: plain(d, W), 3, 1)
         bound, by, nbytes, ops = dense_bound(d, W, argmin)
-        full = (d.numel() + W.numel() + d.shape[0] * W.shape[-1]) * 8 + (
-            d.shape[0] * W.shape[-1] * 4 if argmin else 0)
+        full = (d.numel() + W.numel() + B * T_) * 8 + (
+            B * T_ * 4 if argmin else 0)
         log("times", f"{'B4' if argmin else 'B5'} {name} f64 dist "
             f"{tuple(d.shape)} W {tuple(W.shape)} per row (layer {layer}, "
-            f"{reached[layer]} of {d.numel()} states reached): kernel "
-            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.4f} ms by "
-            f"{by} ({nbytes} B, {ops} ops, this data; "
-            f"{nbytes / (ms * 1e-3) / 1e9:.1f} GB/s of them achieved, "
-            f"{bound / ms:.1%} of the bound); all of W read once: "
-            f"{full} B, {full / HBM_BYTES_PER_S * 1e3:.4f} ms "
-            f"({full / (ms * 1e-3) / 1e9:.1f} GB/s)")
+            f"{reached[layer]} of {d.numel()} states reached; "
+            f"{_plan_note('dense', B, S, T_, False)}): device ms a call "
+            f"(CUDA graph of 10 calls) {ms:.4f}, CUDA-event mean {ev:.4f}, "
+            f"plain {plain_ms:.4f}, bound {bound:.4f} ms by {by} ({nbytes} B,"
+            f" {ops} ops, this data; {nbytes / (ms * 1e-3) / 1e9:.1f} GB/s of"
+            f" them achieved, {bound / ms:.1%} of the bound); all of W read "
+            f"once: {full} B, {full / HBM_BYTES_PER_S * 1e3:.4f} ms")
         rows.append(dict(name=name, route="cuda", source=DENSE_SOURCE,
                          replaces=replaces, launches=None,
                          max_abs_err=err[name], ms=ms, plain_ms=plain_ms,
                          bound_ms=bound, bound_by=by, library_ms=None))
     d32, W32 = d.float(), W.float()
-    ms32 = cuda_ms(lambda: minplus_vecmat_argmin(d32, W32), 20)
-    b32, by32, _, _ = dense_bound(d32, W32, True)
-    ms32_5 = cuda_ms(lambda: minplus_vecmat(d32, W32), 20)
-    b32_5, _, _, _ = dense_bound(d32, W32, False)
-    log("times", f"B4 f32 at the same shape: kernel {ms32:.4f} ms, bound "
-        f"{b32:.4f} ms by {by32} | B5 f32: kernel {ms32_5:.4f} ms, bound "
-        f"{b32_5:.4f} ms")
+    for argmin, kern in ((True, minplus_vecmat_argmin),
+                         (False, minplus_vecmat)):
+        ev = cuda_ms(lambda: kern(d32, W32), 20)
+        ms = graph_ms(lambda: kern(d32, W32), 10) or ev
+        b32, by32, _, _ = dense_bound(d32, W32, argmin)
+        log("times", f"{'B4' if argmin else 'B5'} f32 at the same shape: "
+            f"device ms a call (CUDA graph) {ms:.4f}, CUDA-event mean "
+            f"{ev:.4f}, bound {b32:.4f} ms by {by32} ({b32 / ms:.1%})")
     del d, W, d32, W32
     torch.cuda.empty_cache()
     nw, pf, req = table7_instance()
-    fg = build_feasible_graphs(build_extended_graphs([nw], [pf], [req],
-                                                     device=dev), GAMMA)[0]
-    Wt = fg.layer_matrices()
-    dt = bf.layered_relax(fg.init_vector(), Wt)[-2][None].contiguous()
-    Wl = Wt[-1].contiguous()
-    ms_t = cuda_ms(lambda: minplus_vecmat(dt, Wl), 200, 10)
-    bt, byt, nbt, _ = dense_bound(dt, Wl, False)
-    log("times", f"B5 f64 one Table VII layer dist {tuple(dt.shape)} W "
-        f"{tuple(Wl.shape)} shared: kernel {ms_t:.4f} ms, bound {bt:.6f} ms "
-        f"by {byt} ({nbt} B)")
-    return rows, (ms_t, bt)
+    at_path = None
+    for gamma in (10, 25):
+        fg = build_feasible_graphs(build_extended_graphs(
+            [nw], [pf], [req], device=dev), gamma)[0]
+        Wt = fg.layer_matrices()
+        dt = bf.layered_relax(fg.init_vector(), Wt)[-2][None].contiguous()
+        Wl = Wt[-1].contiguous()
+        S = Wl.shape[0]
+        for dtype in (torch.float64, torch.float32):
+            dx, Wx = dt.to(dtype), Wl.to(dtype)
+            ev = cuda_ms(lambda: minplus_vecmat(dx, Wx), 200, 10)
+            ms = graph_ms(lambda: minplus_vecmat(dx, Wx), 50) or ev
+            plain = graph_ms(lambda: minplus_ref(dx, Wx), 20) or \
+                cuda_ms(lambda: minplus_ref(dx, Wx), 50, 5)
+            bt, byt, nbt, _ = dense_bound(dx, Wx, False)
+            log("times", f"B5 {str(dtype)[6:]} Table VII gamma={gamma} last "
+                f"layer dist {tuple(dx.shape)} W {tuple(Wx.shape)} shared "
+                f"({int(torch.isfinite(dx).sum())} of {S} states reached; "
+                f"{_plan_note('dense', 1, S, S, False)}): device ms a call "
+                f"(CUDA graph of 50 calls) {ms:.4f}, CUDA-event mean "
+                f"{ev:.4f}, plain {plain:.4f}, bound {bt:.6f} ms by {byt} "
+                f"({nbt} B)")
+            if gamma == GAMMA and dtype == torch.float64:
+                at_path = (ms, bt)
+    return rows, at_path
 
 
 def phase_kernel_times(grid, dev, err):
@@ -1256,15 +1378,59 @@ def _rel_err(a, b) -> float:
     return float(((a.double() - b.double()).abs() / b.double().abs()).max())
 
 
+def gate_rows(B, V, P, seed):
+    """Seeded logits for the split gate with first-max ties on both sides
+    of the first slice boundary (row 0), at that boundary and the row's end
+    (row 1), across every boundary (row 2), and an all -inf last row; with
+    the argmax each of those rows must give."""
+    import numpy as np
+    from repro_torch.kernels.ee_gate.ops import gate_slices
+    x = np.random.default_rng(seed).normal(size=(B, V)) * 4
+    cuts = [lo for lo, hi in gate_slices(V, P) if lo < hi][1:] or [V // 2]
+    want = {}
+    if B >= 3:
+        x[0, [cuts[0] - 1, cuts[0]]] = 40.0
+        x[1, [cuts[0], V - 1]] = 40.0
+        for c in cuts:
+            x[2, [c - 1, c]] = 50.0
+        want = {0: cuts[0] - 1, 1: cuts[0], 2: cuts[0] - 1}
+    x[B - 1] = -np.inf
+    want[B - 1] = 0
+    return x, want
+
+
 def phase_kernels_serve(dev):
-    """B6 and B7 against their plain versions on the card, f32 and bf16."""
+    """B6 and B7 against their plain versions on the card, f32 and bf16;
+    B6 also on the split cases (ties across slice boundaries, all -inf
+    rows), with the same bits on a repeat call."""
     import numpy as np
     import torch
     from repro_torch.kernels.decode_attn.ops import decode_attn
     from repro_torch.kernels.decode_attn.ref import decode_attn_ref
-    from repro_torch.kernels.ee_gate.ops import ee_gate
+    from repro_torch.kernels._build import sm_count
+    from repro_torch.kernels.ee_gate.ops import ee_gate, gate_plan
     from repro_torch.kernels.ee_gate.ref import ee_gate_ref
     err = {"ee_gate": 0.0, "decode_attn": 0.0}
+
+    def check_gate(x, tag, want):
+        conf, arg = ee_gate(x)
+        again = ee_gate(x)
+        conf_p, arg_p = ee_gate_ref(x)
+        torch.cuda.synchronize()
+        rel = _rel_err(conf, conf_p)
+        check(rel <= 1e-5, f"{tag}: conf off by {rel:.3g} relative "
+              f"(> 1e-5)")
+        check(torch.equal(arg, arg_p), f"{tag}: argmax differs")
+        check(torch.equal(conf, again[0]) and torch.equal(arg, again[1]),
+              f"{tag}: a repeat call gave other bits")
+        check(all(int(arg[r]) == a for r, a in want.items()),
+              f"{tag}: a tie across a slice boundary lost its first index")
+        if want:
+            check(abs(float(conf[-1]) * x.shape[1] - 1) <= 1e-6,
+                  f"{tag}: an all -inf row is not 1/V")
+        err["ee_gate"] = max(err["ee_gate"], max_abs_err(conf, conf_p))
+        log("kernels_serve", f"{tag}: conf within {rel:.3g} relative, "
+            f"argmax equal, the same bits on a repeat call")
     for B, V in GATE_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
             for tail in (0, min(VOCAB_TAIL, V // 4)):
@@ -1272,18 +1438,13 @@ def phase_kernels_serve(dev):
                 x[:, V - tail:] = -np.inf
                 x = torch.as_tensor(x, dtype=torch.float32,
                                     device=dev).to(dtype)
-                conf, arg = ee_gate(x)
-                conf_p, arg_p = ee_gate_ref(x)
-                torch.cuda.synchronize()
-                rel = _rel_err(conf, conf_p)
-                tag = f"B6 {(B, V)} {dtype} tail={tail}"
-                check(rel <= 1e-5, f"{tag}: conf off by {rel:.3g} relative "
-                      f"(> 1e-5)")
-                check(torch.equal(arg, arg_p), f"{tag}: argmax differs")
-                err["ee_gate"] = max(err["ee_gate"],
-                                     max_abs_err(conf, conf_p))
-                log("kernels_serve", f"{tag}: conf within {rel:.3g} "
-                    f"relative, argmax equal")
+                check_gate(x, f"B6 {(B, V)} {dtype} tail={tail}", {})
+    for B, V in GATE_SPLIT_SHAPES:
+        P = gate_plan(B, V, sm_count(dev))
+        for dtype in (torch.float32, torch.bfloat16):
+            x, want = gate_rows(B, V, P, B + V)
+            x = torch.as_tensor(x, dtype=torch.float32, device=dev).to(dtype)
+            check_gate(x, f"B6 split {(B, V)} {dtype} P={P}", want)
     cases = ([(s, 0, "tail") for s in ATTN_SHAPES]
              + [((1, 4, 2, 32, 256), w, "tail") for w in (16, 64)]
              + [(s, 0, m) for s, m in ATTN_MASK_CASES])
@@ -1600,47 +1761,73 @@ def phase_serve_parity(dev):
     del params, cpu, caches
 
 
-def serve_times(params, cfg, dev, err):
-    """B6 and B7 at the serving path's shapes: CUDA-event means against the
-    bound, the plain version and one library call."""
+def gate_times(dev, err):
+    """B6 at the serving shape, [4, 153,600] with the qwen3-4b -inf vocab
+    tail, on seeded logits in float32 and bf16: device ms a call from
+    CUDA-graph replays against the bound, the plain version and
+    softmax(x).max(-1), beside CUDA-event means.  Returns the kernels-line
+    row of the float32 gate (the serving path's head dtype)."""
+    import numpy as np
     import torch
-    import torch.nn.functional as F
-    from repro_torch.kernels.decode_attn.ops import decode_attn
-    from repro_torch.kernels.decode_attn.ref import decode_attn_ref
     from repro_torch.kernels.ee_gate.ops import ee_gate
     from repro_torch.kernels.ee_gate.ref import ee_gate_ref
-    from repro_torch.models.layers import lm_head_apply
-    rows = []
-    # B6 on the final head's logits: [B, V_pad] float32 with the -inf tail
-    g = torch.Generator(device=dev).manual_seed(3)
-    h = torch.randn(SERVE_BATCH, cfg.d_model, generator=g, device=dev).to(
-        params["lm_head"]["w"].dtype)
-    x = lm_head_apply(params["lm_head"], h, cfg.vocab_size).contiguous()
-    ev = cuda_ms(lambda: ee_gate(x), 200, 10)
-    ms = graph_ms(lambda: ee_gate(x), 50) or ev
-    plain = graph_ms(lambda: ee_gate_ref(x), 20) or \
-        cuda_ms(lambda: ee_gate_ref(x), 50, 5)
-    lib = graph_ms(lambda: torch.softmax(x, -1).max(-1), 20) or \
-        cuda_ms(lambda: torch.softmax(x, -1).max(-1), 50, 5)
+    B, V = SERVE_BATCH, 153600
+    logits = np.random.default_rng(3).normal(size=(B, V)) * 4
+    logits[:, V - VOCAB_TAIL:] = -np.inf
+    row = None
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.as_tensor(logits, dtype=torch.float32, device=dev).to(dtype)
+        ev = cuda_ms(lambda: ee_gate(x), 200, 10)
+        ms = graph_ms(lambda: ee_gate(x), 50) or ev
+        plain = graph_ms(lambda: ee_gate_ref(x), 20) or \
+            cuda_ms(lambda: ee_gate_ref(x), 50, 5)
+        lib = graph_ms(lambda: torch.softmax(x, -1).max(-1), 20) or \
+            cuda_ms(lambda: torch.softmax(x, -1).max(-1), 50, 5)
+        nbytes = x.numel() * x.element_size() + B * 8
+        ops = 4 * x.numel()          # clamp, subtract, exp, add per element
+        t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS_PER_S["float32"]
+        bound = max(t_b, t_o) * 1e3
+        by = "bytes" if t_b >= t_o else "operations"
+        note = _plan_note("gate", B, V)
+        log("times", f"B6 {str(dtype)[6:]} {(B, V)} ({note}): device ms "
+            f"a call (CUDA graph of 50 calls, plain and library 20) kernel "
+            f"{ms:.4f}, plain {plain:.4f}, library softmax(x).max(-1), two "
+            f"calls, {lib:.4f} | CUDA-event mean of "
+            f"back-to-back calls (host launch cost included): kernel {ev:.4f}"
+            f" | bound {bound:.6f} ms by {by} ({nbytes} B, {ops} ops, "
+            f"{nbytes / (ms * 1e-3) / 1e9:.1f} GB/s achieved, "
+            f"{bound / ms:.1%} of the bound)")
+        if dtype == torch.float32:
+            row = dict(name="ee_gate", route="cuda", source=GATE_SOURCE,
+                       replaces="src/repro/kernels/ee_gate/ee_gate.py:60",
+                       launches=None, max_abs_err=err, ms=ms, plain_ms=plain,
+                       bound_ms=bound, bound_by=by, library_ms=lib)
+            gate_split_sweep(x, dev)
+    return row
+
+
+def gate_split_sweep(x, dev):
+    """B6 on ``x`` with each split P (the C entry point called directly):
+    the measurement behind gate_plan's block target.  Skipped for a
+    checkout whose gate takes no split."""
+    import torch
+    try:
+        from repro_torch.kernels.ee_gate.ops import GATE_MAX_SPLIT
+    except ImportError:
+        return
+    from repro_torch.kernels._build import launch
     B, V = x.shape
-    nbytes = x.numel() * 4 + B * 8
-    ops = 4 * x.numel()          # clamp, subtract, exp, add per element
-    t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS_PER_S["float32"]
-    bound, by = max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
-    log("times", f"B6 f32 {(B, V)}: device ms a call (CUDA graph of 50 or "
-        f"20 calls): "
-        f"kernel {ms:.4f}, plain {plain:.4f}, library softmax(x).max(-1), "
-        f"two calls, {lib:.4f} | CUDA-event mean of back-to-back calls "
-        f"(host launch cost included): kernel {ev:.4f} | bound {bound:.6f} "
-        f"ms by {by} ({nbytes} B, {ops} ops, {nbytes / (ms * 1e-3) / 1e9:.1f}"
-        f" GB/s achieved)")
-    rows.append(dict(name="ee_gate", route="cuda", source=GATE_SOURCE,
-                     replaces="src/repro/kernels/ee_gate/ee_gate.py:60",
-                     launches=None, max_abs_err=err["ee_gate"], ms=ms,
-                     plain_ms=plain, bound_ms=bound, bound_by=by,
-                     library_ms=lib))
-    rows.append(attn_times(cfg, dev, err["decode_attn"]))
-    return rows
+    conf = torch.empty(B, dtype=torch.float32, device=dev)
+    arg = torch.empty(B, dtype=torch.int32, device=dev)
+    cols = []
+    for P in (1, 4, 8, 16, 33, 66, 132, GATE_MAX_SPLIT):
+        ms = graph_ms(lambda: launch("ee_gate_f32", dev, x.data_ptr(),
+                                     conf.data_ptr(), arg.data_ptr(), B, V,
+                                     P), 50)
+        cols.append(f"P = {P} ({B * P} blocks) "
+                    + ("not measured" if ms is None else f"{ms:.4f} ms"))
+    log("times", f"B6 f32 {(B, V)} by blocks a row, device ms a call (CUDA "
+        f"graph of 50 calls): " + ", ".join(cols))
 
 
 def ptxas_usage(fragment):
@@ -1784,12 +1971,21 @@ def attn_split_sweep(B, H, KV, D, dev, g):
         torch.cuda.empty_cache()
 
 
-def times_only(dev) -> None:
-    """``--times``: the B4 / B5 and B7 timings alone, for comparing two
-    checkouts in one call on one card."""
-    dense_times(full_grid(), dev, {"minplus_vecmat": None,
-                                   "minplus_vecmat_argmin": None})
-    attn_times(_serve_cfg(), dev, None)
+TIMES = ("dense", "gate", "attn", "plan")
+
+
+def times_only(dev, which, counters) -> None:
+    """``--times``: the named timings alone (all without a name), for
+    comparing two checkouts in one call on one card."""
+    if "dense" in which:
+        dense_times(full_grid(), dev, {"minplus_vecmat": None,
+                                       "minplus_vecmat_argmin": None})
+    if "gate" in which:
+        gate_times(dev, None)
+    if "attn" in which:
+        attn_times(_serve_cfg(), dev, None)
+    if "plan" in which:
+        plan_times(dev, counters)
 
 
 def main(argv) -> int:
@@ -1811,13 +2007,13 @@ def main(argv) -> int:
                 banded_minplus_chain_kbest, minplus_vecmat,
                 minplus_vecmat_argmin, ee_gate, decode_attn)
 
-    if argv not in ([], ["--times"]):
-        print(f"usage: python3 chip_smoke.py [--times]; got {argv}",
-              file=sys.stderr)
+    if argv and (argv[0] != "--times" or not set(argv[1:]) <= set(TIMES)):
+        print(f"usage: python3 chip_smoke.py [--times [{'] ['.join(TIMES)}]]"
+              f"; got {argv}", file=sys.stderr)
         return 2
     phase_environment()
-    if argv == ["--times"]:
-        times_only(dev)
+    if argv:
+        times_only(dev, argv[1:] or TIMES, counters)
         return 0
     err = phase_kernels(dev)
     err.update(phase_kernels_dense(dev))
@@ -1849,7 +2045,8 @@ def main(argv) -> int:
     rows += dense_rows
     err_serve = phase_kernels_serve(dev)
     params, cfg, launches_s, serve = phase_serve(dev, counters)
-    serve_rows = serve_times(params, cfg, dev, err_serve)
+    serve_rows = [gate_times(dev, err_serve["ee_gate"]),
+                  attn_times(cfg, dev, err_serve["decode_attn"])]
     for row in serve_rows:
         row["launches"] = launches_s[row["name"]]
         check(row["launches"] > 0, f"{row['name']}: no launch on its path")
@@ -1863,8 +2060,9 @@ def main(argv) -> int:
     order = sorted(((r["launches"] * (at_path[r["name"]][0]
                                       - at_path[r["name"]][1]), r["name"])
                     for r in rows), reverse=True)
-    log("order", "launches x (time - bound) on each kernel's path (B5 at a "
-        "Table VII layer, the others at their [times] shape): "
+    log("order", "launches x (time - bound) on each kernel's path (B5 at the "
+        "gamma-25 Table VII layer, CUDA-graph time; the others at their "
+        "[times] shape): "
         + ", ".join(f"{n} {v:.4f} ms" for v, n in order)
         + "; B4's whole device time on [solve_many_dense] (torch.profiler): "
         + ("not measured" if b4_path_ms is None else f"{b4_path_ms:.4f} ms"))

@@ -9,11 +9,17 @@
   fin / mcp / optimum -- the three solvers compared in Sec. V
   frontier       -- the Pareto frontier behind the FIN argmin (host code)
   plan           -- the persistent plan IR: typed deltas, warm re-solves
+  scenarios      -- the paper's evaluation scenarios and churn traces
+  contingency    -- precomputed-failover library (O(1) failure masks)
 """
+from .contingency import (ContingencyEntry, ContingencyLibrary,
+                          ContingencyPolicy, ContingencyStats,
+                          NoFeasiblePlacement, candidate_masks,
+                          tier_groups_of)
 from .dnn_profile import (BITS_PER_FEATURE, DNNProfile, ExitSpec,
                           all_paper_apps, paper_profile, synthetic_profile)
 from .extended_graph import (ExtendedGraph, build_extended_graph,
-                             build_extended_graphs)
+                             build_extended_graphs, to_networkx)
 from .feasible_graph import (FeasibleGraph, build_feasible_graph,
                              build_feasible_graphs)
 from .fin import fin_all_exit_costs, solve_fin, solve_many
@@ -25,20 +31,26 @@ from .plan import (Plan, PlanStats, migration_delta, solve_plans,
                    update_uplinks)
 from .problem import (AppRequirements, Config, ConfigEval, Solution,
                       evaluate_config)
-from .scenarios import paper_scenario, sweep_scenarios
-from .system_model import (PAPER_TIERS, Network, NodeSpec, make_network,
-                           make_node)
+from .scenarios import (ChurnEvent, churn_trace, paper_apps, paper_scenario,
+                        sweep_scenarios)
+from .system_model import (PAPER_TIERS, TPU_TIERS, Network, NodeSpec,
+                           make_network, make_node)
 
 __all__ = [
     "NodeSpec", "Network", "make_node", "make_network", "PAPER_TIERS",
-    "DNNProfile", "ExitSpec", "paper_profile", "all_paper_apps",
+    "TPU_TIERS", "DNNProfile", "ExitSpec", "paper_profile", "all_paper_apps",
     "synthetic_profile", "BITS_PER_FEATURE", "AppRequirements", "Config",
     "ConfigEval", "Solution", "evaluate_config", "ExtendedGraph",
-    "build_extended_graph", "build_extended_graphs", "FeasibleGraph",
+    "build_extended_graph", "build_extended_graphs", "to_networkx",
+    "FeasibleGraph",
     "build_feasible_graph", "build_feasible_graphs", "solve_fin",
     "solve_many", "fin_all_exit_costs",
     "FrontierRow", "ParetoFrontier", "brute_force_frontier",
     "frontier_from_rows", "pareto_mask",
     "Plan", "PlanStats", "solve_plans", "update_uplinks", "migration_delta",
     "solve_mcp", "solve_opt", "paper_scenario", "sweep_scenarios",
+    "paper_apps", "ChurnEvent", "churn_trace",
+    "ContingencyEntry", "ContingencyLibrary", "ContingencyPolicy",
+    "ContingencyStats", "NoFeasiblePlacement", "candidate_masks",
+    "tier_groups_of",
 ]

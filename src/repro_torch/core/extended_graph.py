@@ -201,3 +201,29 @@ def build_extended_graphs(networks: Sequence[Network],
             for b in unique[key]:
                 out[b] = ext
     return out
+
+
+def to_networkx(g: ExtendedGraph):
+    """The extended graph as a networkx DiGraph (cross-validation of the DP
+    against Dijkstra): a ``"src"`` vertex, a vertex ``(block, node)`` per
+    state, and each admissible edge with its ``energy`` and ``latency``.
+    networkx is imported here, not with the module."""
+    import networkx as nx
+
+    init_mask, init_E, init_T = (t.cpu().numpy() for t in
+                                 (g.init_mask, g.init_E, g.init_T))
+    mask, E, TT = (t.cpu().numpy() for t in (g.mask, g.E, g.TT))
+    G = nx.DiGraph()
+    G.add_node("src")
+    N, L = g.n_nodes, g.n_blocks
+    for n in range(N):
+        if init_mask[n]:
+            G.add_edge("src", (0, n), energy=float(init_E[n]),
+                       latency=float(init_T[n]))
+    for i in range(L - 1):
+        for n in range(N):
+            for n2 in range(N):
+                if mask[i, n, n2]:
+                    G.add_edge((i, n), (i + 1, n2), energy=float(E[i, n, n2]),
+                               latency=float(TT[i, n, n2]))
+    return G

@@ -52,6 +52,11 @@ def paper_scenario(*, uplink_bps: float = MOBILE_UPLINK_BPS,
                    source_node=0)
 
 
+def paper_apps() -> Dict[str, DNNProfile]:
+    """The paper's six applications h1-h6 by name."""
+    return all_paper_apps()
+
+
 def sweep_scenarios(*, apps: Sequence[str] = ("h1", "h2", "h3", "h4", "h5",
                                               "h6"),
                     deltas_ms: Sequence[float] = (2.0, 5.0, 8.0, 12.0),
@@ -67,7 +72,7 @@ def sweep_scenarios(*, apps: Sequence[str] = ("h1", "h2", "h3", "h4", "h5",
     exit accuracy).  Networks are shared across scenarios per uplink
     setting, which lets the batched solver dedupe the extended graphs.
     """
-    profiles = all_paper_apps()
+    profiles = paper_apps()
     nets = {u: paper_scenario(uplink_bps=u, n_extra_edge=n_extra_edge)
             for u in uplinks_bps}
     ps: List[DNNProfile] = []

@@ -40,6 +40,19 @@ PAPER_TIERS: Dict[str, Dict[str, float]] = {
 # compute-engine max power as the active compute power P(n) in Eq. (2).
 PAPER_COMPUTE_POWER = {"mobile": 6.0, "edge": 140.0, "cloud": 400.0}
 
+#: The reference's tier profiles for beyond-paper experiments (an "edge"
+#: v5e-class accelerator, a pod slice and a full pod), copied as data: a
+#: modelled node profile for ``make_network(profiles=...)``, not a
+#: measurement of any card.
+TPU_TIERS: Dict[str, Dict[str, float]] = {
+    "edge-tpu": dict(tops=197.0e0, power_max=250.0, power_idle=60.0,
+                     link_gbps=400.0, e_bit_nj=20.0),
+    "pod-slice": dict(tops=197.0 * 16, power_max=250.0 * 16,
+                      power_idle=60.0 * 16, link_gbps=1600.0, e_bit_nj=15.0),
+    "pod": dict(tops=197.0 * 256, power_max=250.0 * 256,
+                power_idle=60.0 * 256, link_gbps=6400.0, e_bit_nj=10.0),
+}
+
 
 @dataclass(frozen=True)
 class NodeSpec:

@@ -11,6 +11,7 @@ the build.  Nothing is built or imported when this module is imported.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -52,14 +53,14 @@ SOURCES: Tuple[Source, ...] = (
     Source(Path("minplus/csrc/banded_minplus_kbest.cu"), EXACT_FLAGS,
            {name: [_PTR] * 6 + [_INT] * 6 + [_PTR]
             for name in ("banded_chain_kbest_f64", "banded_chain_kbest_f32")}),
-    # dist, W, out, arg | B, S, T, W's batch stride | stream
+    # dist, W, out, arg | B, S, T, W's batch stride, per, Q | stream
     Source(Path("minplus/csrc/minplus_dense.cu"), EXACT_FLAGS,
-           {name: [_PTR] * 4 + [_INT] * 4 + [_PTR]
+           {name: [_PTR] * 4 + [_INT] * 6 + [_PTR]
             for name in ("minplus_f64", "minplus_f32", "minplus_argmin_f64",
                          "minplus_argmin_f32")}),
-    # logits, conf, arg | B, V | stream
+    # logits, conf, arg | B, V, P | stream
     Source(Path("ee_gate/csrc/ee_gate.cu"), (),
-           {name: [_PTR] * 3 + [_INT] * 2 + [_PTR]
+           {name: [_PTR] * 3 + [_INT] * 3 + [_PTR]
             for name in ("ee_gate_f32", "ee_gate_bf16")}),
     # q, k, v, cache_pos, out | B, T, H, KV, D, pos, window, P | stream
     Source(Path("decode_attn/csrc/decode_attn.cu"), (),
@@ -155,6 +156,13 @@ def load_library() -> KernelLibrary:
     _LIBRARY = KernelLibrary(libs=libs, paths=outs, build_seconds=seconds,
                              log=log)
     return _LIBRARY
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device (132 on an H100 SXM):
+    the split plans of the dense product and the exit gate aim at it."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def launch(name: str, device, *args) -> None:

@@ -14,7 +14,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from .._build import launch as _launch
+from .._build import launch as _launch, sm_count
 from .ref import (banded_minplus_chain_kbest_ref, banded_minplus_chain_ref,
                   banded_minplus_ref, minplus_argmin_ref, minplus_ref)
 
@@ -180,16 +180,47 @@ banded_minplus_chain_kbest.launches = 0
 # ---------------------------------------------------------------------------
 
 _INT32_MAX = 2 ** 31 - 1
-#: targets a B5 launch takes: 128 a block along a grid axis of 65,535.  B4
-#: covers every target of its rows inside one block (a loop over passes),
-#: so only the int32 bound on S*T limits its T.
-MAX_DENSE_TARGETS = 128 * 65535
+#: rows a block of the dense kernel takes when W is shared (each W load
+#: serves them all), targets a block at most, source slices of a tile at
+#: most (the cluster size; above 8 it is Hopper's non-portable size), and
+#: the fewest sources a slice of its own is worth
+DENSE_SHARED_ROWS = 8
+DENSE_MAX_THREADS = 256
+DENSE_MAX_CLUSTER = 16
+DENSE_MIN_SLICE = 8
 
 
-def _check_dense_inputs(dist: torch.Tensor, W: torch.Tensor,
-                        argmin: bool = False) -> Tuple[int, int, int, int]:
-    """(B, S, T, W's batch stride in elements) of a dense launch of B4
-    (``argmin``) or B5; raises on what the kernel does not take."""
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def dense_plan(B: int, S: int, T: int, shared: bool, n_sm: int = 132
+               ) -> Tuple[int, int]:
+    """(per, Q) of a dense (min,+) launch: ``per`` targets a block and
+    ``Q`` source slices a target tile, merged over a thread-block cluster.
+
+    A batch that gives every SM a block of (row group, tile of up to 256
+    targets) takes the whole source range in one block (Q = 1).  A smaller
+    one (a Table VII layer has B = 1) gets one-warp target tiles and its
+    sources split into Q contiguous slices, so that tiles x Q covers the
+    SMs and a slice fits the block's one-warp chunk where the cluster
+    allows it, with at least ``DENSE_MIN_SLICE`` sources a slice and no
+    empty slice.
+    """
+    groups = _cdiv(B, DENSE_SHARED_ROWS if shared else 1)
+    tiles = _cdiv(T, DENSE_MAX_THREADS)
+    if groups * tiles >= n_sm:
+        return _cdiv(T, tiles), 1
+    tiles = _cdiv(T, 32)
+    Q = max(1, min(DENSE_MAX_CLUSTER, _cdiv(S, DENSE_MIN_SLICE),
+                   max(_cdiv(n_sm, groups * tiles), _cdiv(S, 32))))
+    return _cdiv(T, tiles), _cdiv(S, _cdiv(S, Q))
+
+
+def _check_dense_inputs(dist: torch.Tensor, W: torch.Tensor
+                        ) -> Tuple[int, int, int, int]:
+    """(B, S, T, W's batch stride in elements) of a dense launch of B4 or
+    B5; raises on what the kernel does not take."""
     if dist.dim() != 2 or W.dim() not in (2, 3):
         raise ValueError(f"expected dist [B, S] and W [S, T] or [B, S, T], "
                          f"got {tuple(dist.shape)}, {tuple(W.shape)}")
@@ -211,27 +242,26 @@ def _check_dense_inputs(dist: torch.Tensor, W: torch.Tensor,
     if S < 1:
         raise ValueError("the dense (min,+) product needs S >= 1")
     stride = W.stride(0) if W.dim() == 3 and B > 1 else 0
-    if max(B, S * T, stride) > _INT32_MAX:
-        raise ValueError(f"B={B}, S*T={S * T} or batch stride {stride} "
-                         f"exceed the kernel's int32 sizes")
-    if not argmin and T > MAX_DENSE_TARGETS:
-        raise ValueError(f"T={T} exceeds the {MAX_DENSE_TARGETS} targets of "
-                         f"the min-only kernel's grid")
+    if max(B, S * T, stride, B * _cdiv(T, DENSE_MAX_THREADS)) > _INT32_MAX:
+        raise ValueError(f"B={B}, S*T={S * T}, batch stride {stride} or the "
+                         f"blocks of B x T exceed the kernel's int32 sizes")
     return B, S, T, stride
 
 
 def _launch_dense(dist: torch.Tensor, W: torch.Tensor, argmin: bool
                   ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    B, S, T, stride = _check_dense_inputs(dist, W, argmin)
+    B, S, T, stride = _check_dense_inputs(dist, W)
     out = torch.empty((B, T), dtype=dist.dtype, device=dist.device)
     arg = (torch.empty((B, T), dtype=torch.int32, device=dist.device)
            if argmin else None)
     if B and T:
+        per, Q = dense_plan(B, S, T, stride == 0 and B > 1,
+                            sm_count(dist.device))
         name = ("minplus_argmin" if argmin else "minplus") + (
             "_f64" if dist.dtype == torch.float64 else "_f32")
         _launch(name, dist.device, dist.data_ptr(), W.data_ptr(),
                 out.data_ptr(), 0 if arg is None else arg.data_ptr(), B, S,
-                T, stride)
+                T, stride, per, Q)
     return out, arg
 
 
@@ -279,7 +309,7 @@ def minplus_vecmat_argmin(dist: torch.Tensor, W: torch.Tensor
     attains the min, -1 where no finite candidate reaches t.
     """
     if _dense_device(dist) == "cpu":
-        _check_dense_inputs(dist, W, argmin=True)
+        _check_dense_inputs(dist, W)
         return minplus_argmin_ref(dist, W)
     out, arg = _launch_dense(dist, W, argmin=True)
     if out.numel():

@@ -33,7 +33,8 @@ from repro_torch.core.bellman_ford import kernel_inputs
 from repro_torch.kernels.decode_attn.ops import (decode_attn, split_plan,
                                                  split_ranges)
 from repro_torch.kernels.decode_attn.ref import decode_attn_ref
-from repro_torch.kernels.ee_gate.ops import ee_gate
+from repro_torch.kernels._build import sm_count
+from repro_torch.kernels.ee_gate.ops import ee_gate, gate_plan, gate_slices
 from repro_torch.kernels.ee_gate.ref import ee_gate_ref
 from repro_torch.kernels.minplus import ops
 from repro_torch.kernels.minplus.ops import (banded_minplus_argmin,
@@ -242,6 +243,50 @@ def test_ee_gate_kernel_ties_keep_the_first_index(cuda_device):
     assert float(conf[2]) == 1 / 4096
 
 
+def _gate_rows(B, V, P, seed):
+    """Rows for the split gate: seeded logits with first-max ties on both
+    sides of the first slice boundary (row 0), at that boundary and the
+    row's end (row 1), across every boundary (row 2), and an all -inf row
+    (the last); the other rows are plain."""
+    x = np.random.default_rng(seed).normal(size=(B, V)) * 4
+    cuts = [lo for lo, hi in gate_slices(V, P) if lo < hi][1:] or [V // 2]
+    want = {}
+    if B >= 3:
+        x[0, [cuts[0] - 1, cuts[0]]] = 40.0
+        x[1, [cuts[0], V - 1]] = 40.0
+        for c in cuts:
+            x[2, [c - 1, c]] = 50.0
+        want = {0: cuts[0] - 1, 1: cuts[0], 2: cuts[0] - 1}
+    x[B - 1] = -np.inf
+    want[B - 1] = 0
+    return x, want
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,V", [(4, 153600), (3, 4097), (1, 4097),
+                                 (3, 2047), (3, 2048), (3, 2049), (4, 5000),
+                                 (200, 4097), (3, 9)])
+def test_ee_gate_split_kernel_on_card(cuda_device, B, V, dtype):
+    """The redesigned B6 splits a row over P blocks (gate_plan): V below,
+    at and above one block's 2,048 elements, V = 4097 (rows not 16-byte
+    aligned), B above the SM count (P = 1); ties on both sides of a slice
+    boundary keep the lower index, an all -inf row gives conf 1/V and
+    index 0; conf within 1e-5 relative of the plain version, the argmax
+    exact, and a repeat call gives the same bits."""
+    P = gate_plan(B, V, sm_count(cuda_device))
+    x, want = _gate_rows(B, V, P, B + V)
+    x = torch.as_tensor(x, dtype=torch.float32, device=cuda_device).to(dtype)
+    conf, arg = ee_gate(x)
+    again = ee_gate(x)
+    conf_p, arg_p = ee_gate_ref(x)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(conf, conf_p, rtol=1e-5, atol=0)
+    assert torch.equal(arg, arg_p)
+    assert torch.equal(conf, again[0]) and torch.equal(arg, again[1])
+    assert all(int(arg[r]) == a for r, a in want.items())
+    assert float(conf[B - 1]) == pytest.approx(1 / V, rel=1e-6)
+
+
 def _attn_inputs(B, H, KV, D, T, dtype, device, seed):
     rng = np.random.default_rng(seed)
     return [torch.as_tensor(rng.normal(size=s), dtype=torch.float32,
@@ -424,8 +469,8 @@ def test_dense_kernels_bit_equal_on_sparse_dists_on_card(cuda_device, B, S, T,
                                                          dtype, per_row):
     """B4 walks only the sources some row reaches: rows with no finite
     source, with the last only, with -inf / NaN entries, and ties between
-    a skipped and a kept source stay bit-equal (T = 1100 takes three
-    passes over the targets)."""
+    a skipped and a kept source stay bit-equal (T = 1100 takes five
+    target tiles)."""
     d, W = _sparse_dense_problem(B, S, T, B + S + T, dtype, cuda_device,
                                  per_row)
     arg = _dense_bit_equal(d, W)
@@ -441,6 +486,49 @@ def test_dense_kernels_bit_equal_to_plain_on_card(cuda_device, B, S, T, dtype,
                                                   per_row):
     d, W = _dense_problem(B, S, T, B + S + T, dtype, cuda_device, per_row)
     _dense_bit_equal(d, W)
+
+
+def _one_scenario_dist(S, seed, case):
+    """A B = 1 dist as a Table VII layer gives it (about 10% reached), or:
+    "first_slice_dead" (no live source in the first slice of the plan),
+    "last_only" (only the last source live), "nonfinite" (-inf and NaN
+    entries beside the finite ones)."""
+    rng = np.random.default_rng(seed)
+    dist = rng.uniform(0, 10, (1, S))
+    dist[rng.uniform(size=dist.shape) < 0.9] = np.inf
+    _, Q = ops.dense_plan(1, S, S, False, 132)
+    if case == "first_slice_dead":
+        dist[0, :-(-S // Q)] = np.inf
+    elif case == "last_only":
+        dist[:] = np.inf
+        dist[0, -1] = 1.0
+    elif case == "nonfinite":
+        dist[0, ::5] = -np.inf
+        dist[0, 1::7] = np.nan
+    return dist
+
+
+@pytest.mark.parametrize("case", ["layer", "first_slice_dead", "last_only",
+                                  "nonfinite"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("S", [165, 390, 397])
+def test_dense_kernels_at_one_scenario_on_card(cuda_device, S, dtype, case):
+    """B5 (and B4) at B = 1 and the Table VII layer shapes S = T = 165 and
+    390 (and 397, not a multiple of a source slice): the sources split over
+    a cluster and merged in slice order stay bit-equal to the plain
+    version, with a slice of no live source, only the last source live,
+    and -inf / NaN dists."""
+    d = torch.as_tensor(_one_scenario_dist(S, S, case), device=cuda_device)
+    W = torch.as_tensor(_dense_problem(1, S, S, S + 1, torch.float64, "cpu",
+                                     False)[1].numpy(), device=cuda_device)
+    d, W = d.to(dtype), W.to(dtype)
+    per, Q = ops.dense_plan(1, S, S, False, sm_count(cuda_device))
+    assert Q > 1
+    arg = _dense_bit_equal(d, W)
+    again = minplus_vecmat(d, W)
+    assert torch.equal(again, minplus_ref(d, W))
+    if case == "last_only":
+        assert set(arg[0].unique().tolist()) <= {-1, S - 1}
 
 
 def test_dense_kernel_reads_a_layer_of_a_stack_in_place(cuda_device):

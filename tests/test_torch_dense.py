@@ -141,6 +141,62 @@ def test_minplus_wrappers_raise_on_bad_inputs():
                                                      dtype=torch.float64))
 
 
+@pytest.mark.parametrize("B,S,T,shared", [(1, 165, 165, False),
+                                          (1, 390, 390, False),
+                                          (20480, 130, 130, False),
+                                          (16, 300, 129, True),
+                                          (64, 130, 130, True),
+                                          (2, 1, 257, True),
+                                          (4, 390, 390, True)])
+def test_dense_plan_covers_the_sms(B, S, T, shared):
+    """B5 / B4's launch plan: a Table VII layer (B = 1, S = T = 165 and
+    390) covers at least half of the 132 SMs through source slices merged
+    over a cluster of at most 16; a large batch keeps one block per (row
+    group, target tile) and the whole source range (Q = 1: 160 threads a
+    row at 20,480 x 130 x 130); no slice is empty."""
+    per, Q = ops.dense_plan(B, S, T, shared, 132)
+    tiles = -(-T // per)
+    groups = -(-B // (ops.DENSE_SHARED_ROWS if shared else 1))
+    assert 1 <= per <= ops.DENSE_MAX_THREADS and 1 <= Q <= 16
+    slice_ = -(-S // Q)
+    assert (Q - 1) * slice_ < S
+    if B == 1:
+        assert groups * tiles * Q >= 66
+    if B == 20480:
+        assert (per, Q) == (130, 1)
+
+
+@pytest.mark.parametrize("per_row", [False, True])
+@pytest.mark.parametrize("B,S,T", [(1, 165, 165), (1, 390, 390),
+                                   (4, 37, 65)])
+def test_sliced_minplus_fold_equals_the_unsplit_product(B, S, T, per_row):
+    """The kernel's split on the CPU: the plain product of each of the
+    plan's source slices, folded in ascending slice order with a strict <,
+    gives the unsplit values and first argmins bit for bit, with a tie
+    between the last source of one slice and the first of the next."""
+    _, Q = ops.dense_plan(B, S, T, not per_row and B > 1, 132)
+    step = -(-S // Q)
+    rng = np.random.default_rng(S + T)
+    dist = rng.uniform(0, 10, (B, S))
+    dist[rng.uniform(size=dist.shape) < 0.9] = np.inf
+    dist[:, [step - 1, step]] = 0.5        # kept on both sides of a cut
+    W = _tied_w((B, S, T) if per_row else (S, T), S * T)
+    W[..., step, :] = W[..., step - 1, :]
+    dist, W = torch.as_tensor(dist), torch.as_tensor(W)
+    best = torch.full((B, T), float("inf"), dtype=dist.dtype)
+    arg = torch.full((B, T), -1, dtype=torch.int32)
+    for lo in range(0, S, step):
+        v, a = minplus_argmin_ref(dist[:, lo:lo + step].contiguous(),
+                                  W[..., lo:lo + step, :].contiguous())
+        take = v < best
+        best = torch.where(take, v, best)
+        arg = torch.where(take, a + lo, arg)
+    want, want_arg = minplus_argmin_ref(dist, W)
+    assert Q > 1 and torch.equal(best, want) and torch.equal(arg, want_arg)
+    assert bool((arg == step - 1).any()) and not bool((arg == step).any())
+    assert torch.equal(minplus_ref(dist, W), want)
+
+
 def _sparse_dist(B, S, seed, special=True):
     """A dist the solver's layers give B4: 90% +inf, a row with no finite
     entry (row 0), a row whose only finite source is the last (row 1); with

@@ -45,7 +45,8 @@ from repro_torch.kernels.decode_attn import ops as attn_ops
 from repro_torch.kernels.decode_attn.ops import decode_attn
 from repro_torch.kernels.decode_attn.ref import (decode_attn_ref,
                                                  decode_attn_split_ref)
-from repro_torch.kernels.ee_gate.ops import ee_gate
+from repro_torch.kernels.ee_gate.ops import ee_gate, gate_plan, gate_slices
+from repro_torch.kernels.ee_gate.ref import ee_gate_ref, ee_gate_split_ref
 from repro_torch.models import attention as TA
 from repro_torch.models import early_exit as TE
 from repro_torch.models import layers as TL
@@ -136,6 +137,64 @@ def test_ee_gate_peaked_and_ties():
     for want in (conf_r, conf_o):
         np.testing.assert_allclose(conf[:2].numpy(), np.asarray(want)[:2],
                                    rtol=1e-5)
+
+
+def _split_gate_rows(V, P, seed):
+    """Rows whose first max sits on either side of a slice boundary of the
+    P-way split: row 0 ties at the last element of slice 0 and the first
+    of slice 1, row 1 at the first of slice 1 and the last of the row's
+    last non-empty slice, row 2 has its max only in the last slice, row 3
+    is all -inf, row 4 ties across every boundary."""
+    x = np.random.default_rng(seed).normal(size=(5, V)).astype(np.float32)
+    x *= 4
+    cuts = [lo for lo, hi in gate_slices(V, P) if lo < hi][1:] or [V // 2]
+    b, last = cuts[0], V - 1
+    x[0, [b - 1, b]] = 40.0
+    x[1, [b, last]] = 40.0
+    x[2, last] = 41.0
+    x[3] = -np.inf
+    for c in cuts:
+        x[4, [c - 1, c]] = 50.0
+    return x, [b - 1, b, last, 0, cuts[0] - 1]
+
+
+@pytest.mark.parametrize("B,V", [(4, 153600), (1, 4097), (5, 5000),
+                                 (1, 2047), (1, 2048), (1, 2049),
+                                 (16, 50304), (130, 4096)])
+def test_gate_plan_fills_the_card_and_slices_cover_the_row(B, V):
+    """B6's split: about one block an SM at the serving batch (P = 33 at
+    [4, 153,600]), at least GATE_MIN_SLICE elements a block, P = 1 once
+    B fills the SMs; the slices are contiguous, ascending, a multiple of 8
+    wide, and cover [0, V)."""
+    P = gate_plan(B, V, 132)
+    assert 1 <= P and B * P <= 132 + B
+    assert P <= -(-V // 2048)
+    if (B, V) == (4, 153600):
+        assert P == 33
+    if B >= 132 or V <= 2048:
+        assert P == 1
+    cuts = gate_slices(V, P)
+    assert cuts[0][0] == 0 and cuts[-1][1] == V
+    assert all(a[1] == b[0] for a, b in zip(cuts, cuts[1:]))
+    assert all((hi - lo) % 8 == 0 for lo, hi in cuts[:-1])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("V,P", [(4097, 3), (4097, 2), (5000, 7), (2049, 2),
+                                 (153600, 33), (20, 5), (9, 1)])
+def test_ee_gate_split_model_matches_plain(V, P, dtype):
+    """The kernel's split-and-merge order on the CPU (ee_gate_split_ref):
+    first-max ties on both sides of a slice boundary keep the lower index,
+    an all -inf row gives conf 1/V and index 0, empty trailing slices
+    (V = 20, P = 5) are the identity; conf within 1e-5 relative of the
+    plain version, the argmax exact."""
+    x, want_arg = _split_gate_rows(V, P, V + P)
+    xt = _t(x) if dtype == "float32" else _t(x).bfloat16()
+    conf, arg = ee_gate_split_ref(xt, P)
+    conf_p, arg_p = ee_gate_ref(xt)
+    assert arg.tolist() == arg_p.tolist() == want_arg
+    torch.testing.assert_close(conf, conf_p, rtol=1e-5, atol=0)
+    assert float(conf[3]) == pytest.approx(1 / V, rel=1e-6)
 
 
 def test_kernel_wrappers_refuse_other_devices():
