@@ -33,11 +33,12 @@ rows at population size, and prints the kernels JSON line followed by the
 final status line.  Every failing phase raises; without a CUDA card, or
 without the repository beside it, it exits non-zero and prints no result.
 
-  python3 chip_smoke.py --times [dense] [gate] [attn] [plan]
+  python3 chip_smoke.py --times [dense] [kbest] [gate] [attn] [plan]
 
 builds the kernels and runs only the timings (no checks, no result line):
 B4 / B5 at the dense path's largest launch and at both Table VII layers,
-B6 at [4, 153,600] in float32 and bf16 on seeded logits, B7, and the
+B3 at the k-best path's largest launch in float64 and float32, at K = 32
+and gamma = 10, and at the largest [frontier] launch, B6 at [4, 153,600] in float32 and bf16 on seeded logits, B7, and the
 [plan] wall (768 plans, 9 ticks, CUDA and the CPU path); all of them
 without a name, else the named ones.  The kernels are timed as CUDA-graph
 replays beside CUDA-event means.  The timings use only the kernels' public
@@ -112,6 +113,17 @@ TABLE7_BLOCKS = 12
 # (B, L, N, G+1, K) of the k-slot kernel checks
 KBEST_SHAPES = [(1, 1, 4, 4, 1), (64, 4, 5, 26, 4), (8, 2, 8, 11, 32),
                 (4, 4, 5, 26, 32)]
+# (case, B, L, N, G+1, K) of the checks of the k-slot merge's tie order
+# (kbest_problem): every candidate equal; integer energies (equal values
+# inside one source's slots, beside the duplicated source node) at the
+# solver's width, with K above the admissible pool, at N = 32, at B = 1,
+# at a batch that is no multiple of the scenarios a block (1,000 at 3), and
+# at odd G+1 and K, whose layer chunks are not 16-byte aligned (the scalar
+# copy-out)
+KBEST_TIE_CASES = [("equal", 6, 3, 5, 26, 8), ("runs", 16, 4, 5, 26, 4),
+                   ("pool_below_k", 8, 2, 3, 7, 16), ("n32", 2, 2, 32, 9, 4),
+                   ("b1", 1, 4, 5, 26, 4), ("ragged", 1000, 3, 3, 7, 4),
+                   ("unaligned", 9, 3, 5, 11, 3)]
 APPS = ("h1", "h2", "h3", "h4", "h5", "h6")
 GAMMA = 25
 N_BEST = 4
@@ -281,6 +293,33 @@ def random_problem(B, L, N, Gp1, seed, dtype, device):
     return torch.as_tensor(dist, device=device).to(dtype), Ek, st
 
 
+def kbest_problem(case, B, L, N, Gp1, seed, dtype, device):
+    """Seeded B3 inputs whose pools tie: case ``"equal"`` makes every
+    candidate of a layer equal (init 2 everywhere, every edge 1 at
+    steepness 0); every other case is :func:`random_problem` with integer
+    energies, so equal values fill the runs of one source's slots."""
+    import numpy as np
+    import torch
+    from repro_torch.core.bellman_ford import kernel_inputs
+    if case == "equal":
+        dist = np.full((B, N, Gp1), 2.0)
+        E = np.ones((B, L, N, N))
+        steep = np.zeros((B, L, N, N))
+    else:
+        rng = np.random.default_rng(seed)
+        dist = np.floor(rng.uniform(0, 4, (B, N, Gp1)))
+        dist[rng.uniform(size=dist.shape) < 0.5] = np.inf
+        E = np.floor(rng.uniform(0, 3, (B, L, N, N)))
+        steep = rng.integers(0, Gp1, (B, L, N, N)).astype(np.float64)
+        steep[rng.uniform(size=steep.shape) < 0.3] = np.inf
+        if N > 1:
+            E[:, :, 1], steep[:, :, 1], dist[:, 1] = E[:, :, 0], \
+                steep[:, :, 0], dist[:, 0]
+    Ek, st = kernel_inputs(torch.as_tensor(E, device=device),
+                           torch.as_tensor(steep, device=device), dtype)
+    return torch.as_tensor(dist, device=device).to(dtype), Ek, st
+
+
 # ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
@@ -400,28 +439,47 @@ def phase_kernels(dev):
 
 
 def phase_kernels_kbest(dev) -> float:
-    """B3 vs its plain version on the card, both dtypes; at K = 1 vs B1."""
+    """B3 vs its plain version on the card, both dtypes, on random inputs
+    and on the tie-order cases; at K = 1 vs B1."""
     import torch
+    from repro_torch.kernels._build import sm_count
     from repro_torch.kernels.minplus.ops import (banded_minplus_chain,
-                                                 banded_minplus_chain_kbest)
+                                                 banded_minplus_chain_kbest,
+                                                 kbest_plan)
     from repro_torch.kernels.minplus.ref import banded_minplus_chain_kbest_ref
     err = 0.0
     banded_minplus_chain_kbest.launches = 0
-    for B, L, N, Gp1, K in KBEST_SHAPES:
+    cases = [("random",) + shape for shape in KBEST_SHAPES] + KBEST_TIE_CASES
+    for case, B, L, N, Gp1, K in cases:
         for dtype in (torch.float64, torch.float32):
+            spb, threads = kbest_plan(B, N, Gp1, K, dtype, sm_count(dev))
             for lo in (None, 2):
-                d, Ek, st = random_problem(B, L, N, Gp1, B + L + N + Gp1 + K,
-                                           dtype, dev)
+                seed = B + L + N + Gp1 + K
+                d, Ek, st = (random_problem(B, L, N, Gp1, seed, dtype, dev)
+                             if case == "random" else
+                             kbest_problem(case, B, L, N, Gp1, seed, dtype,
+                                           dev))
                 got = banded_minplus_chain_kbest(d, Ek, st, K, lo=lo)
                 want = banded_minplus_chain_kbest_ref(d, Ek, st, K, lo=lo)
                 torch.cuda.synchronize()
-                tag = f"B3 {(B, L, N, Gp1, K)} {dtype} lo={lo}"
+                tag = f"B3 {case} {(B, L, N, Gp1, K)} {dtype} lo={lo}"
                 check(all(torch.equal(g, w) for g, w in zip(got, want)),
                       f"{tag}: kernel differs from the plain version")
+                h = got[0]
+                ties = int((torch.isfinite(h[..., 1:])
+                            & (h[..., 1:] == h[..., :-1])).sum())
+                check(case == "random" or K == 1 or ties > 0,
+                      f"{tag}: no equal values inside a row to order")
+                check({"ragged": B % spb > 0, "unaligned": N * Gp1 * K % 4 > 0,
+                       "pool_below_k": N < K}.get(case, True),
+                      f"{tag}: the case does not reach what it names")
                 err = max(err, max_abs_err(got[0], want[0]))
                 log("kernels", f"{tag}: bit-equal (hist, par_n, par_k; "
                     f"{int((got[1] >= 0).sum())} of {got[1].numel()} slots "
-                    f"filled)")
+                    f"filled, {ties} equal neighbours; {spb} scenarios a "
+                    f"block, {threads} threads, B % {spb} = {B % spb}, "
+                    f"layer chunk {'scalar' if N * Gp1 * K % 4 else '16 B'} "
+                    f"copy-out)")
     for dtype in (torch.float64, torch.float32):
         d, Ek, st = random_problem(64, 4, 5, 26, 3, dtype, dev)
         hist, pn, pk = banded_minplus_chain_kbest(d, Ek, st, 1)
@@ -1239,21 +1297,27 @@ def dense_times(grid, dev, err):
     return rows, at_path
 
 
-def phase_kernel_times(grid, dev, err):
-    """Kernel, plain and bound at the main path's largest launch: round 0's
-    five-block group (floor and ceil graphs of h1-h4) in float64.  Returns
-    the kernels-line rows of the path's kernels."""
+def times_inputs(grid, dev, gamma=GAMMA):
+    """(init, Ek, st) of the main path's largest launch: round 0's
+    five-block group (floor and ceil graphs of h1-h4) in float64."""
     import torch
     from repro_torch.core.bellman_ford import kernel_inputs
+    parts = [grid_tensors(grid, dev, q, gamma=gamma)[5]
+             for q in ("floor", "ceil")]
+    Ek, st = kernel_inputs(torch.cat([p[0] for p in parts]),
+                           torch.cat([p[1] for p in parts]), torch.float64)
+    return torch.cat([p[2] for p in parts]).contiguous(), Ek, st
+
+
+def phase_kernel_times(grid, dev, err):
+    """Kernel, plain and bound at the main path's largest launch
+    (:func:`times_inputs`).  Returns the kernels-line rows of the path's
+    kernels."""
     from repro_torch.kernels.minplus.ops import (banded_minplus_argmin,
                                                  banded_minplus_chain)
     from repro_torch.kernels.minplus.ref import (banded_minplus_chain_ref,
                                                  banded_minplus_ref)
-    parts = [grid_tensors(grid, dev, q)[5] for q in ("floor", "ceil")]
-    E = torch.cat([p[0] for p in parts])
-    steep = torch.cat([p[1] for p in parts])
-    init = torch.cat([p[2] for p in parts]).contiguous()
-    Ek, st = kernel_inputs(E, steep, torch.float64)
+    init, Ek, st = times_inputs(grid, dev)
     rows = []
     ms = cuda_ms(lambda: banded_minplus_chain(init, Ek, st), 20)
     plain = cuda_ms(lambda: banded_minplus_chain_ref(init, Ek, st), 3, 1)
@@ -1286,53 +1350,134 @@ def phase_kernel_times(grid, dev, err):
     return rows
 
 
-def kbest_times(grid, dev, err, init, Ek, st):
-    """B3 at the k-best path's largest launch (the same five-block group,
-    K = 4) in float64 against its plain version and bound; float32 at the
-    same shape and K = 32 at gamma = 10 for the record."""
+def frontier_launch(dev):
+    """The inputs of the largest B3 launch of the [frontier] population on
+    ``dev`` (the solver's reference to the public wrapper, wrapped for one
+    pass): (init, Ek, st, K, lo, the number of launches)."""
+    import numpy as np
+    import repro_torch as T
+    from repro_torch.core import bellman_ford as bf
+    wrapped = bf.banded_minplus_chain_kbest
+    largest, calls = [], [0]
+
+    def record(dist, E, st, K, *, lo=None):
+        calls[0] += 1
+        if not largest or dist.numel() * E.shape[1] * K > \
+                largest[0].numel() * largest[1].shape[1] * largest[3]:
+            largest[:] = [dist.clone(), E.clone(), st.clone(), K, lo]
+        return wrapped(dist, E, st, K, lo=lo)
+
+    bf.banded_minplus_chain_kbest = record
+    try:
+        plans = _plan_population(dev, FRONTIER_USERS, n_best=N_BEST)
+        rng = np.random.default_rng(5)
+        T.update_uplinks(plans, rng.uniform(0.3, 1.0, len(plans)) * 1e9)
+        for p in plans:
+            p.frontier(k_per_exit=4)
+    finally:
+        bf.banded_minplus_chain_kbest = wrapped
+    return (*largest, calls[0])
+
+
+def kbest_plan_sweep(init, Ek, st, K):
+    """B3 at one shape by scenarios a block, the launch plan's choice
+    marked: device ms a call from CUDA-graph replays of the entry point.
+    Skipped for a checkout without ``kbest_plan``."""
     import torch
-    from repro_torch.core.bellman_ford import kernel_inputs
+    from repro_torch.kernels._build import launch, sm_count
+    from repro_torch.kernels.minplus import ops
+    if not hasattr(ops, "kbest_plan"):
+        return
+    B, N, Gp1 = init.shape
+    L = Ek.shape[1]
+    plan = ops.kbest_plan(B, N, Gp1, K, init.dtype, sm_count(init.device))
+    out = [torch.empty((B, L, N, Gp1, K), dtype=dt, device=init.device)
+           for dt in (init.dtype, torch.int32, torch.int32)]
+    name = ("banded_chain_kbest_f64" if init.dtype == torch.float64
+            else "banded_chain_kbest_f32")
+    per = ops.kbest_smem_bytes(N, Gp1, K, init.dtype)
+    cols = []
+    for spb in (1, 2, 3, 4, 6, 8):
+        threads = min(ops.KBEST_THREADS, -(-spb * N * Gp1 // 32) * 32)
+        if spb * per > ops.MAX_SMEM_BYTES:
+            continue
+        ms = graph_ms(lambda: launch(
+            name, init.device, init.data_ptr(), Ek.data_ptr(), st.data_ptr(),
+            *(t.data_ptr() for t in out), B, L, N, Gp1, K, -1, spb,
+            threads), 10)
+        cols.append(f"{spb} ({threads} threads"
+                    + (", the plan's" if (spb, threads) == plan else "")
+                    + ") " + ("not measured" if ms is None else f"{ms:.4f}"))
+    fill = graph_ms(lambda: [t.fill_(0) for t in out], 10)
+    log("times", f"B3 {str(init.dtype)[6:]} {tuple(init.shape)} K={K} by "
+        f"scenarios a block, device ms a call (CUDA graph of 10 calls): "
+        + ", ".join(cols) + "; filling the three outputs (three "
+        f"torch fill_ calls, the card's rate of writing these bytes): "
+        + ("not measured" if fill is None else f"{fill:.4f}"))
+
+
+def kbest_times(grid, dev, err, init, Ek, st):
+    """B3 at the k-best path's largest launch (the [times] shape, K = 4) in
+    float64 against its plain version and bound; float32 at the same
+    shape, K = 32 at gamma = 10, and the largest [frontier] launch.  Device
+    ms a call from CUDA-graph replays beside CUDA-event means of
+    back-to-back calls; only the public wrapper, so an older checkout's
+    kernel times the same way.  Returns the kernels-line row."""
+    import re
+    import torch
     from repro_torch.kernels.minplus.ops import banded_minplus_chain_kbest
     from repro_torch.kernels.minplus.ref import banded_minplus_chain_kbest_ref
+
+    def timed(tag, d, E, s, K, lo=None, reps=10):
+        def fn():
+            return banded_minplus_chain_kbest(d, E, s, K, lo=lo)
+        ev = cuda_ms(fn, 20)
+        ms = graph_ms(fn, reps)
+        got = fn()
+        bound, by, nbytes, ops = kbest_bound(d, E, s, K, lo, got[0])
+        shown = ms if ms is not None else ev
+        log("times", f"B3 {tag} {str(d.dtype)[6:]} {tuple(d.shape)} "
+            f"L={E.shape[1]} K={K} lo={lo}: device ms a call (CUDA graph of "
+            f"{reps} calls) {'not measured' if ms is None else f'{ms:.4f}'}"
+            f", CUDA-event mean {ev:.4f}, bound {bound:.6f} ms by {by} "
+            f"({nbytes} B, {ops} ops, this data; "
+            f"{nbytes / (shown * 1e-3) / 1e9:.1f} GB/s achieved, "
+            f"{bound / shown:.1%} of the bound)")
+        return shown, bound, by, got
+
+    for kern, (regs, smem, spill) in ptxas_usage("kbest").items():
+        inst = re.search(r"kernelI([df])Li(\d+)E", kern)
+        name = (f"{'f64' if inst[1] == 'd' else 'f32'} up to {inst[2]} nodes"
+                if inst else kern[:90])
+        log("times", f"B3 ptxas {name}: {regs} registers, {smem} B static "
+            f"shared memory, {spill} B spilled")
     K = N_BEST
-    ms = cuda_ms(lambda: banded_minplus_chain_kbest(init, Ek, st, K), 20)
+    ms, bound, by, _ = timed("[times]", init, Ek, st, K)
+    kbest_plan_sweep(init, Ek, st, K)
     plain = cuda_ms(lambda: banded_minplus_chain_kbest_ref(init, Ek, st, K),
                     3, 1)
-    hist = banded_minplus_chain_kbest(init, Ek, st, K)[0]
-    bound, by, nbytes, ops = kbest_bound(init, Ek, st, K, None, hist)
-    log("times", f"B3 f64 {tuple(init.shape)} L={Ek.shape[1]} K={K}: kernel "
-        f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bound:.4f} ms by {by} "
-        f"({nbytes} B, {ops} ops, {nbytes / (ms * 1e-3) / 1e9:.1f} GB/s "
-        f"achieved)")
+    log("times", f"B3 [times] f64 plain {plain:.4f} ms (CUDA-event mean)")
     row = dict(name="banded_minplus_chain_kbest", route="cuda",
                source=KBEST_SOURCE,
                replaces="src/repro/kernels/minplus/minplus.py:263",
                launches=None, max_abs_err=err["kbest"], ms=ms, plain_ms=plain,
                bound_ms=bound, bound_by=by, library_ms=None)
-    Ek32, init32 = Ek.float(), init.float()
-    ms32 = cuda_ms(lambda: banded_minplus_chain_kbest(init32, Ek32, st, K), 20)
-    hist32 = banded_minplus_chain_kbest(init32, Ek32, st, K)[0]
-    bound32, by32, _, _ = kbest_bound(init32, Ek32, st, K, None, hist32)
-    log("times", f"B3 f32 {tuple(init.shape)} K={K}: kernel {ms32:.4f} ms, "
-        f"bound {bound32:.4f} ms by {by32}")
-    del hist, hist32
-    parts = [grid_tensors(grid, dev, q, gamma=10)[5]
-             for q in ("floor", "ceil")]
-    Ek10, st10 = kernel_inputs(torch.cat([p[0] for p in parts]),
-                               torch.cat([p[1] for p in parts]),
-                               torch.float64)
-    init10 = torch.cat([p[2] for p in parts]).contiguous()
-    ms10 = cuda_ms(lambda: banded_minplus_chain_kbest(init10, Ek10, st10, 32),
-                   5)
-    got = banded_minplus_chain_kbest(init10, Ek10, st10, 32)
-    bound10, by10, _, _ = kbest_bound(init10, Ek10, st10, 32, None, got[0])
+    timed("[times]", init.float(), Ek.float(), st, K)
+    init10, Ek10, st10 = times_inputs(grid, dev, gamma=10)
+    got = timed("gamma=10", init10, Ek10, st10, 32, reps=5)[3]
+    kbest_plan_sweep(init10, Ek10, st10, 32)
     n = 512
     want = banded_minplus_chain_kbest_ref(init10[:n], Ek10[:n], st10[:n], 32)
     check(all(torch.equal(g[:n], w) for g, w in zip(got, want)),
           "B3 K=32 gamma=10: kernel differs from the plain version")
-    log("times", f"B3 f64 {tuple(init10.shape)} L={Ek10.shape[1]} K=32: "
-        f"kernel {ms10:.4f} ms, bound {bound10:.4f} ms by {by10}; first {n} rows "
-        f"bit-equal to the plain version")
+    log("times", f"B3 gamma=10 K=32: first {n} rows bit-equal to the plain "
+        f"version")
+    del got, want, init10, Ek10, st10
+    torch.cuda.empty_cache()
+    d, E, s, Kf, lo, count = frontier_launch(dev)
+    log("times", f"B3 [frontier]: the largest of {count} launches is "
+        f"init {tuple(d.shape)} E {tuple(E.shape)} K={Kf} lo={lo}")
+    timed("[frontier]", d, E, s, Kf, lo, reps=20)
     return row
 
 
@@ -1971,15 +2116,18 @@ def attn_split_sweep(B, H, KV, D, dev, g):
         torch.cuda.empty_cache()
 
 
-TIMES = ("dense", "gate", "attn", "plan")
+TIMES = ("dense", "kbest", "gate", "attn", "plan")
 
 
 def times_only(dev, which, counters) -> None:
     """``--times``: the named timings alone (all without a name), for
     comparing two checkouts in one call on one card."""
+    grid = full_grid() if {"dense", "kbest"} & set(which) else None
     if "dense" in which:
-        dense_times(full_grid(), dev, {"minplus_vecmat": None,
-                                       "minplus_vecmat_argmin": None})
+        dense_times(grid, dev, {"minplus_vecmat": None,
+                                "minplus_vecmat_argmin": None})
+    if "kbest" in which:
+        kbest_times(grid, dev, {"kbest": None}, *times_inputs(grid, dev))
     if "gate" in which:
         gate_times(dev, None)
     if "attn" in which:

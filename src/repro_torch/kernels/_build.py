@@ -50,8 +50,10 @@ SOURCES: Tuple[Source, ...] = (
     Source(Path("minplus/csrc/banded_minplus.cu"), EXACT_FLAGS,
            {name: [_PTR] * 5 + [_INT] * 5 + [_PTR]
             for name in ("banded_chain_f64", "banded_chain_f32")}),
+    # init, E, st, hist, par_n, par_k | B, L, N, G+1, K, lo, scenarios a
+    # block, threads a block | stream
     Source(Path("minplus/csrc/banded_minplus_kbest.cu"), EXACT_FLAGS,
-           {name: [_PTR] * 6 + [_INT] * 6 + [_PTR]
+           {name: [_PTR] * 6 + [_INT] * 8 + [_PTR]
             for name in ("banded_chain_kbest_f64", "banded_chain_kbest_f32")}),
     # dist, W, out, arg | B, S, T, W's batch stride, per, Q | stream
     Source(Path("minplus/csrc/minplus_dense.cu"), EXACT_FLAGS,

@@ -24,10 +24,20 @@ from .ref import (banded_minplus_chain_kbest_ref, banded_minplus_chain_ref,
 MAX_NODES = 32
 MAX_DEPTHS = 256
 #: shared memory a block may opt into on Hopper; B3 needs one scenario's
-#: two k-slot grids, their parents and one layer's E / st to fit in it.
+#: two k-slot grids, its staged parents and two layers' E / st to fit in it.
 MAX_SMEM_BYTES = 232448
+#: threads a B3 block aims for (whole scenarios, at least one) and has at
+#: most (a block with more states loops over them), and the largest K its
+#: packed heads and parents hold
+KBEST_THREAD_TARGET = 64
+KBEST_THREADS = 512
+KBEST_MAX_K = 1024
 
 _DTYPES = (torch.float64, torch.float32)
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
 
 
 def _check_chain_inputs(dist: torch.Tensor, E: torch.Tensor,
@@ -124,10 +134,39 @@ banded_minplus_argmin.launches = 0
 
 
 def kbest_smem_bytes(N: int, Gp1: int, K: int, dtype: torch.dtype) -> int:
-    """Shared memory of one scenario in the B3 kernel: two k-slot grids,
-    the parents' pool indices and one layer's E and st."""
+    """Shared memory of one scenario in the B3 kernel: the source k-slot
+    grid and the grid it writes, with an odd row stride ``K | 1``, the
+    staged parents packed in 16 bits, and two layers' E and st, each
+    padded to 16 bytes."""
     item = torch.finfo(dtype).bits // 8
-    return N * Gp1 * K * (2 * item + 4) + N * N * (item + 4)
+    rows = N * Gp1 * (K | 1)
+    return (2 * _cdiv(rows, 4) * 4 * item + _cdiv(rows, 8) * 8 * 2
+            + 2 * _cdiv(N * N, 4) * 4 * (item + 4))
+
+
+def kbest_plan(B: int, N: int, Gp1: int, K: int, dtype: torch.dtype,
+               n_sm: int = 132) -> Tuple[int, int]:
+    """(scenarios a block, threads a block) of a B3 launch.
+
+    A block takes whole scenarios, one thread a target state: as many
+    scenarios as fill ``KBEST_THREAD_TARGET`` threads (at least one) and
+    fit ``MAX_SMEM_BYTES``, and no more than spread the batch over ``n_sm``
+    SMs; at most ``KBEST_THREADS`` threads (a block with more states loops
+    over them).  Raises ValueError for a shape whose one scenario does not
+    fit in shared memory, or a K the packed heads cannot hold.
+    """
+    if not 1 <= K <= KBEST_MAX_K:
+        raise ValueError(f"the k-slot kernel packs a head's slot in 10 bits: "
+                         f"1 <= K <= {KBEST_MAX_K}, got K={K}")
+    per = kbest_smem_bytes(N, Gp1, K, dtype)
+    if per > MAX_SMEM_BYTES:
+        raise ValueError(f"the k-slot kernel holds one scenario's grids in "
+                         f"shared memory: N={N}, G+1={Gp1}, K={K} in "
+                         f"{dtype} need {per} B > {MAX_SMEM_BYTES} B")
+    states = N * Gp1
+    spb = max(1, min(KBEST_THREAD_TARGET // states, MAX_SMEM_BYTES // per,
+                     _cdiv(B, n_sm)))
+    return spb, min(KBEST_THREADS, _cdiv(spb * states, 32) * 32)
 
 
 def banded_minplus_chain_kbest(dist: torch.Tensor, E: torch.Tensor,
@@ -152,11 +191,7 @@ def banded_minplus_chain_kbest(dist: torch.Tensor, E: torch.Tensor,
     if dist.device.type != "cuda":
         raise ValueError(f"no banded minplus kernel for device {dist.device}")
     B, L, N, Gp1 = _check_chain_inputs(dist, E, st)
-    need = kbest_smem_bytes(N, Gp1, K, dist.dtype)
-    if need > MAX_SMEM_BYTES:
-        raise ValueError(f"the k-slot kernel holds one scenario's grids in "
-                         f"shared memory: N={N}, G+1={Gp1}, K={K} in "
-                         f"{dist.dtype} need {need} B > {MAX_SMEM_BYTES} B")
+    spb, threads = kbest_plan(B, N, Gp1, K, dist.dtype, sm_count(dist.device))
     shape = (B, L, N, Gp1, K)
     hist = torch.empty(shape, dtype=dist.dtype, device=dist.device)
     par_n = torch.empty(shape, dtype=torch.int32, device=dist.device)
@@ -167,7 +202,7 @@ def banded_minplus_chain_kbest(dist: torch.Tensor, E: torch.Tensor,
             else "banded_chain_kbest_f32", dist.device, dist.data_ptr(),
             E.data_ptr(), st.data_ptr(), hist.data_ptr(), par_n.data_ptr(),
             par_k.data_ptr(), B, L, N, Gp1, int(K),
-            -1 if lo is None else int(lo))
+            -1 if lo is None else int(lo), spb, threads)
     banded_minplus_chain_kbest.launches += 1
     return hist, par_n, par_k
 
@@ -188,10 +223,6 @@ DENSE_SHARED_ROWS = 8
 DENSE_MAX_THREADS = 256
 DENSE_MAX_CLUSTER = 16
 DENSE_MIN_SLICE = 8
-
-
-def _cdiv(a: int, b: int) -> int:
-    return -(-a // b)
 
 
 def dense_plan(B: int, S: int, T: int, shared: bool, n_sm: int = 132

@@ -54,6 +54,16 @@ CARD_SHAPES = [(1, 1, 4, 4), (64, 4, 5, 26), (8, 2, 23, 26), (4, 4, 8, 131)]
 # at K = 4 and 32, and a wider node count at K = 32
 KBEST_SHAPES = [(1, 1, 4, 4, 1), (64, 4, 5, 26, 4), (8, 2, 8, 11, 32),
                 (4, 4, 5, 26, 32)]
+# (case, B, L, N, G+1, K) of the k-slot merge's tie order: every candidate
+# equal; integer energies (equal values inside one source's slots, beside
+# the duplicated source node) at the solver's width, with K above the
+# admissible pool, at N = 32, at B = 1, at a batch that is no multiple of
+# the scenarios a block, and at odd G+1 and K (a layer chunk that is not
+# 16-byte aligned: the scalar copy-out)
+KBEST_TIE_CASES = [("equal", 6, 3, 5, 26, 8), ("runs", 16, 4, 5, 26, 4),
+                   ("pool_below_k", 8, 2, 3, 7, 16), ("n32", 2, 2, 32, 9, 4),
+                   ("b1", 1, 4, 5, 26, 4), ("ragged", 1000, 3, 3, 7, 4),
+                   ("unaligned", 9, 3, 5, 11, 3)]
 
 # (B, S, T) of the dense kernels: the reference kernel tests' shapes
 # (tests/test_kernels.py), then S = 130 (N = 5, G+1 = 26) and S = 390
@@ -149,6 +159,46 @@ def test_kbest_kernel_bit_equal_to_plain_on_card(cuda_device, B, L, N, Gp1,
     torch.cuda.synchronize()
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+def _tie_problem(case, B, L, N, Gp1, seed, dtype, device):
+    """B3 inputs whose pools tie: ``"equal"`` makes every candidate of a
+    layer equal; the other cases have integer energies."""
+    if case != "equal":
+        rng = np.random.default_rng(seed)
+        dist = np.floor(rng.uniform(0, 4, (B, N, Gp1)))
+        dist[rng.uniform(size=dist.shape) < 0.5] = np.inf
+        E = np.floor(rng.uniform(0, 3, (B, L, N, N)))
+        steep = rng.integers(0, Gp1, (B, L, N, N)).astype(np.float64)
+        steep[rng.uniform(size=steep.shape) < 0.3] = np.inf
+        E[:, :, 1], steep[:, :, 1], dist[:, 1] = E[:, :, 0], \
+            steep[:, :, 0], dist[:, 0]
+    else:
+        dist = np.full((B, N, Gp1), 2.0)
+        E, steep = np.ones((B, L, N, N)), np.zeros((B, L, N, N))
+    Ek, st = kernel_inputs(torch.as_tensor(E, device=device),
+                           torch.as_tensor(steep, device=device), dtype)
+    return torch.as_tensor(dist, device=device).to(dtype), Ek, st
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("lo", [None, 2])
+@pytest.mark.parametrize("case,B,L,N,Gp1,K", KBEST_TIE_CASES)
+def test_kbest_kernel_tie_order_bit_equal_on_card(cuda_device, case, B, L,
+                                                  N, Gp1, K, lo, dtype):
+    spb, _ = ops.kbest_plan(B, N, Gp1, K, dtype, sm_count(cuda_device))
+    assert {"ragged": B % spb > 0, "unaligned": N * Gp1 * K % 4 > 0,
+            "pool_below_k": N < K}.get(case, True)
+    d, Ek, st = _tie_problem(case, B, L, N, Gp1, B + L + N + K, dtype,
+                             cuda_device)
+    got = banded_minplus_chain_kbest(d, Ek, st, K, lo=lo)
+    want = banded_minplus_chain_kbest_ref(d, Ek, st, K, lo=lo)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    h = got[0]
+    assert bool((torch.isfinite(h[..., 1:]) & (h[..., 1:] == h[..., :-1]))
+                .any())
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
