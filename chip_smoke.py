@@ -33,9 +33,12 @@ rows at population size, and prints the kernels JSON line followed by the
 final status line.  Every failing phase raises; without a CUDA card, or
 without the repository beside it, it exits non-zero and prints no result.
 
-  python3 chip_smoke.py --times [dense] [kbest] [gate] [attn] [plan]
+  python3 chip_smoke.py --times [chain] [dense] [kbest] [gate] [attn] [plan]
 
 builds the kernels and runs only the timings (no checks, no result line):
+B1 at the main path's largest launch (20,480 rows) in float64 and float32
+with a sweep of its scenarios a group, B1u, B1 at 2^20 rows in both dtypes
+and ``batched_banded_relax_argmin`` whole at the 20,480-row launch,
 B4 / B5 at the dense path's largest launch and at both Table VII layers,
 B3 at the k-best path's largest launch in float64 and float32, at K = 32
 and gamma = 10, and at the largest [frontier] launch, B6 at [4, 153,600] in float32 and bf16 on seeded logits, B7, and the
@@ -97,6 +100,15 @@ SERVE_REQUESTS = 16
 SERVE_NEW = 8
 SERVE_PROMPT = 3
 CARD_SHAPES = [(1, 1, 4, 4), (64, 4, 5, 26), (8, 2, 23, 26), (4, 4, 8, 131)]
+# (case, B, L, N, G+1) of B1's launch plans, each checked to reach what it
+# names: a batch that is no multiple of the group, B = 1, more groups than
+# the persistent grid holds at once (its blocks loop), odd G+1 (runs that
+# are not 16-byte aligned), a chain too long for a group in shared memory
+# (the per-layer ring), and the widest shape, N = 32 and G+1 = 256 (more
+# nodes and depths than a block has threads: each thread loops)
+CHAIN_CASES = [("ragged", 1000, 3, 5, 26), ("b1", 1, 4, 5, 26),
+               ("loop", 4096, 2, 5, 26), ("unaligned", 9, 3, 5, 11),
+               ("layered", 2, 64, 16, 64), ("widest", 2, 3, 32, 256)]
 # (B, S, T) of the dense kernel checks: tests/test_kernels.py's shapes, then
 # S = 130 (N = 5, G+1 = 26) and S = 390 (N = 15, G+1 = 26)
 DENSE_SHAPES = [(1, 16, 16), (8, 128, 128), (3, 37, 65), (16, 300, 129),
@@ -398,40 +410,70 @@ def phase_environment():
             log("env", line.strip())
 
 
+def chain_case_reached(case, B, L, N, Gp1, dtype, dev) -> bool:
+    """Whether B1's launch plan for a :data:`CHAIN_CASES` shape reaches
+    what the case names."""
+    from repro_torch.kernels._build import sm_count
+    from repro_torch.kernels.minplus import ops
+    spb, threads, blocks = ops.chain_plan(B, L, N, Gp1, dtype, sm_count(dev))
+    whole = ops.chain_whole(L, N, Gp1, dtype)
+    return {"ragged": B % spb > 0, "b1": B == 1,
+            "loop": -(-B // spb) > blocks,
+            "unaligned": N * Gp1 * dtype.itemsize % 16 > 0,
+            "layered": not whole,
+            "widest": ops.chain_threads(N, Gp1) > threads}[case]
+
+
 def phase_kernels(dev):
-    """B1 and B1u vs their plain versions on the card, both dtypes."""
+    """B1 and B1u vs their plain versions on the card, both dtypes; B1 on
+    its launch-plan cases and in its init-row mode."""
     import torch
     from repro_torch.kernels.minplus.ops import (banded_minplus_argmin,
-                                                 banded_minplus_chain)
+                                                 banded_minplus_chain,
+                                                 banded_minplus_chain_history)
     from repro_torch.kernels.minplus.ref import (banded_minplus_chain_ref,
                                                  banded_minplus_ref)
     err = {"chain": 0.0, "layer": 0.0}
     banded_minplus_chain.launches = banded_minplus_argmin.launches = 0
-    for B, L, N, Gp1 in CARD_SHAPES:
+    cases = [("shape",) + shape for shape in CARD_SHAPES] + CHAIN_CASES
+    for case, B, L, N, Gp1 in cases:
         for dtype in (torch.float64, torch.float32):
+            check(case == "shape" or chain_case_reached(case, B, L, N, Gp1,
+                                                        dtype, dev),
+                  f"B1 {case} {(B, L, N, Gp1)} {dtype}: the launch plan "
+                  f"does not reach what the case names")
             for lo in (None, 2):
                 d, Ek, st = random_problem(B, L, N, Gp1, B + L + N + Gp1,
                                            dtype, dev)
                 hist, par = banded_minplus_chain(d, Ek, st, lo=lo)
                 hist_p, par_p = banded_minplus_chain_ref(d, Ek, st, lo=lo)
-                out, arg = banded_minplus_argmin(d[0], Ek[0, 0], st[0, 0],
-                                                 lo=lo)
-                out_p, arg_p = banded_minplus_ref(d[0], Ek[0, 0], st[0, 0],
-                                                  lo=lo)
+                full, par_h = banded_minplus_chain_history(d, Ek, st, lo=lo)
                 torch.cuda.synchronize()
-                tag = f"B1 {(B, L, N, Gp1)} {dtype} lo={lo}"
+                tag = f"B1 {case} {(B, L, N, Gp1)} {dtype} lo={lo}"
                 check(torch.equal(hist, hist_p) and torch.equal(par, par_p),
                       f"{tag}: kernel differs from the plain version")
-                check(torch.equal(out, out_p) and torch.equal(arg, arg_p),
-                      f"B1u {tag[3:]}: kernel differs from the plain version")
-                check(torch.equal(out, hist[0, 0]),
-                      f"B1u {tag[3:]}: differs from one layer of B1")
+                check(torch.equal(full, torch.cat([d[:, None], hist_p], 1))
+                      and torch.equal(par_h, par_p),
+                      f"{tag} init-row mode: differs from the init row and "
+                      f"the plain version")
                 err["chain"] = max(err["chain"], max_abs_err(hist, hist_p))
-                err["layer"] = max(err["layer"], max_abs_err(out, out_p))
-                log("kernels", f"{tag}: bit-equal (reached "
-                    f"{int((par >= 0).sum())} of {par.numel()} states)")
+                if case == "shape":
+                    out, arg = banded_minplus_argmin(d[0], Ek[0, 0],
+                                                     st[0, 0], lo=lo)
+                    out_p, arg_p = banded_minplus_ref(d[0], Ek[0, 0],
+                                                      st[0, 0], lo=lo)
+                    torch.cuda.synchronize()
+                    check(torch.equal(out, out_p) and torch.equal(arg, arg_p),
+                          f"B1u {tag[3:]}: kernel differs from the plain "
+                          f"version")
+                    check(torch.equal(out, hist[0, 0]),
+                          f"B1u {tag[3:]}: differs from one layer of B1")
+                    err["layer"] = max(err["layer"], max_abs_err(out, out_p))
+                log("kernels", f"{tag}: bit-equal, init-row mode too "
+                    f"(reached {int((par >= 0).sum())} of {par.numel()} "
+                    f"states)")
     log("kernels", f"B1 banded_minplus_chain: {banded_minplus_chain.launches} "
-        f"launches, bit-equal, max_abs_err {err['chain']} | B1u "
+        f"launches (both modes), bit-equal, max_abs_err {err['chain']} | B1u "
         f"banded_minplus_argmin: {banded_minplus_argmin.launches} launches, "
         f"bit-equal, max_abs_err {err['layer']}")
     err["kbest"] = phase_kernels_kbest(dev)
@@ -1297,56 +1339,177 @@ def dense_times(grid, dev, err):
     return rows, at_path
 
 
-def times_inputs(grid, dev, gamma=GAMMA):
-    """(init, Ek, st) of the main path's largest launch: round 0's
-    five-block group (floor and ceil graphs of h1-h4) in float64."""
+def times_raw(grid, dev, gamma=GAMMA):
+    """(E, steep, init) in float64 of the main path's largest launch: round
+    0's five-block group (floor and ceil graphs of h1-h4), 20,480 rows."""
     import torch
-    from repro_torch.core.bellman_ford import kernel_inputs
     parts = [grid_tensors(grid, dev, q, gamma=gamma)[5]
              for q in ("floor", "ceil")]
-    Ek, st = kernel_inputs(torch.cat([p[0] for p in parts]),
-                           torch.cat([p[1] for p in parts]), torch.float64)
-    return torch.cat([p[2] for p in parts]).contiguous(), Ek, st
+    return tuple(torch.cat([p[i] for p in parts]).contiguous()
+                 for i in range(3))
+
+
+def times_inputs(grid, dev, gamma=GAMMA, raw=None):
+    """(init, Ek, st) of the main path's largest launch (:func:`times_raw`,
+    or ``raw`` where given) in float64."""
+    import torch
+    from repro_torch.core.bellman_ford import kernel_inputs
+    E, steep, init = raw if raw is not None else times_raw(grid, dev, gamma)
+    Ek, st = kernel_inputs(E, steep, torch.float64)
+    return init, Ek, st
+
+
+def population_inputs(grid, dev, dtype):
+    """(init, Ek, st): the h1-h4 five-block tensors tiled to 2^20 rows."""
+    from repro_torch.core.bellman_ford import kernel_inputs
+    E, steep, init = grid_tensors(grid, dev)[5]
+    reps = -(-POP_ROWS // E.shape[0])
+    Ek, st = kernel_inputs(E, steep, dtype)
+    return (init.to(dtype).repeat(reps, 1, 1)[:POP_ROWS].contiguous(),
+            Ek.repeat(reps, 1, 1, 1)[:POP_ROWS].contiguous(),
+            st.repeat(reps, 1, 1, 1)[:POP_ROWS].contiguous())
+
+
+def chain_plan_sweep(init, Ek, st):
+    """B1 at one shape by scenarios a group (each with its persistent grid,
+    and the plan's group with one block a group as well: no ring), the
+    launch plan's choice marked: device ms a call from CUDA-graph replays
+    of the entry point.  Skipped for a checkout without ``chain_plan``."""
+    import torch
+    from repro_torch.kernels._build import launch, sm_count
+    from repro_torch.kernels.minplus import ops
+    if not hasattr(ops, "chain_plan"):
+        return
+    B, N, Gp1 = init.shape
+    L = Ek.shape[1]
+    n_sm = sm_count(init.device)
+    plan = ops.chain_plan(B, L, N, Gp1, init.dtype, n_sm)
+    hist = torch.empty((B, L, N, Gp1), dtype=init.dtype, device=init.device)
+    arg = torch.empty((B, L, N, Gp1), dtype=torch.int32, device=init.device)
+    name = ("banded_chain_f64" if init.dtype == torch.float64
+            else "banded_chain_f32")
+    runs = [(spb, *ops.chain_blocks(B, spb, L, N, Gp1, init.dtype, n_sm))
+            for spb in (1, 2, 3, 4, 6, 7)
+            if ops.chain_smem_bytes(spb, L, N, Gp1, init.dtype, True)
+            <= ops.MAX_SMEM_BYTES]
+    runs.append((plan[0], plan[1], -(-B // plan[0])))
+    cols = []
+    for spb, threads, blocks in runs:
+        ms = graph_ms(lambda: launch(
+            name, init.device, init.data_ptr(), Ek.data_ptr(), st.data_ptr(),
+            hist.data_ptr(), arg.data_ptr(), B, L, N, Gp1, -1, 0, spb,
+            threads, blocks), 10)
+        cols.append(f"{spb} ({threads} threads, {blocks} blocks"
+                    + (", the plan's" if (spb, threads, blocks) == plan
+                       else "") + ") "
+                    + ("not measured" if ms is None else f"{ms:.4f}"))
+    fill = graph_ms(lambda: [t.fill_(0) for t in (hist, arg)], 10)
+    log("times", f"B1 {str(init.dtype)[6:]} {tuple(init.shape)} L={L} by "
+        f"scenarios a group, device ms a call (CUDA graph of 10 calls): "
+        + ", ".join(cols) + "; filling hist and arg (two torch fill_ "
+        f"calls, the card's rate of writing these bytes): "
+        + ("not measured" if fill is None else f"{fill:.4f}"))
+
+
+def chain_times(grid, dev, err, raw):
+    """B1 at the main path's largest launch (:func:`times_inputs`) in
+    float64 against its plain version and bound, and in float32; B1u at
+    one scenario of it; B1 at 2^20 rows ([population]) in both dtypes; and
+    ``batched_banded_relax_argmin`` whole at the 20,480-row launch (float64
+    E / steep in, the solver's call).  Device ms a call from CUDA-graph
+    replays beside CUDA-event means of back-to-back calls; only the public
+    wrappers, so an older checkout's kernel times the same way.  Returns
+    the kernels-line row.  ``raw``: :func:`times_raw`."""
+    import re
+    import torch
+    from repro_torch.core import bellman_ford as bf
+    from repro_torch.kernels.minplus import ops
+    from repro_torch.kernels.minplus.ops import (banded_minplus_argmin,
+                                                 banded_minplus_chain)
+    from repro_torch.kernels.minplus.ref import (banded_minplus_chain_ref,
+                                                 banded_minplus_ref)
+
+    def timed(tag, fn, d, E, s, reps, events=20):
+        ev = cuda_ms(fn, events)
+        ms = graph_ms(fn, reps)
+        shown = ms if ms is not None else ev
+        bound, by, nbytes, ops_ = chain_bound(d, E, s, None)
+        log("times", f"B1 {tag} {str(d.dtype)[6:]} {tuple(d.shape)} "
+            f"L={E.shape[1]}: device ms a call (CUDA graph of {reps} calls) "
+            f"{'not measured' if ms is None else f'{ms:.4f}'}, CUDA-event "
+            f"mean {ev:.4f}, bound {bound:.6f} ms by {by} ({nbytes} B, "
+            f"{ops_} ops; {nbytes / (shown * 1e-3) / 1e9:.1f} GB/s achieved, "
+            f"{bound / shown:.1%} of the bound)")
+        return shown, bound, by
+
+    budget = getattr(ops, "CHAIN_REGISTERS", None)
+    for kern, (regs, smem, spill) in ptxas_usage("banded_chain_kernel").items():
+        inst = re.search(r"banded_chain_kernelI([df])(?:Li(\d+)E)?", kern)
+        name = (f"{'f64' if inst[1] == 'd' else 'f32'}"
+                + (f" up to {inst[2]} nodes" if inst[2] else "")
+                if inst else kern[:90])
+        log("times", f"B1 ptxas {name}: {regs} registers, {smem} B static "
+            f"shared memory, {spill} B spilled"
+            + ("" if budget is None or regs <= budget else
+               f" (above the plan's budget of {budget})"))
+    init, Ek, st = times_inputs(grid, dev, raw=raw)
+    ms, bound, by = timed("[times]", lambda: banded_minplus_chain(init, Ek, st),
+                          init, Ek, st, 20)
+    chain_plan_sweep(init, Ek, st)
+    plain = cuda_ms(lambda: banded_minplus_chain_ref(init, Ek, st), 3, 1)
+    log("times", f"B1 [times] f64 plain {plain:.4f} ms (CUDA-event mean)")
+    row = dict(name="banded_minplus_chain", route="cuda", source=KERNEL_SOURCE,
+               replaces="src/repro/kernels/minplus/minplus.py:329",
+               launches=None, max_abs_err=err["chain"], ms=ms,
+               plain_ms=plain, bound_ms=bound, bound_by=by, library_ms=None)
+    init32, Ek32 = init.float(), Ek.float()
+    timed("[times]", lambda: banded_minplus_chain(init32, Ek32, st), init32,
+          Ek32, st, 20)
+    chain_plan_sweep(init32, Ek32, st)
+    del init32, Ek32
+    d1, E1, s1 = init[0].contiguous(), Ek[0, 0].contiguous(), \
+        st[0, 0].contiguous()
+    ev1 = cuda_ms(lambda: banded_minplus_argmin(d1, E1, s1), 200, 5)
+    ms1 = graph_ms(lambda: banded_minplus_argmin(d1, E1, s1), 50)
+    plain1 = graph_ms(lambda: banded_minplus_ref(d1, E1, s1), 20) or \
+        cuda_ms(lambda: banded_minplus_ref(d1, E1, s1), 50, 2)
+    bound1, by1, _, _ = chain_bound(d1[None], E1[None, None],
+                                    s1[None, None], None)
+    # B1u is off the solver's path, so it has no row in the kernels line
+    log("times", f"B1u f64 {tuple(d1.shape)}: device ms a call (CUDA graph "
+        f"of 50 calls) {'not measured' if ms1 is None else f'{ms1:.4f}'}, "
+        f"CUDA-event mean {ev1:.4f}, plain {plain1:.4f}, bound "
+        f"{bound1:.9f} ms by {by1}")
+    E, steep, init64 = raw
+    for tag, fn in (("batched_banded_relax_argmin", lambda:
+                     bf.batched_banded_relax_argmin(init64, E, steep, None)),
+                    ("kernel_inputs alone", lambda:
+                     bf.kernel_inputs(E, steep, torch.float64))):
+        ev = cuda_ms(fn, 20)
+        ms_w = graph_ms(fn, 20)
+        log("times", f"B1 path f64 {tag} at {tuple(init64.shape)} "
+            f"L={E.shape[1]}: device ms a call (CUDA graph of 20 calls) "
+            f"{'not measured' if ms_w is None else f'{ms_w:.4f}'}, "
+            f"CUDA-event mean {ev:.4f}")
+    del E, steep, init64, init, Ek, st
+    torch.cuda.empty_cache()
+    for dtype in (torch.float64, torch.float32):
+        d, Ek, st = population_inputs(grid, dev, dtype)
+        timed("[population]", lambda: banded_minplus_chain(d, Ek, st), d, Ek,
+              st, 2, events=5)
+        del d, Ek, st
+        torch.cuda.empty_cache()
+    return row
 
 
 def phase_kernel_times(grid, dev, err):
     """Kernel, plain and bound at the main path's largest launch
     (:func:`times_inputs`).  Returns the kernels-line rows of the path's
     kernels."""
-    from repro_torch.kernels.minplus.ops import (banded_minplus_argmin,
-                                                 banded_minplus_chain)
-    from repro_torch.kernels.minplus.ref import (banded_minplus_chain_ref,
-                                                 banded_minplus_ref)
-    init, Ek, st = times_inputs(grid, dev)
-    rows = []
-    ms = cuda_ms(lambda: banded_minplus_chain(init, Ek, st), 20)
-    plain = cuda_ms(lambda: banded_minplus_chain_ref(init, Ek, st), 3, 1)
-    bound, by, nbytes, ops = chain_bound(init, Ek, st, None)
-    log("times", f"B1 f64 {tuple(init.shape)} L={Ek.shape[1]}: kernel {ms:.4f}"
-        f" ms, plain {plain:.4f} ms, bound {bound:.4f} ms by {by} "
-        f"({nbytes} B, {ops} ops)")
-    rows.append(dict(name="banded_minplus_chain", route="cuda",
-                     source=KERNEL_SOURCE,
-                     replaces="src/repro/kernels/minplus/minplus.py:329",
-                     launches=None, max_abs_err=err["chain"], ms=ms,
-                     plain_ms=plain, bound_ms=bound, bound_by=by,
-                     library_ms=None))
-    d1, E1, s1 = init[0].contiguous(), Ek[0, 0].contiguous(), \
-        st[0, 0].contiguous()
-    ms1 = cuda_ms(lambda: banded_minplus_argmin(d1, E1, s1), 200, 5)
-    plain1 = cuda_ms(lambda: banded_minplus_ref(d1, E1, s1), 50, 2)
-    bound1, by1, _, _ = chain_bound(d1[None], E1[None, None],
-                                    s1[None, None], None)
-    # B1u is off the solver's path, so it has no row in the kernels line
-    log("times", f"B1u f64 {tuple(d1.shape)}: kernel {ms1:.4f} ms, plain "
-        f"{plain1:.4f} ms, bound {bound1:.9f} ms by {by1}")
-    # the f32 instantiation at the same shape, for the record
-    Ek32, init32 = Ek.float(), init.float()
-    ms32 = cuda_ms(lambda: banded_minplus_chain(init32, Ek32, st), 20)
-    bound32, by32, _, _ = chain_bound(init32, Ek32, st, None)
-    log("times", f"B1 f32 {tuple(init.shape)}: kernel {ms32:.4f} ms, bound "
-        f"{bound32:.4f} ms by {by32}")
-    rows.append(kbest_times(grid, dev, err, init, Ek, st))
+    raw = times_raw(grid, dev)
+    rows = [chain_times(grid, dev, err, raw)]
+    rows.append(kbest_times(grid, dev, err, *times_inputs(grid, dev,
+                                                          raw=raw)))
     return rows
 
 
@@ -1484,18 +1647,13 @@ def kbest_times(grid, dev, err, init, Ek, st):
 def phase_population(grid, dev):
     """h1-h4 banded tensors tiled to 2^20 rows, relaxed in one launch."""
     import torch
-    from repro_torch.core.bellman_ford import kernel_inputs
     from repro_torch.kernels.minplus.ops import banded_minplus_chain
     from repro_torch.kernels.minplus.ref import banded_minplus_chain_ref
-    E, steep, init = grid_tensors(grid, dev)[5]
-    reps = -(-POP_ROWS // E.shape[0])
     for dtype in (torch.float64, torch.float32):
         torch.cuda.reset_peak_memory_stats()
-        Ek, st = kernel_inputs(E, steep, dtype)
-        Ek = Ek.repeat(reps, 1, 1, 1)[:POP_ROWS].contiguous()
-        st = st.repeat(reps, 1, 1, 1)[:POP_ROWS].contiguous()
-        d = init.to(dtype).repeat(reps, 1, 1)[:POP_ROWS].contiguous()
+        d, Ek, st = population_inputs(grid, dev, dtype)
         ms = cuda_ms(lambda: banded_minplus_chain(d, Ek, st), 10, 3)
+        gms = graph_ms(lambda: banded_minplus_chain(d, Ek, st), 2)
         hist, par = banded_minplus_chain(d, Ek, st)
         bound, by, nbytes, ops = chain_bound(d, Ek, st, None)
         n = POP_CHECK_ROWS
@@ -1505,14 +1663,18 @@ def phase_population(grid, dev):
               f"version on the first {n} rows")
         check(bool(torch.isfinite(hist).any()), "population relax: no "
               "reachable state")
+        shown = gms if gms is not None else ms
         log("population", f"B1 {dtype} B={POP_ROWS} L={Ek.shape[1]} N="
-            f"{Ek.shape[2]} G+1={d.shape[2]}: {ms:.4f} ms/launch (CUDA events,"
-            f" mean of 10), {nbytes} B moved = {nbytes / POP_ROWS:.0f} B/row, "
-            f"bound {bound:.4f} ms by {by} ({nbytes / (ms * 1e-3) / 1e9:.1f} "
+            f"{Ek.shape[2]} G+1={d.shape[2]}: "
+            f"{'not measured' if gms is None else f'{gms:.4f}'} ms/launch "
+            f"(CUDA graph of 2 calls), {ms:.4f} (CUDA-event mean of 10), "
+            f"{nbytes} B moved = {nbytes / POP_ROWS:.0f} B/row, bound "
+            f"{bound:.4f} ms by {by} ({nbytes / (shown * 1e-3) / 1e9:.1f} "
             f"GB/s achieved), {ops} ops; max_memory_allocated "
             f"{torch.cuda.max_memory_allocated()} B; first {n} rows bit-equal"
             f" to the plain version")
         del hist, par, hist_p, par_p, Ek, st, d
+        torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -2116,13 +2278,15 @@ def attn_split_sweep(B, H, KV, D, dev, g):
         torch.cuda.empty_cache()
 
 
-TIMES = ("dense", "kbest", "gate", "attn", "plan")
+TIMES = ("chain", "dense", "kbest", "gate", "attn", "plan")
 
 
 def times_only(dev, which, counters) -> None:
     """``--times``: the named timings alone (all without a name), for
     comparing two checkouts in one call on one card."""
-    grid = full_grid() if {"dense", "kbest"} & set(which) else None
+    grid = full_grid() if {"chain", "dense", "kbest"} & set(which) else None
+    if "chain" in which:
+        chain_times(grid, dev, {"chain": None}, times_raw(grid, dev))
     if "dense" in which:
         dense_times(grid, dev, {"minplus_vecmat": None,
                                 "minplus_vecmat_argmin": None})

@@ -51,7 +51,7 @@ import numpy as np
 import torch
 
 from ..kernels.minplus import ops as mp
-from ..kernels.minplus.ops import (banded_minplus_chain,
+from ..kernels.minplus.ops import (banded_minplus_chain_history,
                                    banded_minplus_chain_kbest)
 from ..kernels.minplus.ref import banded_gather_idx
 
@@ -324,7 +324,8 @@ def batched_banded_relax_argmin(init: torch.Tensor, E: torch.Tensor,
     the ``minplus`` backend) or float32 (the ``f32`` backend).  Returns
     (hist (B, L+1, N, G+1) in ``dtype`` with the init grid at index 0, and
     par_n (B, L, N, G+1) int32, -1 where unreachable).  The parent depth is
-    implied by the band: g_src = g - steep[par_n, n].
+    implied by the band: g_src = g - steep[par_n, n].  On CUDA it is one
+    launch of B1, which writes the init row itself.
     """
     B, N, Gp1 = init.shape
     L = E.shape[1]
@@ -334,8 +335,7 @@ def batched_banded_relax_argmin(init: torch.Tensor, E: torch.Tensor,
                 torch.zeros((B, 0, N, Gp1), dtype=torch.int32,
                             device=init.device))
     Ek, st = kernel_inputs(E, steep, dtype)
-    hist, par = banded_minplus_chain(initk, Ek, st, lo=lo)
-    return torch.cat([initk[:, None], hist], dim=1), par
+    return banded_minplus_chain_history(initk, Ek, st, lo=lo)
 
 
 def batched_banded_relax_kbest(init: torch.Tensor, E: torch.Tensor,

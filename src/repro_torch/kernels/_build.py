@@ -47,8 +47,10 @@ class Source:
 
 
 SOURCES: Tuple[Source, ...] = (
+    # init, E, st, hist, arg | B, L, N, G+1, lo, init row, scenarios a
+    # group, threads a block, blocks | stream
     Source(Path("minplus/csrc/banded_minplus.cu"), EXACT_FLAGS,
-           {name: [_PTR] * 5 + [_INT] * 5 + [_PTR]
+           {name: [_PTR] * 5 + [_INT] * 9 + [_PTR]
             for name in ("banded_chain_f64", "banded_chain_f32")}),
     # init, E, st, hist, par_n, par_k | B, L, N, G+1, K, lo, scenarios a
     # block, threads a block | stream

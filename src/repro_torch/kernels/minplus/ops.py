@@ -18,14 +18,29 @@ from .._build import launch as _launch, sm_count
 from .ref import (banded_minplus_chain_kbest_ref, banded_minplus_chain_ref,
                   banded_minplus_ref, minplus_argmin_ref, minplus_ref)
 
-#: node and depth counts the kernel accepts (a block holds at least one
+#: node and depth counts the kernels accept (a B1 block holds at least one
 #: scenario's two (N, G+1) grids in shared memory).  The solver needs
-#: N <= 5 and G+1 <= 26; the kernel tests go up to N = 23 and G+1 = 131.
+#: N <= 5 and G+1 <= 26; the kernel tests go up to N = 32 and G+1 = 256.
 MAX_NODES = 32
 MAX_DEPTHS = 256
 #: shared memory a block may opt into on Hopper; B3 needs one scenario's
 #: two k-slot grids, its staged parents and two layers' E / st to fit in it.
 MAX_SMEM_BYTES = 232448
+#: what one SM of an H100 holds at once: threads, shared memory (a block
+#: also takes 1 KB of it for the system) and 32-bit registers
+SM_THREADS = 2048
+SM_SMEM_BYTES = 233472
+SM_BLOCK_RESERVED_BYTES = 1024
+SM_REGISTERS = 65536
+#: depths a B1 thread relaxes for one target node (the kernel's kDepths),
+#: threads a B1 block aims for (whole scenarios: the group that fills its
+#: warps best) and has at most, and the registers a B1 thread takes (ptxas,
+#: ``chip_smoke.py --times chain``), from which the plan counts the blocks
+#: an SM holds
+CHAIN_DEPTHS = 2
+CHAIN_THREAD_TARGET = 512
+CHAIN_THREADS = 1024
+CHAIN_REGISTERS = 64
 #: threads a B3 block aims for (whole scenarios, at least one) and has at
 #: most (a block with more states loops over them), and the largest K its
 #: packed heads and parents hold
@@ -70,17 +85,100 @@ def _check_chain_inputs(dist: torch.Tensor, E: torch.Tensor,
     return B, L, N, Gp1
 
 
+def _pad16(x: int) -> int:
+    return _cdiv(x, 16) * 16 + 16
+
+
+def chain_smem_bytes(spb: int, L: int, N: int, Gp1: int, dtype: torch.dtype,
+                     whole: bool) -> int:
+    """Shared memory of a B1 block of ``spb`` scenarios, as the kernel
+    source states it: a 16-byte +inf slot, then, ``whole``, two input
+    stages (a group's init grids, E and st) and two grids a scenario (the
+    layer's source and the one it writes); else (one scenario) the
+    per-layer ring: two grids and two layers' E and st.  Every region has
+    16 bytes of room to start at its device run's address mod 16."""
+    item = torch.finfo(dtype).bits // 8
+    states, nn = N * Gp1, N * N
+    if whole:
+        return (16 + 2 * (_pad16(spb * states * item)
+                          + _pad16(spb * L * nn * item)
+                          + _pad16(spb * L * nn * 4))
+                + 2 * _pad16(spb * states * item))
+    return (16 + 2 * _pad16(states * item)
+            + 2 * (_pad16(nn * item) + _pad16(nn * 4)))
+
+
+def chain_whole(L: int, N: int, Gp1: int, dtype: torch.dtype) -> bool:
+    """Whether one scenario's whole chain fits a B1 block (else the kernel
+    takes one scenario at a time through its per-layer ring)."""
+    return chain_smem_bytes(1, L, N, Gp1, dtype, True) <= MAX_SMEM_BYTES
+
+
+def chain_threads(N: int, Gp1: int) -> int:
+    """Threads of one B1 scenario: ``ceil((G+1) / CHAIN_DEPTHS)`` a node."""
+    return N * _cdiv(Gp1, CHAIN_DEPTHS)
+
+
+def chain_blocks(B: int, spb: int, L: int, N: int, Gp1: int,
+                 dtype: torch.dtype, n_sm: int = 132) -> Tuple[int, int]:
+    """(threads a block, blocks) of a B1 launch of ``spb`` scenarios a
+    group: one thread a node and ``CHAIN_DEPTHS`` depths, the group's
+    threads rounded up to a warp, at most ``CHAIN_THREADS`` (a block with
+    more loops over them); as many blocks as ``n_sm`` SMs hold at once
+    (threads, shared memory, ``CHAIN_REGISTERS``), at most one a group,
+    each walking its groups in turn."""
+    threads = min(CHAIN_THREADS, _cdiv(spb * chain_threads(N, Gp1), 32) * 32)
+    smem = chain_smem_bytes(spb, L, N, Gp1, dtype,
+                            chain_whole(L, N, Gp1, dtype))
+    per_sm = max(1, min(SM_THREADS // threads,
+                        SM_SMEM_BYTES // (smem + SM_BLOCK_RESERVED_BYTES),
+                        SM_REGISTERS // (threads * CHAIN_REGISTERS)))
+    return threads, max(1, min(_cdiv(B, spb), n_sm * per_sm))
+
+
+def chain_plan(B: int, L: int, N: int, Gp1: int, dtype: torch.dtype,
+               n_sm: int = 132) -> Tuple[int, int, int]:
+    """(scenarios a group, threads a block, blocks) of a B1 launch.
+
+    One thread a (scenario, target node, ``CHAIN_DEPTHS`` depths).  Where a
+    scenario's whole chain fits shared memory, a group is the number of
+    scenarios, up to ``CHAIN_THREAD_TARGET`` threads (at least one
+    scenario) and no more than spread the batch over ``n_sm`` SMs, whose
+    threads fill whole warps best (ties to the larger group) and whose
+    shared memory (:func:`chain_smem_bytes`) fits ``MAX_SMEM_BYTES``; else
+    one scenario through the per-layer ring.  Threads and blocks:
+    :func:`chain_blocks`.
+    """
+    tps = chain_threads(N, Gp1)
+    spb = 1
+    if chain_whole(L, N, Gp1, dtype):
+        cap = max(1, min(CHAIN_THREAD_TARGET // tps, _cdiv(B, n_sm)))
+        fits = [s for s in range(1, cap + 1)
+                if chain_smem_bytes(s, L, N, Gp1, dtype, True)
+                <= MAX_SMEM_BYTES]
+        spb = max(fits, key=lambda s: (s * tps / (_cdiv(s * tps, 32) * 32),
+                                       s))
+    return (spb, *chain_blocks(B, spb, L, N, Gp1, dtype, n_sm))
+
+
 def _launch_chain(dist: torch.Tensor, E: torch.Tensor, st: torch.Tensor,
-                  lo: Optional[int]) -> Tuple[torch.Tensor, torch.Tensor]:
+                  lo: Optional[int], init_row: bool = False
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     B, L, N, Gp1 = _check_chain_inputs(dist, E, st)
-    hist = torch.empty((B, L, N, Gp1), dtype=dist.dtype, device=dist.device)
+    hist = torch.empty((B, L + init_row, N, Gp1), dtype=dist.dtype,
+                       device=dist.device)
     arg = torch.empty((B, L, N, Gp1), dtype=torch.int32, device=dist.device)
     if B == 0 or L == 0:
+        if init_row:
+            hist[:, 0] = dist
         return hist, arg
+    spb, threads, blocks = chain_plan(B, L, N, Gp1, dist.dtype,
+                                      sm_count(dist.device))
     _launch("banded_chain_f64" if dist.dtype == torch.float64
             else "banded_chain_f32", dist.device, dist.data_ptr(),
             E.data_ptr(), st.data_ptr(), hist.data_ptr(), arg.data_ptr(), B,
-            L, N, Gp1, -1 if lo is None else int(lo))
+            L, N, Gp1, -1 if lo is None else int(lo), int(init_row), spb,
+            threads, blocks)
     return hist, arg
 
 
@@ -105,6 +203,29 @@ def banded_minplus_chain(dist: torch.Tensor, E: torch.Tensor,
 
 
 banded_minplus_chain.launches = 0
+
+
+def banded_minplus_chain_history(dist: torch.Tensor, E: torch.Tensor,
+                                 st: torch.Tensor, *,
+                                 lo: Optional[int] = None
+                                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """B1 with the init grid as row 0 of its history, the solver's form.
+
+    As :func:`banded_minplus_chain`, but hist is [B, L+1, N, G+1] with
+    ``dist`` at index 0.  On CUDA it is one launch of the kernel in its
+    init-row mode, which writes the init row from the grid it already holds
+    in shared memory (no copy after the kernel); the launch counts in
+    ``banded_minplus_chain.launches``.
+    """
+    if dist.device.type == "cpu":
+        hist, arg = banded_minplus_chain_ref(dist, E, st, lo=lo)
+        return torch.cat([dist[:, None], hist], dim=1), arg
+    if dist.device.type != "cuda":
+        raise ValueError(f"no banded minplus kernel for device {dist.device}")
+    hist, arg = _launch_chain(dist, E, st, lo, init_row=True)
+    if E.shape[0] and E.shape[1]:
+        banded_minplus_chain.launches += 1
+    return hist, arg
 
 
 def banded_minplus_argmin(dist: torch.Tensor, E: torch.Tensor,

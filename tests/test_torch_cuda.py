@@ -39,6 +39,7 @@ from repro_torch.kernels.ee_gate.ref import ee_gate_ref
 from repro_torch.kernels.minplus import ops
 from repro_torch.kernels.minplus.ops import (banded_minplus_argmin,
                                              banded_minplus_chain,
+                                             banded_minplus_chain_history,
                                              banded_minplus_chain_kbest)
 from repro_torch.kernels.minplus.ops import (minplus_matmat, minplus_vecmat,
                                              minplus_vecmat_argmin)
@@ -50,6 +51,15 @@ from repro_torch.kernels.minplus.ref import (banded_minplus_chain_kbest_ref,
 # (B, L, N, G+1): a single state, the solver's width, the reference kernel
 # tests' widest N and deepest G+1
 CARD_SHAPES = [(1, 1, 4, 4), (64, 4, 5, 26), (8, 2, 23, 26), (4, 4, 8, 131)]
+# (case, B, L, N, G+1) of B1's launch plans, each checked to reach what it
+# names: a batch that is no multiple of the group, B = 1, more groups than
+# the persistent grid holds at once (its blocks loop), odd G+1 (runs that
+# are not 16-byte aligned), a chain too long for a group in shared memory
+# (the per-layer ring), and the widest shape, N = 32 and G+1 = 256 (more
+# nodes and depths than a block has threads: each thread loops)
+CHAIN_CASES = [("ragged", 1000, 3, 5, 26), ("b1", 1, 4, 5, 26),
+               ("loop", 4096, 2, 5, 26), ("unaligned", 9, 3, 5, 11),
+               ("layered", 2, 64, 16, 64), ("widest", 2, 3, 32, 256)]
 # (B, L, N, G+1, K) of the k-slot kernel: a single state, the solver's width
 # at K = 4 and 32, and a wider node count at K = 32
 KBEST_SHAPES = [(1, 1, 4, 4, 1), (64, 4, 5, 26, 4), (8, 2, 8, 11, 32),
@@ -116,6 +126,32 @@ def test_kernel_bit_equal_to_plain_on_card(cuda_device, B, L, N, Gp1, lo,
     out_p, arg_p = banded_minplus_ref(d[0], Ek[0, 0], st[0, 0], lo=lo)
     assert torch.equal(out, out_p) and torch.equal(arg, arg_p)
     assert torch.equal(out, hist[0, 0])
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("lo", [None, 2])
+@pytest.mark.parametrize("case,B,L,N,Gp1", CHAIN_CASES)
+def test_kernel_launch_plan_cases_bit_equal_on_card(cuda_device, case, B, L,
+                                                    N, Gp1, lo, dtype):
+    """B1 on each launch-plan case, and in its init-row mode (one launch,
+    counted), bit-equal to the plain version."""
+    spb, threads, blocks = ops.chain_plan(B, L, N, Gp1, dtype,
+                                          sm_count(cuda_device))
+    assert {"ragged": B % spb > 0, "b1": B == 1,
+            "loop": -(-B // spb) > blocks,
+            "unaligned": N * Gp1 * dtype.itemsize % 16 > 0,
+            "layered": not ops.chain_whole(L, N, Gp1, dtype),
+            "widest": ops.chain_threads(N, Gp1) > threads}[case]
+    d, Ek, st = _problem(B, L, N, Gp1, B + L + N + Gp1, dtype, cuda_device)
+    hist, par = banded_minplus_chain(d, Ek, st, lo=lo)
+    hist_p, par_p = banded_minplus_chain_ref(d, Ek, st, lo=lo)
+    n0 = banded_minplus_chain.launches
+    full, par_h = banded_minplus_chain_history(d, Ek, st, lo=lo)
+    assert banded_minplus_chain.launches == n0 + 1
+    torch.cuda.synchronize()
+    assert torch.equal(hist, hist_p) and torch.equal(par, par_p)
+    assert torch.equal(full, torch.cat([d[:, None], hist_p], dim=1))
+    assert torch.equal(par_h, par_p)
 
 
 def test_cuda_wrapper_raises_instead_of_falling_back(cuda_device):

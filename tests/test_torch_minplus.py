@@ -4,9 +4,15 @@ On the CPU the wrappers run their plain PyTorch versions, which must equal
 the reference: float64 distances and parents bit for bit against the
 float64 numpy engine (``batched_banded_relax_minarg``), float32 ones against
 the jnp engine and, on one tiny case, the Pallas chain kernel in interpret
-mode.  The card tests of the hand-written kernel are in
-``test_torch_cuda.py``, which does not import the JAX package.
+mode.  B1's launch plan (``chain_plan``) must fit the card at every shape
+the wrapper takes, with the shared memory the kernel source states, and a
+plain-Python model of the kernel's copy split must cover every run.  The
+card tests of the hand-written kernel are in ``test_torch_cuda.py``, which
+does not import the JAX package.
 """
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -19,7 +25,8 @@ from repro.core.bellman_ford import (batched_banded_relax_minarg as
 from repro_torch.core import bellman_ford as bf
 from repro_torch.kernels.minplus import ops
 from repro_torch.kernels.minplus.ops import (banded_minplus_argmin,
-                                             banded_minplus_chain)
+                                             banded_minplus_chain,
+                                             banded_minplus_chain_history)
 from repro_torch.kernels.minplus.ref import (banded_minplus_chain_ref,
                                              banded_minplus_ref)
 
@@ -139,6 +146,9 @@ def test_cpu_wrappers_run_the_plain_version_and_count_nothing():
     got = banded_minplus_chain(d, Ek, st)
     want = banded_minplus_chain_ref(d, Ek, st)
     assert all(torch.equal(g, w) for g, w in zip(got, want))
+    full, par = banded_minplus_chain_history(d, Ek, st)
+    assert torch.equal(full, torch.cat([d[:, None], want[0]], dim=1))
+    assert torch.equal(par, want[1])
     got1 = banded_minplus_argmin(d[0], Ek[0, 0], st[0, 0])
     want1 = banded_minplus_ref(d[0], Ek[0, 0], st[0, 0])
     assert all(torch.equal(g, w) for g, w in zip(got1, want1))
@@ -200,3 +210,112 @@ def test_relax_chunk_rows(monkeypatch):
             bf.device_chunk_rows(bad)
     assert bf.device_chunk_rows(bf.DEVICE_RELAX_BUDGET_BYTES + 1) == 1
 
+
+
+# ---------------------------------------------------------------------------
+# B1's launch plan and copy split
+# ---------------------------------------------------------------------------
+
+KERNEL_SOURCE = (Path(ops.__file__).parent / "csrc" / "banded_minplus.cu")
+
+
+@pytest.mark.parametrize("L", [1, 4, 8, 64])
+@pytest.mark.parametrize("Gp1", [1, 26, 256])
+@pytest.mark.parametrize("N", [1, 5, 32])
+def test_chain_launch_plan_fits_the_card(N, Gp1, L):
+    """Every launch of the plan fits a block's shared memory and 1,024
+    threads, takes at least one scenario a group (exactly one through the
+    per-layer ring), and launches no more blocks than groups; whole warps
+    cover the group's nodes and depths up to the block's threads."""
+    tps = ops.chain_threads(N, Gp1)
+    assert tps // N * ops.CHAIN_DEPTHS >= Gp1  # every depth has a thread
+    for dtype in (torch.float64, torch.float32):
+        whole = ops.chain_whole(L, N, Gp1, dtype)
+        for B in (1, 7, 1000, 20480, 1 << 20):
+            spb, threads, blocks = ops.chain_plan(B, L, N, Gp1, dtype)
+            assert spb >= 1 and (whole or spb == 1)
+            assert ops.chain_smem_bytes(spb, L, N, Gp1, dtype, whole) \
+                <= ops.MAX_SMEM_BYTES
+            assert threads % 32 == 0 and threads <= ops.CHAIN_THREADS <= 1024
+            assert threads >= min(spb * tps, ops.CHAIN_THREADS)
+            assert threads - spb * tps < 32 or threads == ops.CHAIN_THREADS
+            assert 1 <= blocks <= -(-B // spb)
+
+
+def test_chain_launch_plan_at_the_solver_widths():
+    """20,480 rows at N = 5, G+1 = 26, L = 4: two depths a thread make 65
+    threads a scenario, seven scenarios a group fill 15 warps (455 of 480
+    threads), and the persistent grid holds fewer blocks than groups, so
+    each block walks several."""
+    assert ops.CHAIN_DEPTHS == 2 and ops.chain_threads(5, 26) == 65
+    for dtype in (torch.float64, torch.float32):
+        spb, threads, blocks = ops.chain_plan(20480, 4, 5, 26, dtype)
+        assert (spb, threads) == (7, 480)
+        assert 132 <= blocks < -(-20480 // 7)
+    assert ops.chain_plan(1, 1, 5, 26, torch.float64) == (1, 96, 1)
+    assert not ops.chain_whole(1, 32, 256, torch.float64)
+    assert ops.chain_whole(1, 32, 256, torch.float32)
+
+
+def test_chain_depths_match_the_kernel_source():
+    src = KERNEL_SOURCE.read_text()
+    assert re.search(r"constexpr int kDepths = (\d+);", src).group(1) == \
+        str(ops.CHAIN_DEPTHS)
+
+
+def _source_smem_formula():
+    """The kernel source's ``chain_smem_bytes`` as a Python function."""
+    src = KERNEL_SOURCE.read_text()
+    body = re.search(r"long long chain_smem_bytes\((.*?)\n}", src, re.S)
+    whole, ring = re.search(r"if \(whole\)\s*return (.*?);\s*return (.*?);",
+                            body.group(1), re.S).groups()
+
+    def pad16(x):
+        return ((x + 15) & ~15) + 16
+
+    def formula(spb, L, N, Gp1, item, is_whole):
+        env = dict(spb=spb, L=L, N=N, Gp1=Gp1, item=item, states=N * Gp1,
+                   nn=N * N, pad16=pad16)
+        return eval(f"({whole if is_whole else ring})",
+                    {"__builtins__": {}}, env)
+    return formula
+
+
+def test_chain_smem_formula_matches_the_kernel_source():
+    formula = _source_smem_formula()
+    for spb in (1, 2, 3, 7):
+        for L in (1, 4, 64):
+            for N, Gp1 in ((1, 1), (5, 26), (5, 11), (32, 256)):
+                for dtype, item in ((torch.float64, 8), (torch.float32, 4)):
+                    for whole in (True, False):
+                        assert ops.chain_smem_bytes(spb, L, N, Gp1, dtype,
+                                                    whole) == \
+                            formula(spb, L, N, Gp1, item, whole)
+
+
+def _pieces(ps, n):
+    """Plain-Python model of the kernel's ``Pieces``: the (offset, width)
+    of each copy of an n-byte run whose source and destination both start
+    at address phase ps (mod 16)."""
+    head = min((16 - ps) & 15, n)
+    nh, nb = head // 4, (n - head) // 16
+    nt = (n - head - 16 * nb) // 4
+    return ([(4 * i, 4) for i in range(nh)]
+            + [(head + 16 * i, 16) for i in range(nb)]
+            + [(head + 16 * nb + 4 * i, 4) for i in range(nt)])
+
+
+@pytest.mark.parametrize("ps", [0, 4, 8, 12])
+def test_copy_split_model_covers_every_run(ps):
+    """Each byte of a run is copied once, a 16-byte piece starts 16-byte
+    aligned, and at most three 4-byte words sit at each end."""
+    for n in range(4, 200, 4):
+        pieces = _pieces(ps, n)
+        covered = [o + k for o, w in pieces for k in range(w)]
+        assert covered == list(range(n))
+        words = [o for o, w in pieces if w == 4]
+        for o, w in pieces:
+            if w == 16:
+                assert (ps + o) % 16 == 0
+        assert sum(o < 16 - ps for o in words) <= 3
+        assert len(words) <= 6
