@@ -4,11 +4,12 @@ Run from the repository root:  python3 chip_smoke.py
 
 It builds every hand-written kernel of ``src/repro_torch`` (the banded
 (min,+) argmin chain B1 and k-slot chain B3, the dense (min,+) products B5
-and B4, the exit gate B6 and the flash-decode attention B7; one ``nvcc``
-per source, all in parallel), holds each against its plain PyTorch version
-on the card, checks graph construction and the solver on CUDA against the
-port's CPU path, and drives each path of the port with the kernels' launch
-counters reset just before it and read just after:
+and B4, the exit gate B6, the flash-decode attention B7 and the population
+tick's fused ingest B2; one ``nvcc`` per source, all in parallel), holds
+each against its plain PyTorch version on the card, checks graph
+construction and the solver on CUDA against the port's CPU path, and
+drives each path of the port with the kernels' launch counters reset just
+before it and read just after:
 
   [solve_many]        ``solve_many`` over the full-width 15,360-scenario grid;
   [solve_many_dense]  the same grid with ``backend="dense"`` (B4 on the
@@ -21,6 +22,12 @@ counters reset just before it and read just after:
   [plan]              768 ``Plan``s through 8 ticks of AR(1) uplink fading
                       and one tick of mask / slice / backhaul deltas;
   [frontier]          96 ``Plan(n_best=4).frontier()`` calls;
+  [pop_tick]          one ``Population`` of 1,000,000 h4 users (B2 over
+                      every user each tick, B1 on the newborn states): a
+                      cold attach, 8 AR(1) ticks of ingest, dense gate and
+                      solve, a mixed tick of failure / slice / backhaul
+                      deltas and a checkpoint round trip, against the CPU
+                      path (incumbents, counters, state_dict bytes);
   [serve]             ``SplitServeEngine`` on qwen3-4b at full width in bf16
                       (random weights from a seed): 16 requests, then a
                       ``serve_with_churn`` trace with a node failure and its
@@ -34,6 +41,7 @@ final status line.  Every failing phase raises; without a CUDA card, or
 without the repository beside it, it exits non-zero and prints no result.
 
   python3 chip_smoke.py --times [chain] [dense] [kbest] [gate] [attn] [plan]
+                                [ingest]
 
 builds the kernels and runs only the timings (no checks, no result line):
 B1 at the main path's largest launch (20,480 rows) in float64 and float32
@@ -42,7 +50,8 @@ and ``batched_banded_relax_argmin`` whole at the 20,480-row launch,
 B4 / B5 at the dense path's largest launch and at both Table VII layers,
 B3 at the k-best path's largest launch in float64 and float32, at K = 32
 and gamma = 10, and at the largest [frontier] launch, B6 at [4, 153,600] in float32 and bf16 on seeded logits, B7, and the
-[plan] wall (768 plans, 9 ticks, CUDA and the CPU path); all of them
+[plan] wall (768 plans, 9 ticks, CUDA and the CPU path), B2 at 1e6 rows
+for h4 and h6; all of them
 without a name, else the named ones.  The kernels are timed as CUDA-graph
 replays beside CUDA-event means.  The timings use only the kernels' public
 wrappers, so a copy of this script run from an older checkout times that
@@ -70,6 +79,7 @@ KBEST_SOURCE = "src/repro_torch/kernels/minplus/csrc/banded_minplus_kbest.cu"
 DENSE_SOURCE = "src/repro_torch/kernels/minplus/csrc/minplus_dense.cu"
 GATE_SOURCE = "src/repro_torch/kernels/ee_gate/csrc/ee_gate.cu"
 ATTN_SOURCE = "src/repro_torch/kernels/decode_attn/csrc/decode_attn.cu"
+INGEST_SOURCE = "src/repro_torch/kernels/ee_gate/csrc/quant_signature.cu"
 # (B, V) of the exit-gate checks; the qwen3-4b padded vocab has a -inf tail
 # of 153,600 - 151,936 = 1,664 columns
 GATE_SHAPES = [(1, 128), (5, 5000), (4, 153600), (16, 50304)]
@@ -146,6 +156,19 @@ POP_CHECK_ROWS = 65536
 MULTIAPP_REQS = {"h1": (0.55, 5e-3, 1.0), "h2": (0.55, 5e-3, 1.0),
                  "h3": (0.55, 5e-3, 1.0), "h4": (0.55, 5e-3, 1.0),
                  "h5": (0.93, 0.1e-3, 1.0), "h6": (0.93, 0.1e-3, 1.0)}
+#: the [pop_tick] cohort: benchmarks/bench_online.py's pop_scale_1e6 scale
+#: (1e6 users) at one app, h4 (L = 5, floor + ceil: 90 int16 a signature),
+#: gamma 10 (online.population_cohorts' default), rates
+#: scenarios.MOBILE_UPLINK_BPS * q; POP_FAIL_NODE is an edge node (edge2)
+POP_USERS = 1_000_000
+POP_TICKS = 8
+POP_APP = "h4"
+POP_GAMMA = 10
+POP_FAIL_NODE = 2
+#: batch sizes of B2's [kernels] checks, and the apps of its timings (h6:
+#: L = 3, 50 int16 a signature)
+INGEST_CHECK_ROWS = (1, 4097, 100_003)
+INGEST_TIME_APPS = ("h4", "h6")
 PLAN_USERS = 128
 PLAN_TICKS = 8
 FRONTIER_USERS = 16
@@ -1678,6 +1701,386 @@ def phase_population(grid, dev):
 
 
 # ---------------------------------------------------------------------------
+# the population tick: the fused ingest B2 and the Population cohort
+# ---------------------------------------------------------------------------
+
+def ingest_consts(app, dev, modes=None, delta=None):
+    """The fused ingest's constants bundle of one app's plan on the paper
+    scenario with two extra edge nodes (N = 5) at gamma = POP_GAMMA, on
+    ``dev``; and the source node."""
+    import repro_torch as T
+    from repro_torch.kernels.ee_gate.population import QuantConsts
+    nw = T.paper_scenario(n_extra_edge=2)
+    req = T.AppRequirements(*MULTIAPP_REQS[app])
+    p = T.Plan(nw, T.paper_profile(app), req, gamma=POP_GAMMA, device=dev)
+    return QuantConsts(p._bits_pack, p._C_pack, p._mask_pack, p._load_pack,
+                       tuple(p._modes if modes is None else modes), POP_GAMMA,
+                       req.delta if delta is None else delta), \
+        nw.source_node
+
+
+def ingest_rows(c, Us, seed, src):
+    """Seeded (Us, N) rates that reach every edge of the quantizer: rates
+    aimed at integers and .5 ties of the scaled value (and one ulp either
+    side), zeros, NaN, +-inf, negatives and rates below the loads."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    C = c.C_pack.cpu().numpy()
+    bits = c.bits_pack.cpu().numpy()[:, 0]
+    K2, N = C.shape
+    vec = rng.uniform(0.05, 2.0, (Us, N)) * 1e9
+    k = rng.integers(0, K2, (Us, N))
+    target = rng.integers(0, c.gamma + 2, (Us, N)) \
+        + rng.choice([0.0, 0.5], (Us, N))
+    denom = target * c.delta / c.gamma - C[k, np.arange(N)]
+    aimed = bits[k] / np.where(denom > 0, denom, np.nan)
+    step = rng.integers(-1, 2, (Us, N))
+    aimed = np.where(step < 0, np.nextafter(aimed, 0.0),
+                     np.where(step > 0, np.nextafter(aimed, np.inf), aimed))
+    vec = np.where(np.isfinite(aimed) & (rng.random((Us, N)) < 0.5), aimed,
+                   vec)
+    special = rng.random((Us, N))
+    for lo, hi, v in ((0.0, 0.04, 0.0), (0.04, 0.07, np.nan),
+                      (0.07, 0.09, -1e9), (0.09, 0.11, -np.inf),
+                      (0.11, 0.13, np.inf), (0.13, 0.18, 1e3)):
+        vec[(special >= lo) & (special < hi)] = v
+    vec[:, src] = np.inf
+    return vec
+
+
+def tick_rows(q, src, N):
+    """The (U, N) staging rows ``Population.ingest(MOBILE_UPLINK_BPS * q)``
+    builds: each user's rate on every link, the source column inf."""
+    import numpy as np
+    from repro_torch.core.scenarios import MOBILE_UPLINK_BPS
+    vec = np.empty((len(q), N))
+    vec[:] = (MOBILE_UPLINK_BPS * q)[:, None]
+    vec[:, src] = np.inf
+    return vec
+
+
+def phase_kernels_ingest(dev):
+    """B2 against its plain version on the card, byte for byte: both modes
+    of the h1 / h4 / h6 packs and the tighten loop's single-mode packs at a
+    Python delta_eff, on rows that reach every edge of the quantizer, at
+    several batch sizes."""
+    import torch
+    from repro_torch.kernels.ee_gate.ops import quant_signature_rows
+    from repro_torch.kernels.ee_gate.population import QuantConsts
+    from repro_torch.kernels.ee_gate.ref import quant_signature_rows_ref
+    quant_signature_rows.launches = 0
+    err = 0.0
+    for app in ("h1", "h4", "h6"):
+        c, src = ingest_consts(app, dev)
+        bundles = [c] + [QuantConsts(c.bits_pack, c.C_pack, c.mask_pack,
+                                     c.load_pack, (c.modes[0],), c.gamma,
+                                     c.delta * 0.85 ** r) for r in (1, 6)]
+        for Us in INGEST_CHECK_ROWS:
+            vec = torch.as_tensor(ingest_rows(c, Us, Us + len(app), src),
+                                  device=dev)
+            for b in bundles:
+                args = (b.bits_pack, b.C_pack, b.mask_pack, b.load_pack,
+                        b.modes, b.gamma, b.delta)
+                got = quant_signature_rows(vec, *args)
+                want = quant_signature_rows_ref(vec, *args)
+                torch.cuda.synchronize()
+                tag = (f"B2 {app} Us={Us} modes={b.modes} "
+                       f"delta={b.delta!r}")
+                check(got.shape == (Us, b.out_width) and torch.equal(
+                    got, want), f"{tag}: kernel differs from the plain "
+                    f"version")
+                err = max(err, float((got.int() - want.int()).abs().max()))
+                log("kernels", f"{tag}: byte-equal to the plain version "
+                    f"({int((want >= 0).sum())} of {want.numel()} entries "
+                    f"valid, levels {int(want.max())} max)")
+    log("kernels", f"B2 quant_signature_rows: {quant_signature_rows.launches}"
+        f" launches, byte-equal, max_abs_err {err}")
+    return err
+
+
+def _pop_cohort(where):
+    import repro_torch as T
+    return T.Population(T.paper_scenario(n_extra_edge=2),
+                        T.paper_profile(POP_APP),
+                        T.AppRequirements(*MULTIAPP_REQS[POP_APP]), POP_USERS,
+                        gamma=POP_GAMMA, backend="minplus", timing=True,
+                        device=where)
+
+
+def _pop_draws():
+    """q0 for the cold attach (the AR(1)'s stationary law, seed 4) and the
+    ticks' AR(1) qualities (benchmarks/bench_online.py ``_ar1_draws``:
+    rho 0.95, sigma 0.05, mean 0.65, clipped to [0.3, 1], seed 5)."""
+    import numpy as np
+    q0 = np.clip(np.random.default_rng(4).normal(
+        0.65, 0.05 / math.sqrt(1 - 0.95 ** 2), POP_USERS), 0.3, 1.0)
+    rng = np.random.default_rng(5)
+    q = np.full(POP_USERS, 0.65)
+    draws = []
+    for _ in range(POP_TICKS):
+        q = np.clip(0.65 + 0.95 * (q - 0.65)
+                    + rng.normal(0, 0.05, POP_USERS), 0.3, 1.0)
+        draws.append(q.copy())
+    return q0, draws
+
+
+def _pop_tick(pop, q, launches):
+    """One tick: ingest every user's rate, the dense gate, then the solve
+    of the changed and the infeasible users.  Returns its log fields."""
+    import numpy as np
+    import torch
+    from repro_torch.core.scenarios import MOBILE_UPLINK_BPS
+    s0 = dict(pop.stats.__dict__)
+    n0, b0, h0, d0 = pop.n_states, launches(), pop.h2d_bytes, pop.d2h_bytes
+    t0 = time.perf_counter()
+    changed = pop.ingest(MOBILE_UPLINK_BPS * q)
+    t1 = time.perf_counter()
+    _no, feas, _en = pop.evaluate_incumbents()
+    t2 = time.perf_counter()
+    users = np.nonzero(changed | ~feas)[0]
+    pop.solve(users, build_solutions=False)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    st = pop.stats
+    relaxed = st.dp_relaxes - s0["dp_relaxes"]
+    b1 = launches() - b0
+    return dict(wall=t3 - t0, ingest=(st.t_ingest_ms - s0["t_ingest_ms"]),
+                gate=(t2 - t1) * 1e3, relax=st.t_relax_ms - s0["t_relax_ms"],
+                post=st.t_post_ms - s0["t_post_ms"],
+                changed=int(changed.sum()), solved=len(users),
+                born=pop.n_states - n0, relaxed=relaxed, b1=b1,
+                rows=(relaxed * pop.M / b1 if b1 else 0.0),
+                h2d=pop.h2d_bytes - h0, d2h=pop.d2h_bytes - d0)
+
+
+def _pop_mixed(pop):
+    """The mixed tick: a node failure for every 8th user (solved), the
+    recovery, a compute-slice and a backhaul repricing, a whole-cohort
+    solve."""
+    import numpy as np
+    victims = np.arange(0, pop.U, 8)
+    pop.mask_node(POP_FAIL_NODE, users=victims)
+    pop.solve(victims, build_solutions=False)
+    pop.unmask_node(POP_FAIL_NODE, users=victims)
+    pop.update_slice(0.8)
+    pop.update_backhaul(0.9)
+    pop.solve(build_solutions=False)
+
+
+def _pop_run(where, q0, draws, launches, tag):
+    """The [pop_tick] sequence on ``where``: the cold attach, the AR(1)
+    ticks and the mixed tick.  Returns the cohort and the walls."""
+    import torch
+    from repro_torch.core.scenarios import MOBILE_UPLINK_BPS
+    t0 = time.perf_counter()
+    pop = _pop_cohort(where)
+    pop.attach_many(MOBILE_UPLINK_BPS * q0)
+    torch.cuda.synchronize()
+    walls = {"attach": time.perf_counter() - t0}
+    log("pop_tick", f"{tag}: cold attach of {pop.U} users (build, B2, "
+        f"relax, post-pass) {walls['attach']:.3f} s, {pop.n_states} states, "
+        f"{pop.h2d_bytes} B host -> device, {pop.d2h_bytes} B device -> "
+        f"host")
+    for t, q in enumerate(draws):
+        r = _pop_tick(pop, q, launches)
+        walls[f"tick{t}"] = r["wall"]
+        log("pop_tick", f"{tag} tick {t}: wall {r['wall'] * 1e3:.1f} ms = "
+            f"ingest {r['ingest']:.1f} + gate {r['gate']:.1f} + relax "
+            f"{r['relax']:.1f} + post-pass {r['post']:.1f} (+ grouping "
+            f"and the rest); {r['changed']} signatures changed, "
+            f"{r['solved']} users solved, {r['born']} states born, "
+            f"dp_relaxes {r['relaxed']}, B1 launches {r['b1']} "
+            f"({r['rows']:.1f} rows a launch); {r['h2d']} B host -> device, "
+            f"{r['d2h']} B device -> host")
+    t0 = time.perf_counter()
+    _pop_mixed(pop)
+    torch.cuda.synchronize()
+    walls["mixed"] = time.perf_counter() - t0
+    log("pop_tick", f"{tag} mixed tick (failure of node {POP_FAIL_NODE} for "
+        f"every 8th user, recovery, slice 0.8, backhaul 0.9, whole-cohort "
+        f"solve): {walls['mixed']:.3f} s, {pop.n_states} states")
+    return pop, walls
+
+
+def _same_cohorts(a, b, what, stats=True):
+    """Identical incumbents, inc_found, PopulationStats counters (the t_*
+    timings left out) and state_dict bytes."""
+    import numpy as np
+    check(np.array_equal(a.inc_found, b.inc_found), f"{what}: inc_found")
+    for f in ("_inc_place", "_inc_exit", "_inc_energy"):
+        check(getattr(a, f).tobytes() == getattr(b, f).tobytes(),
+              f"{what}: {f} differs")
+    if stats:
+        sa, sb = ({k: v for k, v in p.stats.__dict__.items()
+                   if not k.startswith("t_")} for p in (a, b))
+        check(sa == sb, f"{what}: PopulationStats differ: {sa} vs {sb}")
+    da, db = a.state_dict(), b.state_dict()
+    check(sorted(da) == sorted(db), f"{what}: state_dict keys differ")
+    for k in da:
+        check(da[k].dtype == db[k].dtype and da[k].shape == db[k].shape
+              and da[k].tobytes() == db[k].tobytes(),
+              f"{what}: state_dict[{k!r}] bytes differ")
+
+
+def phase_pop_tick(dev, counters):
+    """One h4 cohort of 1,000,000 users on the card (``Population``, gamma
+    10, minplus): a cold attach at per-user rates, 8 AR(1) ticks of ingest
+    (B2 over every user), dense gate and solve of the changed and the
+    infeasible users, one mixed tick, then a state_dict -> restore_state
+    round trip into a fresh cohort and one more tick on both.  The kernels'
+    counts are reset before and read after.  The same sequence on the CPU
+    path must give identical incumbents, counters and state_dict bytes, and
+    B2 over each tick's rows must equal its plain version on the card."""
+    import torch
+    import repro_torch as T
+    from repro_torch.kernels.ee_gate.ops import quant_signature_rows
+    from repro_torch.kernels.ee_gate.ref import quant_signature_rows_ref
+    from repro_torch.kernels.minplus.ops import banded_minplus_chain
+    t_phase = time.perf_counter()
+    q0, draws = _pop_draws()
+    extra = draws[-1][::-1].copy()            # the tick after the restore
+    for c in counters:
+        c.launches = 0
+    torch.cuda.synchronize()
+    gpu, walls = _pop_run(dev, q0, draws, lambda: banded_minplus_chain
+                          .launches, "cuda")
+    t0 = time.perf_counter()
+    snap = gpu.state_dict()
+    back = _pop_cohort(dev)
+    back.update_slice(0.8)
+    back.update_backhaul(0.9)
+    back.restore_state(snap)
+    torch.cuda.synchronize()
+    t_restore = time.perf_counter() - t0
+    for p in (gpu, back):
+        _pop_tick(p, extra, lambda: banded_minplus_chain.launches)
+    launches = {c.__name__: c.launches for c in counters}
+    _same_cohorts(gpu, back, "restored cohort after a tick", stats=False)
+    check(launches["quant_signature_rows"] > 0, "[pop_tick] launched no B2")
+    check(launches["banded_minplus_chain"] > 0, "[pop_tick] launched no B1")
+    log("pop_tick", f"cuda: state_dict -> restore_state into a fresh cohort "
+        f"{t_restore:.3f} s; one more tick on both: identical incumbents and "
+        f"state_dict bytes; kernel launches {launches}; "
+        f"{gpu.h2d_bytes} B host -> device, {gpu.d2h_bytes} B device -> host"
+        f" in all")
+    del snap, back
+    cpu, walls_c = _pop_run("cpu", q0, draws, lambda: 0, "cpu")
+    _pop_tick(cpu, extra, lambda: 0)
+    _same_cohorts(gpu, cpu, "[pop_tick] CUDA vs the CPU path")
+    log("pop_tick", f"{POP_USERS} users: CUDA == CPU path (incumbents, "
+        f"inc_found {int(gpu.inc_found.sum())}, PopulationStats counters, "
+        f"state_dict bytes); stats {gpu.stats}")
+    log("pop_tick", "walls s (host clock, ending in synchronize) cuda "
+        + ", ".join(f"{k} {v:.3f}" for k, v in walls.items()) + " | cpu "
+        + ", ".join(f"{k} {v:.3f}" for k, v in walls_c.items()))
+    del cpu
+    c, src = ingest_consts(POP_APP, dev)
+    for t, q in enumerate([q0] + draws):
+        vec = torch.as_tensor(tick_rows(q, src, gpu.N), device=dev)
+        args = (c.bits_pack, c.C_pack, c.mask_pack, c.load_pack, c.modes,
+                c.gamma, c.delta)
+        check(torch.equal(quant_signature_rows(vec, *args),
+                          quant_signature_rows_ref(vec, *args)),
+              f"[pop_tick] B2 over the rows of input {t} differs from the "
+              f"plain version")
+    log("pop_tick", f"B2 over the {len(draws) + 1} ingests' {POP_USERS}-row "
+        f"inputs: byte-equal to the plain version on the card; the phase "
+        f"took {time.perf_counter() - t_phase:.1f} s")
+    profile_pop_tick(gpu, draws[-1])
+    return launches
+
+
+def profile_pop_tick(pop, q, ticks=3):
+    """Where a [pop_tick] tick's time goes: the device's busy share of
+    ``ticks`` ticks (torch.profiler's device events: B2, the copies, the
+    rest), then the host functions of one tick by own time (cProfile)."""
+    import cProfile
+    import io
+    import pstats
+    import torch
+    from torch.autograd import DeviceType
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as tp:
+        wall = sum(_pop_tick(pop, q, lambda: 0)["wall"]
+                   for _ in range(ticks)) * 1e3 / ticks
+    fam = {"B2": 0.0, "copies": 0.0, "other": 0.0}
+    for e in tp.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        k = e.name.lower()
+        fam["B2" if "quant_signature" in k else "copies"
+            if "memcpy" in k or "memset" in k else "other"] += \
+            e.device_time_total / 1e3 / ticks
+    busy = sum(fam.values())
+    if busy <= 0:
+        log("pop_profile", "device time: not measured (the profiler saw no "
+            "device time)")
+    else:
+        log("pop_profile", f"{ticks} ticks under torch.profiler: wall "
+            f"{wall:.1f} ms a tick, device busy {busy:.3f} ms ({busy / wall:.1%}"
+            f", idle {1 - busy / wall:.1%}): " + ", ".join(
+                f"{k} {v:.3f} ms" for k, v in fam.items()))
+    prof = cProfile.Profile()
+    prof.enable()
+    _pop_tick(pop, q, lambda: 0)
+    prof.disable()
+    out = io.StringIO()
+    pstats.Stats(prof, stream=out).sort_stats("tottime").print_stats(10)
+    for line in out.getvalue().splitlines():
+        if line.strip():
+            log("pop_profile", line.rstrip())
+
+
+def ingest_times(dev, err):
+    """B2 at the population tick's ingest, 1e6 rows, for h4 (the [pop_tick]
+    cohort: 90 int16 a row) and h6 (L = 3: 50): device ms a call from
+    CUDA-graph replays against the byte bound and the plain version,
+    beside CUDA-event means.  Returns the kernels-line row of h4."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.ee_gate.ops import quant_signature_rows
+    from repro_torch.kernels.ee_gate.ref import quant_signature_rows_ref
+    for regs, smem, spill in ptxas_usage("quant_signature_kernel").values():
+        log("times", f"B2 ptxas: {regs} registers, {smem} B static shared "
+            f"memory, {spill} B spilled")
+    row = None
+    q = np.clip(np.random.default_rng(5).normal(0.65, 0.16, POP_USERS), 0.3,
+                1.0)
+    for app in INGEST_TIME_APPS:
+        c, src = ingest_consts(app, dev)
+        vec = torch.as_tensor(tick_rows(q, src, c.C_pack.shape[1]),
+                              device=dev)
+        args = (c.bits_pack, c.C_pack, c.mask_pack, c.load_pack, c.modes,
+                c.gamma, c.delta)
+        ev = cuda_ms(lambda: quant_signature_rows(vec, *args), 50, 5)
+        ms = graph_ms(lambda: quant_signature_rows(vec, *args), 20) or ev
+        plain = graph_ms(lambda: quant_signature_rows_ref(vec, *args), 3) \
+            or cuda_ms(lambda: quant_signature_rows_ref(vec, *args), 5, 1)
+        nbytes = (vec.numel() * 8 + POP_USERS * c.out_width * 2
+                  + sum(t.numel() * t.element_size() for t in args[:4]))
+        ops = 4 * vec.numel() * c.C_pack.shape[0]   # 2 div, add, mul a slot
+        t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS_PER_S["float64"]
+        bound = max(t_b, t_o) * 1e3
+        by = "bytes" if t_b >= t_o else "operations"
+        log("times", f"B2 {app} {POP_USERS} rows x {c.out_width} int16: "
+            f"device ms a call (CUDA graph of 20 calls, plain 3) kernel "
+            f"{ms:.4f}, plain {plain:.4f} | CUDA-event mean {ev:.4f} | bound "
+            f"{bound:.6f} ms by {by} ({nbytes} B, {ops} ops, "
+            f"{nbytes / (ms * 1e-3) / 1e9:.1f} GB/s achieved, "
+            f"{bound / ms:.1%} of the bound)")
+        if app == POP_APP:
+            row = dict(name="quant_signature_rows", route="cuda",
+                       source=INGEST_SOURCE,
+                       replaces="src/repro/kernels/ee_gate/population.py:136",
+                       launches=None, max_abs_err=err, ms=ms, plain_ms=plain,
+                       bound_ms=bound, bound_by=by, library_ms=None)
+        del vec
+    torch.cuda.empty_cache()
+    return row
+
+
+# ---------------------------------------------------------------------------
 # serving: B6, B7 and the split-serving engine
 # ---------------------------------------------------------------------------
 
@@ -2278,7 +2681,7 @@ def attn_split_sweep(B, H, KV, D, dev, g):
         torch.cuda.empty_cache()
 
 
-TIMES = ("chain", "dense", "kbest", "gate", "attn", "plan")
+TIMES = ("chain", "dense", "kbest", "gate", "attn", "plan", "ingest")
 
 
 def times_only(dev, which, counters) -> None:
@@ -2298,13 +2701,15 @@ def times_only(dev, which, counters) -> None:
         attn_times(_serve_cfg(), dev, None)
     if "plan" in which:
         plan_times(dev, counters)
+    if "ingest" in which:
+        ingest_times(dev, None)
 
 
 def main(argv) -> int:
     _preflight()
     import torch
     from repro_torch.kernels.decode_attn.ops import decode_attn
-    from repro_torch.kernels.ee_gate.ops import ee_gate
+    from repro_torch.kernels.ee_gate.ops import ee_gate, quant_signature_rows
     from repro_torch.kernels.minplus.ops import (banded_minplus_argmin,
                                                  banded_minplus_chain,
                                                  banded_minplus_chain_kbest,
@@ -2317,7 +2722,8 @@ def main(argv) -> int:
     torch.backends.cudnn.allow_tf32 = False
     counters = (banded_minplus_chain, banded_minplus_argmin,
                 banded_minplus_chain_kbest, minplus_vecmat,
-                minplus_vecmat_argmin, ee_gate, decode_attn)
+                minplus_vecmat_argmin, ee_gate, decode_attn,
+                quant_signature_rows)
 
     if argv and (argv[0] != "--times" or not set(argv[1:]) <= set(TIMES)):
         print(f"usage: python3 chip_smoke.py [--times [{'] ['.join(TIMES)}]]"
@@ -2329,6 +2735,7 @@ def main(argv) -> int:
         return 0
     err = phase_kernels(dev)
     err.update(phase_kernels_dense(dev))
+    err["ingest"] = phase_kernels_ingest(dev)
     grid = full_grid()
     phase_graphs(grid, dev)
     phase_solve_fin(dev)
@@ -2349,6 +2756,11 @@ def main(argv) -> int:
         row["launches"] = path[row["name"]]
         check(row["launches"] > 0, f"{row['name']}: no launch on its path")
     phase_population(grid, dev)
+    # B2 on the population tick
+    launches_pop = phase_pop_tick(dev, counters)
+    ingest_row = ingest_times(dev, err["ingest"])
+    ingest_row["launches"] = launches_pop["quant_signature_rows"]
+    rows.append(ingest_row)
     # B4 on solve_many(backend="dense"), B5 on the Table VII path
     dense_rows, table7_layer = dense_times(grid, dev, err)
     for row, path in zip(dense_rows, (launches_d, launches_t7)):
@@ -2377,7 +2789,9 @@ def main(argv) -> int:
         "[times] shape): "
         + ", ".join(f"{n} {v:.4f} ms" for v, n in order)
         + "; B4's whole device time on [solve_many_dense] (torch.profiler): "
-        + ("not measured" if b4_path_ms is None else f"{b4_path_ms:.4f} ms"))
+        + ("not measured" if b4_path_ms is None else f"{b4_path_ms:.4f} ms")
+        + f"; B1 launches on [pop_tick]: "
+        f"{launches_pop['banded_minplus_chain']}")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,6 +9,7 @@
   fin / mcp / optimum -- the three solvers compared in Sec. V
   frontier       -- the Pareto frontier behind the FIN argmin (host code)
   plan           -- the persistent plan IR: typed deltas, warm re-solves
+  population     -- struct-of-arrays cohorts: whole-population churn ticks
   scenarios      -- the paper's evaluation scenarios and churn traces
   contingency    -- precomputed-failover library (O(1) failure masks)
 """
@@ -29,6 +30,7 @@ from .mcp import solve_mcp
 from .optimum import solve_opt
 from .plan import (Plan, PlanStats, migration_delta, solve_plans,
                    update_uplinks)
+from .population import Population, PopulationStats
 from .problem import (AppRequirements, Config, ConfigEval, Solution,
                       evaluate_config)
 from .scenarios import (ChurnEvent, churn_trace, paper_apps, paper_scenario,
@@ -48,6 +50,7 @@ __all__ = [
     "FrontierRow", "ParetoFrontier", "brute_force_frontier",
     "frontier_from_rows", "pareto_mask",
     "Plan", "PlanStats", "solve_plans", "update_uplinks", "migration_delta",
+    "Population", "PopulationStats",
     "solve_mcp", "solve_opt", "paper_scenario", "sweep_scenarios",
     "paper_apps", "ChurnEvent", "churn_trace",
     "ContingencyEntry", "ContingencyLibrary", "ContingencyPolicy",

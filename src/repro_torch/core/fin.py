@@ -457,7 +457,8 @@ def _best_feasible(network: Network, profile: DNNProfile,
                    admissible_exits: Sequence[int],
                    check_aggregate_load: bool,
                    bound: Optional[Tuple[Config, ConfigEval]] = None,
-                   dist_tol: float = 1e-9, oracle: bool = False
+                   dist_tol: float = 1e-9, oracle: bool = False,
+                   candidates=None
                    ) -> Optional[Tuple[Config, ConfigEval]]:
     """Exact (3a)-(3e) post-pass: cheapest feasible config over all exits.
 
@@ -468,7 +469,10 @@ def _best_feasible(network: Network, profile: DNNProfile,
     carries the bounding pass's (config, eval) pair, reused when a scanned
     candidate is that configuration.  ``oracle=True`` is the reference's
     seed pipeline (the ``python`` backend): eager per-exit config lists and
-    no exit pruning.
+    no exit pruning.  ``candidates`` optionally replaces the lazy per-exit
+    iteration: ``k -> iterator of (Config, graph_energy)`` yielding exactly
+    the ``_iter_configs_at_exit`` sequence (the population engine's
+    per-state candidate cache).
     """
     bound_energy = bound[1].energy if bound is not None else None
     found: Optional[Tuple[Config, ConfigEval]] = None
@@ -477,8 +481,12 @@ def _best_feasible(network: Network, profile: DNNProfile,
         if not oracle and best_e is not None:
             if _exit_dmin(dp, profile.exits[k].block) > best_e * (1 + dist_tol):
                 continue
-        configs = (_configs_at_exit(dp, profile, k) if oracle
-                   else _iter_configs_at_exit(dp, profile, k))
+        if oracle:
+            configs = _configs_at_exit(dp, profile, k)
+        elif candidates is not None:
+            configs = candidates(k)
+        else:
+            configs = _iter_configs_at_exit(dp, profile, k)
         for cfg, _graph_e in configs:
             if (bound is not None and cfg.final_exit == bound[0].final_exit
                     and cfg.placement == bound[0].placement):

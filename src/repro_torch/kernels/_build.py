@@ -28,21 +28,23 @@ BASE_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 #: ``-fmad=false`` keeps every add of the (min,+) kernels a plain IEEE add
 #: (no contraction), which their bit-exactness against the reference rests
-#: on.  The exit gate and the attention kernel are held to a tolerance and
-#: keep the default contraction.  ``-Xptxas -v`` puts the registers and
-#: shared memory of each kernel into the build log.
+#: on, as the fused ingest's byte-equal signatures rest on its IEEE order.
+#: The exit gate and the attention kernel are held to a tolerance and keep
+#: the default contraction.  ``-Xptxas -v`` puts the registers and shared
+#: memory of each kernel into the build log.
 EXACT_FLAGS = ("-fmad=false",)
 BUILD_DIR = KERNELS.parents[2] / "build"
 
-_PTR, _INT = ctypes.c_void_p, ctypes.c_int
+_PTR, _INT, _DBL = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 
 
 @dataclass(frozen=True)
 class Source:
     path: Path                      # relative to ``kernels/``
     flags: Tuple[str, ...]          # besides BASE_FLAGS
-    #: C entry point -> argument types (device pointers, int sizes, then
-    #: the stream); every entry point returns a cudaError_t
+    #: C entry point -> argument types (device pointers, int sizes, a
+    #: double where a value must reach the kernel unrounded, then the
+    #: stream); every entry point returns a cudaError_t
     entry_points: Dict[str, List]
 
 
@@ -70,6 +72,10 @@ SOURCES: Tuple[Source, ...] = (
     Source(Path("decode_attn/csrc/decode_attn.cu"), (),
            {name: [_PTR] * 5 + [_INT] * 8 + [_PTR]
             for name in ("decode_attn_f32", "decode_attn_bf16")}),
+    # vec, bits, C, mask, load, out | Us, K2, N, M, mode0, mode1, gamma |
+    # delta | stream
+    Source(Path("ee_gate/csrc/quant_signature.cu"), EXACT_FLAGS,
+           {"quant_signature": [_PTR] * 6 + [_INT] * 7 + [_DBL] + [_PTR]}),
 )
 
 

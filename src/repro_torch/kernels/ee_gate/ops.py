@@ -1,19 +1,20 @@
-"""Wrapper of the exit-gate kernel B6.
+"""Wrappers of the exit-gate kernel B6 and the fused-ingest kernel B2.
 
-For a CUDA tensor ``ee_gate`` launches the hand-written kernel
-(``csrc/ee_gate.cu``) or raises; for a CPU tensor it runs the plain
-PyTorch version in ``ref.py``.  It counts its kernel launches in a plain
-integer attribute, ``launches``, so a run can show that its main path went
-through the kernel.
+For a CUDA tensor ``ee_gate`` / ``quant_signature_rows`` launch the
+hand-written kernel (``csrc/ee_gate.cu``, ``csrc/quant_signature.cu``) or
+raise; for a CPU tensor they run the plain PyTorch version in ``ref.py``.
+Each counts its kernel launches in a plain integer attribute,
+``launches``, so a run can show that its main path went through the
+kernel.
 """
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import List, Sequence, Tuple
 
 import torch
 
 from .._build import launch, sm_count
-from .ref import ee_gate_ref
+from .ref import ee_gate_ref, quant_signature_rows_ref
 
 _ENTRY = {torch.float32: "ee_gate_f32", torch.bfloat16: "ee_gate_bf16"}
 #: elements a block takes at least, blocks a row at most, and the rows and
@@ -73,3 +74,57 @@ def ee_gate(logits: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 ee_gate.launches = 0
+
+
+#: quantizer mode -> the fused-ingest kernel's mode code
+QUANT_MODES = {"floor": 0, "ceil": 1, "round": 2}
+
+
+def quant_signature_rows(vec: torch.Tensor, bits: torch.Tensor,
+                         C: torch.Tensor, mask: torch.Tensor,
+                         load: torch.Tensor, modes: Sequence[str],
+                         gamma: int, delta: float) -> torch.Tensor:
+    """The population tick's fused ingest (B2): (Us, N) float64 bandwidth
+    rows -> (Us, M*K2*N) int16 signature rows (see ``ref.py``), byte-equal
+    to the plain version.  ``bits`` / ``load``: (K2, 1) float64; ``C``:
+    (K2, N) float64; ``mask``: (K2, N) bool; one or two ``modes``; ``delta``
+    reaches the kernel as a double, unrounded."""
+    if vec.device.type == "cpu":
+        return quant_signature_rows_ref(vec, bits, C, mask, load, modes,
+                                        gamma, delta)
+    if vec.device.type != "cuda":
+        raise ValueError(f"no fused-ingest kernel for device {vec.device}")
+    if vec.dim() != 2 or C.dim() != 2 or vec.shape[1] != C.shape[1]:
+        raise ValueError(f"expected vec (Us, N) and C (K2, N), got "
+                         f"{tuple(vec.shape)} and {tuple(C.shape)}")
+    Us, N = vec.shape
+    K2 = C.shape[0]
+    for name, t, shape, dtype in (("vec", vec, (Us, N), torch.float64),
+                                  ("bits", bits, (K2, 1), torch.float64),
+                                  ("C", C, (K2, N), torch.float64),
+                                  ("mask", mask, (K2, N), torch.bool),
+                                  ("load", load, (K2, 1), torch.float64)):
+        if tuple(t.shape) != shape or t.dtype != dtype:
+            raise ValueError(f"{name}: expected {shape} {dtype}, got "
+                             f"{tuple(t.shape)} {t.dtype}")
+        if t.device != vec.device or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous on {vec.device}")
+    if not 1 <= len(modes) <= 2 or any(m not in QUANT_MODES for m in modes):
+        raise ValueError(f"the fused-ingest kernel takes one or two of "
+                         f"{sorted(QUANT_MODES)}, got {tuple(modes)}")
+    if not 0 <= gamma < 32767 or Us >= 2 ** 31:
+        raise ValueError(f"the fused-ingest kernel takes 0 <= gamma < 32767 "
+                         f"and Us < 2^31, got gamma={gamma}, Us={Us}")
+    M = len(modes)
+    out = torch.empty((Us, M * K2 * N), dtype=torch.int16, device=vec.device)
+    if Us == 0:
+        return out
+    codes = [QUANT_MODES[m] for m in modes]
+    launch("quant_signature", vec.device, vec.data_ptr(), bits.data_ptr(),
+           C.data_ptr(), mask.data_ptr(), load.data_ptr(), out.data_ptr(),
+           Us, K2, N, M, codes[0], codes[-1], int(gamma), float(delta))
+    quant_signature_rows.launches += 1
+    return out
+
+
+quant_signature_rows.launches = 0

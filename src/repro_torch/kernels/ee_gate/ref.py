@@ -1,4 +1,4 @@
-"""Plain PyTorch version of the exit gate (B6).
+"""Plain PyTorch versions of the exit gate (B6) and the fused ingest (B2).
 
 Port of the reference's oracle ``ee_gate_ref``
 (``repro/kernels/ee_gate/ref.py``): clamp to NEG so a -inf padded tail adds
@@ -8,10 +8,15 @@ of every row.  ``exp(m - logsumexp(x))`` is written as its equal
 compute, which avoids rounding ``m + log(sum)`` at large logits.  The CPU
 path of the port runs on it, and the CUDA kernel is held to it on the card
 (conf to a relative 1e-5, the argmax exactly).
+
+``quant_signature_rows_ref`` is the population tick's fused ingest: the
+packed uplink requantizer of ``core/plan.py`` over a batch of bandwidth
+rows, encoded as the int16 signature rows the cohort-state table keys on.
+The CPU path runs on it, and the CUDA kernel is held to it byte for byte.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Sequence, Tuple
 
 import torch
 
@@ -60,3 +65,48 @@ def ee_gate_split_ref(logits: torch.Tensor, P: int
     for p in range(P):                        # ascending slice order
         total = total + term[:, p]
     return 1.0 / total, arg.to(torch.int32)
+
+
+def _quant_raw(x: torch.Tensor, mode: str) -> torch.Tensor:
+    """Eq. (4) quantizer without the non-finite guard (``round`` is half to
+    even, like ``np.round``)."""
+    if mode == "floor":
+        return torch.floor(x + 1e-12)
+    if mode == "ceil":
+        return torch.ceil(x - 1e-12)
+    if mode == "round":
+        return torch.round(x)
+    raise ValueError(f"unknown quantize mode {mode!r}")
+
+
+def quant_signature_rows_ref(vec: torch.Tensor, bits: torch.Tensor,
+                             C: torch.Tensor, mask: torch.Tensor,
+                             load: torch.Tensor, modes: Sequence[str],
+                             gamma: int, delta: float) -> torch.Tensor:
+    """(Us, N) float64 bandwidth rows -> (Us, M*K2*N) int16 signature rows.
+
+    ``bits`` / ``load`` are (K2, 1) columns and ``C`` / ``mask`` (K2, N)
+    packs, on ``vec``'s device.  The operations and their order are
+    ``plan.update_uplinks``'s: ``where(vec > 0, vec, nan)``, ``bits /
+    bwm``, ``+ C``, ``* gamma``, ``/ delta``, the validity mask, then each
+    mode's quantizer, with -1 wherever a value is invalid or above gamma.
+    ``delta`` divides as a tensor on the same device: PyTorch divides a
+    CUDA tensor by a Python scalar as a multiply by its rounded reciprocal.
+    """
+    Us, N = vec.shape
+    K2 = C.shape[0]
+    d = torch.full((1, 1, 1), float(delta), dtype=torch.float64,
+                   device=vec.device)
+    bwm = torch.where(vec > 0, vec, float("nan"))
+    sc = bits.reshape(1, K2, 1) / bwm[:, None, :]
+    sc = sc + C[None]
+    sc = sc * gamma
+    sc = sc / d
+    valid = (torch.isfinite(sc) & mask[None]
+             & (load.reshape(1, K2, 1) <= vec[:, None, :]))
+    outs = []
+    for mode in modes:
+        q = _quant_raw(sc, mode)
+        outs.append(torch.where(valid & (q <= gamma), q, -1.0)
+                    .to(torch.int16))
+    return torch.stack(outs, dim=1).reshape(Us, len(modes) * K2 * N)

@@ -14,7 +14,9 @@ sort), and the solver and the plan IR on CUDA must equal their CPU path.
 The dense (min,+) products (B5, and B4 with its argmin) are bit-equal to
 their plain versions too, with a shared W and with a W per row, and the
 dense engines and ``solve_many(backend="dense")`` on CUDA equal their CPU
-path.  The exit gate (B6) holds conf to a relative 1e-5 (sums in another order)
+path.  The fused ingest (B2) is byte-equal to its plain version, on rows built
+to reach every edge of the quantizer, and a small ``Population`` on CUDA
+equals its CPU path.  The exit gate (B6) holds conf to a relative 1e-5 (sums in another order)
 and its argmax exactly; decode attention (B7) holds 2e-5 in float32 and
 2e-2 in bf16 (its plain version rounds the probabilities to bf16 before
 the PV product, the kernel keeps them in float32), with whole split ranges
@@ -34,8 +36,11 @@ from repro_torch.kernels.decode_attn.ops import (decode_attn, split_plan,
                                                  split_ranges)
 from repro_torch.kernels.decode_attn.ref import decode_attn_ref
 from repro_torch.kernels._build import sm_count
-from repro_torch.kernels.ee_gate.ops import ee_gate, gate_plan, gate_slices
-from repro_torch.kernels.ee_gate.ref import ee_gate_ref
+from repro_torch.kernels.ee_gate.ops import (ee_gate, gate_plan, gate_slices,
+                                             quant_signature_rows)
+from repro_torch.kernels.ee_gate.population import QuantConsts
+from repro_torch.kernels.ee_gate.ref import (ee_gate_ref,
+                                             quant_signature_rows_ref)
 from repro_torch.kernels.minplus import ops
 from repro_torch.kernels.minplus.ops import (banded_minplus_argmin,
                                              banded_minplus_chain,
@@ -709,3 +714,179 @@ def test_dense_fin_all_exit_costs_on_card(cuda_device):
                                device=cuda_device)
     assert f32.tobytes() == T.fin_all_exit_costs(
         nw, pf, req, gamma=10, backend="f32", device="cpu").tobytes()
+
+
+# ---------------------------------------------------------------------------
+# the fused ingest (B2) and the population cohort
+# ---------------------------------------------------------------------------
+
+def _ingest_consts(app, device, modes=None, gamma=10, delta=None):
+    """The constants bundle of one app's plan on the paper scenario with two
+    extra edge nodes, on ``device``; and the source node."""
+    nw = T.paper_scenario(n_extra_edge=2)
+    req = T.AppRequirements(0.55, 5e-3)
+    p = T.Plan(nw, T.paper_profile(app), req, gamma=gamma, device=device)
+    return QuantConsts(p._bits_pack, p._C_pack, p._mask_pack, p._load_pack,
+                       tuple(p._modes if modes is None else modes), gamma,
+                       req.delta if delta is None else delta), \
+        nw.source_node
+
+
+def _ingest_rows(c, Us, seed, src):
+    """Seeded (Us, N) rates with rates aimed at integers and .5 ties of the
+    scaled value (and one ulp either side), zeros, NaN, +-inf, negatives
+    and rates below the loads."""
+    rng = np.random.default_rng(seed)
+    C = c.C_pack.cpu().numpy()
+    bits = c.bits_pack.cpu().numpy()[:, 0]
+    K2, N = C.shape
+    vec = rng.uniform(0.05, 2.0, (Us, N)) * 1e9
+    k = rng.integers(0, K2, (Us, N))
+    target = rng.integers(0, c.gamma + 2, (Us, N)) \
+        + rng.choice([0.0, 0.5], (Us, N))
+    denom = target * c.delta / c.gamma - C[k, np.arange(N)]
+    aimed = bits[k] / np.where(denom > 0, denom, np.nan)
+    step = rng.integers(-1, 2, (Us, N))
+    aimed = np.where(step < 0, np.nextafter(aimed, 0.0),
+                     np.where(step > 0, np.nextafter(aimed, np.inf), aimed))
+    vec = np.where(np.isfinite(aimed) & (rng.random((Us, N)) < 0.5), aimed,
+                   vec)
+    special = rng.random((Us, N))
+    for lo, hi, v in ((0.0, 0.04, 0.0), (0.04, 0.07, np.nan),
+                      (0.07, 0.09, -1e9), (0.09, 0.11, -np.inf),
+                      (0.11, 0.13, np.inf), (0.13, 0.18, 1e3)):
+        vec[(special >= lo) & (special < hi)] = v
+    vec[:, src] = np.inf
+    return vec
+
+
+@pytest.mark.parametrize("Us", [0, 1, 4097, 100_003])
+@pytest.mark.parametrize("app", ["h1", "h4", "h6"])
+def test_quant_signature_kernel_byte_equal_on_card(cuda_device, app, Us):
+    """Both modes of the plan's packs, then the tighten loop's single-mode
+    packs at a Python delta_eff: the kernel's rows equal its plain
+    version's on the card and on the CPU."""
+    c, src = _ingest_consts(app, cuda_device)
+    bundles = [c] + [QuantConsts(c.bits_pack, c.C_pack, c.mask_pack,
+                                 c.load_pack, ("floor",), c.gamma,
+                                 c.delta * 0.85 ** r) for r in (1, 4)]
+    vec = torch.as_tensor(_ingest_rows(c, Us, Us + len(app), src),
+                          device=cuda_device)
+    for b in bundles:
+        args = (b.bits_pack, b.C_pack, b.mask_pack, b.load_pack, b.modes,
+                b.gamma, b.delta)
+        n = quant_signature_rows.launches
+        got = quant_signature_rows(vec, *args)
+        torch.cuda.synchronize()
+        assert quant_signature_rows.launches == n + (Us > 0)
+        assert got.shape == (Us, b.out_width) and got.dtype == torch.int16
+        assert torch.equal(got, quant_signature_rows_ref(vec, *args))
+        cpu = quant_signature_rows_ref(vec.cpu(), *(
+            a.cpu() if isinstance(a, torch.Tensor) else a for a in args))
+        assert torch.equal(got.cpu(), cpu)
+
+
+@pytest.mark.parametrize("gamma", [3, 10])
+@pytest.mark.parametrize("modes", [("floor", "ceil"), ("round", "ceil"),
+                                   ("round",), ("ceil", "floor")])
+def test_quant_signature_kernel_modes_on_card(cuda_device, modes, gamma):
+    """Synthetic packs with masked slots, zero C, large loads and values
+    above gamma, every mode pair and gamma."""
+    rng = np.random.default_rng(gamma)
+    K2, N = 7, 6
+    packs = [rng.uniform(1e3, 5e6, (K2, 1)), rng.uniform(0.0, 3e-3, (K2, N)),
+             rng.random((K2, N)) > 0.2, rng.uniform(0.0, 6e8, (K2, 1))]
+    packs[1][rng.random((K2, N)) < 0.1] = 0.0
+    c = QuantConsts(*(torch.as_tensor(a, device=cuda_device) for a in packs),
+                    modes, gamma, float(rng.uniform(2e-3, 12e-3)))
+    vec = torch.as_tensor(_ingest_rows(c, 5000, 3, 0), device=cuda_device)
+    args = (c.bits_pack, c.C_pack, c.mask_pack, c.load_pack, c.modes,
+            c.gamma, c.delta)
+    got = quant_signature_rows(vec, *args)
+    want = quant_signature_rows_ref(vec, *args)
+    assert torch.equal(got, want)
+    assert bool((want == -1).any()) and bool((want > 0).any())
+
+
+def test_quant_signature_wrapper_refuses_bad_inputs(cuda_device):
+    c, _ = _ingest_consts("h1", cuda_device)
+    args = [c.bits_pack, c.C_pack, c.mask_pack, c.load_pack, c.modes,
+            c.gamma, c.delta]
+    vec = torch.ones((4, 5), dtype=torch.float64, device=cuda_device)
+    n = quant_signature_rows.launches
+    with pytest.raises(ValueError, match="vec"):
+        quant_signature_rows(vec.float(), *args)
+    with pytest.raises(ValueError, match="contiguous"):
+        quant_signature_rows(torch.ones((5, 4), dtype=torch.float64,
+                                        device=cuda_device).t(), *args)
+    with pytest.raises(ValueError, match="mask"):
+        quant_signature_rows(vec, args[0], args[1], args[2].double(),
+                             *args[3:])
+    with pytest.raises(ValueError, match="one or two"):
+        quant_signature_rows(vec, *args[:4], ("floor", "ceil", "round"),
+                             *args[5:])
+    with pytest.raises(ValueError, match="gamma"):
+        quant_signature_rows(vec, *args[:5], 40000, c.delta)
+    with pytest.raises(ValueError, match="contiguous"):
+        quant_signature_rows(vec, args[0].cpu(), *args[1:])
+    assert quant_signature_rows.launches == n
+
+
+def test_population_on_card_equals_cpu_path(cuda_device):
+    """A small h1 cohort through AR(1) ticks, a failure, a slice and a
+    backhaul repricing and a checkpoint round trip: incumbents, counters
+    and state_dict bytes on CUDA equal the CPU path's, and the ticks
+    launched B2 and B1."""
+    nw = T.paper_scenario(n_extra_edge=2)
+    pf = T.paper_profile("h1")
+    req = T.AppRequirements(0.55, 5e-3)
+    U = 2048
+    pops = [T.Population(nw, pf, req, U, device=dev)
+            for dev in (cuda_device, "cpu")]
+    rng = np.random.default_rng(5)
+    q = rng.uniform(0.3, 1.0, U)
+    b2, b1 = quant_signature_rows.launches, banded_minplus_chain.launches
+
+    def same():
+        a, b = (p.state_dict() for p in pops)
+        assert sorted(a) == sorted(b)
+        for k in a:
+            assert a[k].dtype == b[k].dtype and \
+                a[k].tobytes() == b[k].tobytes(), k
+        sa, sb = (dataclasses.asdict(p.stats) for p in pops)
+        assert {k: v for k, v in sa.items() if not k.startswith("t_")} == \
+            {k: v for k, v in sb.items() if not k.startswith("t_")}
+        assert np.array_equal(pops[0].inc_found, pops[1].inc_found)
+
+    for p in pops:
+        p.attach_many(1e9 * q)
+    same()
+    for t in range(5):
+        q = np.clip(0.65 + 0.95 * (q - 0.65) + rng.normal(0, 0.1, U),
+                    0.3, 1.0)
+        chs = [p.ingest(1e9 * q) for p in pops]
+        assert np.array_equal(chs[0], chs[1])
+        evs = [p.evaluate_incumbents() for p in pops]
+        users = np.nonzero(chs[0] | ~evs[0][1])[0]
+        for p in pops:
+            if t == 2:
+                p.mask_node(3, users=np.arange(0, U, 8))
+            p.solve(users, build_solutions=False)
+        same()
+    for p in pops:
+        p.update_slice(0.8)
+        p.update_backhaul(0.9)
+        p.solve(build_solutions=False)
+    same()
+    snaps = [p.state_dict() for p in pops]
+    fresh = [T.Population(nw, pf, req, U, device=dev)
+             for dev in (cuda_device, "cpu")]
+    for p, d in zip(fresh, snaps):
+        p.update_slice(0.8)
+        p.update_backhaul(0.9)
+        p.restore_state(d)
+    pops = fresh
+    same()
+    assert quant_signature_rows.launches > b2
+    assert banded_minplus_chain.launches > b1
+    assert pops[0].h2d_bytes > 0 and pops[0].d2h_bytes > 0

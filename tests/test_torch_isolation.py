@@ -5,7 +5,8 @@
 * Importing ``repro_torch`` in a fresh interpreter leaves ``jax`` out of
   ``sys.modules``.
 * ``device=None`` means ``cuda:0`` and raises where CUDA is absent, for
-  the solvers and for the serving engine and its launcher.
+  the solvers, the population cohort and the serving engine and its
+  launcher.
 * ``chip_smoke.py`` exits non-zero, printing no result, without a card.
 """
 import ast
@@ -61,6 +62,8 @@ def test_import_in_fresh_interpreter_loads_no_jax_and_builds_nothing():
     code = ("import sys, repro_torch, repro_torch.core.fin, "
             "repro_torch.kernels.minplus.ops, repro_torch.convert, "
             "repro_torch.kernels.ee_gate.ops, "
+            "repro_torch.kernels.ee_gate.population, "
+            "repro_torch.core.population, "
             "repro_torch.kernels.decode_attn.ops, "
             "repro_torch.runtime.serve_engine, repro_torch.launch.serve\n"
             "from repro_torch.kernels import _build\n"
@@ -97,7 +100,9 @@ def test_entry_points_do_not_fall_back_to_cpu():
                  lambda: T.build_extended_graph(nw, pf, req),
                  lambda: T.fin_all_exit_costs(nw, pf, req),
                  lambda: T.fin_all_exit_costs(nw, pf, req, backend="numpy"),
-                 lambda: T.solve_fin(nw, pf, req, backend="python")):
+                 lambda: T.solve_fin(nw, pf, req, backend="python"),
+                 lambda: T.Population(nw, pf, req, 4),
+                 lambda: T.Population(nw, pf, req, 4, fused_ingest="numpy")):
         with pytest.raises(RuntimeError, match="cuda"):
             call()
 
