@@ -51,7 +51,9 @@ B4 / B5 at the dense path's largest launch and at both Table VII layers,
 B3 at the k-best path's largest launch in float64 and float32, at K = 32
 and gamma = 10, and at the largest [frontier] launch, B6 at [4, 153,600] in float32 and bf16 on seeded logits, B7, and the
 [plan] wall (768 plans, 9 ticks, CUDA and the CPU path), B2 at 1e6 rows
-for h4 and h6; all of them
+for h4 and h6 (and on the [pop_tick] rows with the packs before and after
+the reprices, by graph replays, single launches and torch.profiler); all
+of them
 without a name, else the named ones.  The kernels are timed as CUDA-graph
 replays beside CUDA-event means.  The timings use only the kernels' public
 wrappers, so a copy of this script run from an older checkout times that
@@ -169,6 +171,16 @@ POP_FAIL_NODE = 2
 #: L = 3, 50 int16 a signature)
 INGEST_CHECK_ROWS = (1, 4097, 100_003)
 INGEST_TIME_APPS = ("h4", "h6")
+#: B2's fast path takes divide operands of +0 or in [2^-200, 2^200]: rates
+#: at and across those ends, subnormal, tiny and huge rates (bits / rate
+#: underflows) and the largest double, for the [kernels] checks
+INGEST_EDGE_RATES = (5e-324, 1e-310, 2.2250738585072014e-308, 2.0 ** -200,
+                     2.0 ** -200 * (1 - 2.0 ** -53), 2.0 ** 200,
+                     2.0 ** 200 * (1 + 2.0 ** -52), 1e300,
+                     1.7976931348623157e308)
+#: deltas of the [kernels] checks beside the app's: subnormal and tiny
+#: (outside the fast domain), inside it at both ends, and huge
+INGEST_EDGE_DELTAS = (5e-324, 1e-200, 1e-55, 1e50, 1e300)
 PLAN_USERS = 128
 PLAN_TICKS = 8
 FRONTIER_USERS = 16
@@ -1704,15 +1716,19 @@ def phase_population(grid, dev):
 # the population tick: the fused ingest B2 and the Population cohort
 # ---------------------------------------------------------------------------
 
-def ingest_consts(app, dev, modes=None, delta=None):
+def ingest_consts(app, dev, modes=None, delta=None, reprice=False):
     """The fused ingest's constants bundle of one app's plan on the paper
     scenario with two extra edge nodes (N = 5) at gamma = POP_GAMMA, on
-    ``dev``; and the source node."""
+    ``dev``; and the source node.  ``reprice`` takes the packs after the
+    [pop_tick] mixed tick's slice (0.8) and backhaul (0.9) reprices."""
     import repro_torch as T
     from repro_torch.kernels.ee_gate.population import QuantConsts
     nw = T.paper_scenario(n_extra_edge=2)
     req = T.AppRequirements(*MULTIAPP_REQS[app])
     p = T.Plan(nw, T.paper_profile(app), req, gamma=POP_GAMMA, device=dev)
+    if reprice:
+        p.update_slice(0.8)
+        p.update_backhaul(0.9)
     return QuantConsts(p._bits_pack, p._C_pack, p._mask_pack, p._load_pack,
                        tuple(p._modes if modes is None else modes), POP_GAMMA,
                        req.delta if delta is None else delta), \
@@ -1720,9 +1736,11 @@ def ingest_consts(app, dev, modes=None, delta=None):
 
 
 def ingest_rows(c, Us, seed, src):
-    """Seeded (Us, N) rates that reach every edge of the quantizer: rates
-    aimed at integers and .5 ties of the scaled value (and one ulp either
-    side), zeros, NaN, +-inf, negatives and rates below the loads."""
+    """Seeded (Us, N) rates that reach every edge of the quantizer and of
+    B2's divide: rates aimed at integers and .5 ties of the scaled value
+    (and one ulp either side), rates whose significand is all ones and
+    powers of two, INGEST_EDGE_RATES, zeros, NaN, +-inf, negatives and
+    rates below the loads."""
     import numpy as np
     rng = np.random.default_rng(seed)
     C = c.C_pack.cpu().numpy()
@@ -1739,6 +1757,14 @@ def ingest_rows(c, Us, seed, src):
                      np.where(step > 0, np.nextafter(aimed, np.inf), aimed))
     vec = np.where(np.isfinite(aimed) & (rng.random((Us, N)) < 0.5), aimed,
                    vec)
+    erng = np.random.default_rng(seed + 1)
+    pick = erng.random((Us, N))
+    two_k = 2.0 ** erng.integers(10, 40, (Us, N))
+    edge = np.array(INGEST_EDGE_RATES)[erng.integers(0, len(
+        INGEST_EDGE_RATES), (Us, N))]
+    vec = np.where(pick < 0.06, np.nextafter(two_k, 0.0), vec)
+    vec = np.where((pick >= 0.06) & (pick < 0.08), two_k, vec)
+    vec = np.where((pick >= 0.08) & (pick < 0.11), edge, vec)
     special = rng.random((Us, N))
     for lo, hi, v in ((0.0, 0.04, 0.0), (0.04, 0.07, np.nan),
                       (0.07, 0.09, -1e9), (0.09, 0.11, -np.inf),
@@ -1746,6 +1772,55 @@ def ingest_rows(c, Us, seed, src):
         vec[(special >= lo) & (special < hi)] = v
     vec[:, src] = np.inf
     return vec
+
+
+def ingest_bundles(c):
+    """The constants bundles B2 is checked on for one app: its plan's
+    (both modes), the tighten loop's single-mode bundles at a Python
+    delta_eff, synthetic packs with zero bits and zero C entries, and the
+    app's packs at INGEST_EDGE_DELTAS."""
+    import torch
+    from repro_torch.kernels.ee_gate.population import QuantConsts
+    packs = (c.bits_pack, c.C_pack, c.mask_pack, c.load_pack)
+    bits0 = c.bits_pack.clone()
+    bits0[::3] = 0.0
+    C0 = c.C_pack.clone()
+    C0[torch.arange(C0.numel(), device=C0.device).reshape(C0.shape) % 4
+       == 1] = 0.0
+    return ([c] + [QuantConsts(*packs, (c.modes[0],), c.gamma,
+                               c.delta * 0.85 ** r) for r in (1, 6)]
+            + [QuantConsts(bits0, C0, c.mask_pack, c.load_pack, c.modes,
+                           c.gamma, c.delta)]
+            + [QuantConsts(*packs, c.modes, c.gamma, d)
+               for d in INGEST_EDGE_DELTAS])
+
+
+def divide_operands(n, seed):
+    """Seeded float64 (a, b) pairs in B2's fast domain (+0 or [2^-200,
+    2^200]) aimed at the divide's edges: significands all ones, powers of
+    two, short and random significands, the domain's ends, zero dividends,
+    and the ingest's own magnitudes (bits of 1e3-1e7 over rates of
+    1e5-1e10)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+
+    def draw(lo, hi):
+        e = rng.integers(lo, hi + 1, n).astype(float)
+        kind = rng.integers(0, 5, n)
+        m = np.where(kind == 0, 2.0 - 2.0 ** -52, np.where(
+            kind == 1, 1.0, np.where(kind == 2, 1.0 + rng.integers(
+                0, 2 ** 12, n) * 2.0 ** -12, 1.0 + rng.random(n))))
+        return np.ldexp(m, e.astype(int))
+
+    a, b = draw(-199, 199), draw(-199, 199)
+    near = rng.random(n) < 0.3
+    a = np.where(near, draw(10, 23), a)
+    b = np.where(near, draw(17, 33), b)
+    ends = np.array([2.0 ** -200, 2.0 ** 200 * (1 - 2.0 ** -53)])
+    a[rng.random(n) < 0.02] = 0.0
+    a = np.where(rng.random(n) < 0.02, ends[rng.integers(0, 2, n)], a)
+    b = np.where(rng.random(n) < 0.02, ends[rng.integers(0, 2, n)], b)
+    return a, b
 
 
 def tick_rows(q, src, N):
@@ -1760,21 +1835,21 @@ def tick_rows(q, src, N):
 
 
 def phase_kernels_ingest(dev):
-    """B2 against its plain version on the card, byte for byte: both modes
-    of the h1 / h4 / h6 packs and the tighten loop's single-mode packs at a
-    Python delta_eff, on rows that reach every edge of the quantizer, at
-    several batch sizes."""
+    """B2 against its plain version on the card, byte for byte: the h1 /
+    h4 / h6 bundles of ``ingest_bundles`` on rows that reach every edge of
+    the quantizer and of the divide, at several batch sizes; then the
+    kernel's fast-path divide against IEEE division on the card and on
+    the host, bit for bit."""
+    import numpy as np
     import torch
-    from repro_torch.kernels.ee_gate.ops import quant_signature_rows
-    from repro_torch.kernels.ee_gate.population import QuantConsts
+    from repro_torch.kernels.ee_gate.ops import (quant_signature_divide,
+                                                 quant_signature_rows)
     from repro_torch.kernels.ee_gate.ref import quant_signature_rows_ref
     quant_signature_rows.launches = 0
     err = 0.0
     for app in ("h1", "h4", "h6"):
         c, src = ingest_consts(app, dev)
-        bundles = [c] + [QuantConsts(c.bits_pack, c.C_pack, c.mask_pack,
-                                     c.load_pack, (c.modes[0],), c.gamma,
-                                     c.delta * 0.85 ** r) for r in (1, 6)]
+        bundles = ingest_bundles(c)
         for Us in INGEST_CHECK_ROWS:
             vec = torch.as_tensor(ingest_rows(c, Us, Us + len(app), src),
                                   device=dev)
@@ -1795,6 +1870,21 @@ def phase_kernels_ingest(dev):
                     f"valid, levels {int(want.max())} max)")
     log("kernels", f"B2 quant_signature_rows: {quant_signature_rows.launches}"
         f" launches, byte-equal, max_abs_err {err}")
+    a, b = divide_operands(1 << 22, 21)
+    got = quant_signature_divide(torch.as_tensor(a, device=dev),
+                                 torch.as_tensor(b, device=dev))
+    card = torch.as_tensor(a, device=dev) / torch.as_tensor(b, device=dev)
+    bad = int((got.view(torch.int64) != card.view(torch.int64)).sum())
+    host = int((got.cpu().numpy().view(np.int64)
+                != (a / b).view(np.int64)).sum())
+    check(bad == 0 and host == 0, f"B2's fast-path divide differs from IEEE "
+          f"division on {bad} (card) / {host} (host) of {len(a)} pairs")
+    sig = np.frexp(b)[0]
+    log("kernels", f"B2 fast-path divide (one reciprocal, Markstein): "
+        f"bit-equal to IEEE division on the card and on the host for all "
+        f"{len(a)} seeded pairs ({int((sig == 0.5).sum())} power-of-two "
+        f"divisors, {int((sig == 1 - 2.0 ** -53).sum())} all-ones divisor "
+        f"significands, {int((a == 0).sum())} zero dividends)")
     return err
 
 
@@ -2005,13 +2095,15 @@ def profile_pop_tick(pop, q, ticks=3):
         wall = sum(_pop_tick(pop, q, lambda: 0)["wall"]
                    for _ in range(ticks)) * 1e3 / ticks
     fam = {"B2": 0.0, "copies": 0.0, "other": 0.0}
+    seen = dict.fromkeys(fam, 0)
     for e in tp.events():
         if e.device_type != DeviceType.CUDA:
             continue
         k = e.name.lower()
-        fam["B2" if "quant_signature" in k else "copies"
-            if "memcpy" in k or "memset" in k else "other"] += \
-            e.device_time_total / 1e3 / ticks
+        f = "B2" if "quant_signature" in k else "copies" \
+            if "memcpy" in k or "memset" in k else "other"
+        fam[f] += e.device_time_total / 1e3 / ticks
+        seen[f] += 1
     busy = sum(fam.values())
     if busy <= 0:
         log("pop_profile", "device time: not measured (the profiler saw no "
@@ -2020,7 +2112,8 @@ def profile_pop_tick(pop, q, ticks=3):
         log("pop_profile", f"{ticks} ticks under torch.profiler: wall "
             f"{wall:.1f} ms a tick, device busy {busy:.3f} ms ({busy / wall:.1%}"
             f", idle {1 - busy / wall:.1%}): " + ", ".join(
-                f"{k} {v:.3f} ms" for k, v in fam.items()))
+                f"{k} {v:.3f} ms ({seen[k]} device events in all)"
+                for k, v in fam.items()))
     prof = cProfile.Profile()
     prof.enable()
     _pop_tick(pop, q, lambda: 0)
@@ -2041,9 +2134,23 @@ def ingest_times(dev, err):
     import torch
     from repro_torch.kernels.ee_gate.ops import quant_signature_rows
     from repro_torch.kernels.ee_gate.ref import quant_signature_rows_ref
-    for regs, smem, spill in ptxas_usage("quant_signature_kernel").values():
-        log("times", f"B2 ptxas: {regs} registers, {smem} B static shared "
-            f"memory, {spill} B spilled")
+    import re
+    usage = ptxas_usage("quant_signature_kernel")
+    shapes = {}
+    for name, (regs, _smem, spill) in usage.items():
+        m = re.search(r"ILi(n?\d+)ELi(n?\d+)ELi(n?\d+)ELi(n?\d+)E", name)
+        key = tuple(int(x.replace("n", "-")) for x in m.groups()) if m \
+            else name
+        shapes[key] = (regs, spill)
+    if shapes:
+        regs = [r for r, _ in shapes.values()]
+        log("times", f"B2 ptxas: {len(shapes)} instantiations ((2L-1, N) "
+            f"x modes), {min(regs)}-{max(regs)} registers, "
+            f"{max(sp for _, sp in shapes.values())} B spilled at most; "
+            + ", ".join(f"(K2, N, mode0, mode1) {k}: {r} registers, {sp} B "
+                        f"spilled" for k, (r, sp) in sorted(
+                            shapes.items(), key=str)
+                        if k in ((9, 5, 0, 1), (5, 5, 0, 1), (0, 0, 0, 1))))
     row = None
     q = np.clip(np.random.default_rng(5).normal(0.65, 0.16, POP_USERS), 0.3,
                 1.0)
@@ -2077,7 +2184,49 @@ def ingest_times(dev, err):
                        bound_ms=bound, bound_by=by, library_ms=None)
         del vec
     torch.cuda.empty_cache()
+    ingest_pack_times(dev)
     return row
+
+
+def ingest_pack_times(dev):
+    """B2 on the [pop_tick] cohort's rows (its last AR(1) draw) with the
+    packs before and after the mixed tick's slice and backhaul reprices,
+    device ms a call by three methods on the same inputs: CUDA-graph
+    replays, CUDA events around single synchronized launches (as a tick
+    launches it), and torch.profiler's kernel times (as [pop_profile]
+    reads them)."""
+    import torch
+    from torch.autograd import DeviceType
+    from repro_torch.kernels.ee_gate.ops import quant_signature_rows
+    _q0, draws = _pop_draws()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    for tag, reprice in (("before", False), ("after", True)):
+        c, src = ingest_consts(POP_APP, dev, reprice=reprice)
+        vec = torch.as_tensor(tick_rows(draws[-1], src, c.C_pack.shape[1]),
+                              device=dev)
+        args = (c.bits_pack, c.C_pack, c.mask_pack, c.load_pack, c.modes,
+                c.gamma, c.delta)
+        fn = lambda: quant_signature_rows(vec, *args)
+        ms = graph_ms(fn, 20)
+        single = sorted(cuda_ms(fn, 1, 1) for _ in range(10))
+        with torch.profiler.profile(activities=acts) as tp:
+            for _ in range(5):
+                fn()
+            torch.cuda.synchronize()
+        prof = [e.device_time_total / 1e3 for e in tp.events()
+                if e.device_type == DeviceType.CUDA
+                and "quant_signature" in e.name.lower()]
+        log("times", f"B2 {POP_APP} [pop_tick] rows (last AR(1) draw) on "
+            f"the packs {tag} the slice / backhaul reprices: device ms a "
+            f"call, CUDA graph of 20 "
+            f"{'not measured' if ms is None else f'{ms:.4f}'}; single "
+            f"synchronized launches (CUDA events, 10) median "
+            f"{single[5]:.4f}, min {single[0]:.4f}; torch.profiler kernel "
+            + (f"mean {sum(prof) / len(prof):.4f} over {len(prof)} launches"
+               if prof else "not measured (no device events)"))
+        del vec
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------

@@ -73,9 +73,10 @@ SOURCES: Tuple[Source, ...] = (
            {name: [_PTR] * 5 + [_INT] * 8 + [_PTR]
             for name in ("decode_attn_f32", "decode_attn_bf16")}),
     # vec, bits, C, mask, load, out | Us, K2, N, M, mode0, mode1, gamma |
-    # delta | stream
+    # delta | stream; and its fast-path divide: a, b, q | n | stream
     Source(Path("ee_gate/csrc/quant_signature.cu"), EXACT_FLAGS,
-           {"quant_signature": [_PTR] * 6 + [_INT] * 7 + [_DBL] + [_PTR]}),
+           {"quant_signature": [_PTR] * 6 + [_INT] * 7 + [_DBL] + [_PTR],
+            "quant_signature_divide": [_PTR] * 3 + [_INT] + [_PTR]}),
 )
 
 

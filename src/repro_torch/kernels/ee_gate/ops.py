@@ -5,7 +5,8 @@ hand-written kernel (``csrc/ee_gate.cu``, ``csrc/quant_signature.cu``) or
 raise; for a CPU tensor they run the plain PyTorch version in ``ref.py``.
 Each counts its kernel launches in a plain integer attribute,
 ``launches``, so a run can show that its main path went through the
-kernel.
+kernel.  ``quant_signature_divide`` runs B2's fast-path divide alone, so
+the card tests can hold it to IEEE division bit for bit.
 """
 from __future__ import annotations
 
@@ -128,3 +129,29 @@ def quant_signature_rows(vec: torch.Tensor, bits: torch.Tensor,
 
 
 quant_signature_rows.launches = 0
+
+
+def quant_signature_divide(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a / b`` elementwise for float64 tensors, through the fused-ingest
+    kernel's fast-path divide on CUDA (one correctly rounded reciprocal of
+    ``b`` and a Markstein correction; both operands +0 or in [2^-200,
+    2^200]), so the card tests can hold it to IEEE division bit for bit;
+    plain division on the CPU."""
+    if a.device.type == "cpu":
+        return a / b
+    if a.device.type != "cuda":
+        raise ValueError(f"no fused-ingest kernel for device {a.device}")
+    if (a.dtype != torch.float64 or b.dtype != torch.float64
+            or a.shape != b.shape or a.dim() != 1 or b.device != a.device
+            or not (a.is_contiguous() and b.is_contiguous())
+            or a.numel() >= 2 ** 31):
+        raise ValueError("expected two contiguous 1-D float64 tensors of one "
+                         "shape on one device")
+    q = torch.empty_like(a)
+    launch("quant_signature_divide", a.device, a.data_ptr(), b.data_ptr(),
+           q.data_ptr(), a.numel())
+    quant_signature_divide.launches += 1
+    return q
+
+
+quant_signature_divide.launches = 0

@@ -37,6 +37,7 @@ from repro_torch.kernels.decode_attn.ops import (decode_attn, split_plan,
 from repro_torch.kernels.decode_attn.ref import decode_attn_ref
 from repro_torch.kernels._build import sm_count
 from repro_torch.kernels.ee_gate.ops import (ee_gate, gate_plan, gate_slices,
+                                             quant_signature_divide,
                                              quant_signature_rows)
 from repro_torch.kernels.ee_gate.population import QuantConsts
 from repro_torch.kernels.ee_gate.ref import (ee_gate_ref,
@@ -732,9 +733,20 @@ def _ingest_consts(app, device, modes=None, gamma=10, delta=None):
         nw.source_node
 
 
+# B2's fast path takes divide operands of +0 or in [2^-200, 2^200]: rates at
+# and across those ends, subnormal, tiny and huge rates and the largest
+# double; and deltas outside the domain, inside it at both ends, and huge
+INGEST_EDGE_RATES = (5e-324, 1e-310, 2.2250738585072014e-308, 2.0 ** -200,
+                     2.0 ** -200 * (1 - 2.0 ** -53), 2.0 ** 200,
+                     2.0 ** 200 * (1 + 2.0 ** -52), 1e300,
+                     1.7976931348623157e308)
+INGEST_EDGE_DELTAS = (5e-324, 1e-200, 1e-55, 1e50, 1e300)
+
+
 def _ingest_rows(c, Us, seed, src):
     """Seeded (Us, N) rates with rates aimed at integers and .5 ties of the
-    scaled value (and one ulp either side), zeros, NaN, +-inf, negatives
+    scaled value (and one ulp either side), rates whose significand is all
+    ones and powers of two, INGEST_EDGE_RATES, zeros, NaN, +-inf, negatives
     and rates below the loads."""
     rng = np.random.default_rng(seed)
     C = c.C_pack.cpu().numpy()
@@ -751,6 +763,14 @@ def _ingest_rows(c, Us, seed, src):
                      np.where(step > 0, np.nextafter(aimed, np.inf), aimed))
     vec = np.where(np.isfinite(aimed) & (rng.random((Us, N)) < 0.5), aimed,
                    vec)
+    erng = np.random.default_rng(seed + 1)
+    pick = erng.random((Us, N))
+    two_k = 2.0 ** erng.integers(10, 40, (Us, N))
+    edge = np.array(INGEST_EDGE_RATES)[erng.integers(0, len(
+        INGEST_EDGE_RATES), (Us, N))]
+    vec = np.where(pick < 0.06, np.nextafter(two_k, 0.0), vec)
+    vec = np.where((pick >= 0.06) & (pick < 0.08), two_k, vec)
+    vec = np.where((pick >= 0.08) & (pick < 0.11), edge, vec)
     special = rng.random((Us, N))
     for lo, hi, v in ((0.0, 0.04, 0.0), (0.04, 0.07, np.nan),
                       (0.07, 0.09, -1e9), (0.09, 0.11, -np.inf),
@@ -760,16 +780,32 @@ def _ingest_rows(c, Us, seed, src):
     return vec
 
 
+def _ingest_bundles(c):
+    """The plan's bundle (both modes), the tighten loop's single-mode
+    bundles at a Python delta_eff, synthetic packs with zero bits and zero
+    C entries, and the plan's packs at INGEST_EDGE_DELTAS."""
+    packs = (c.bits_pack, c.C_pack, c.mask_pack, c.load_pack)
+    bits0 = c.bits_pack.clone()
+    bits0[::3] = 0.0
+    C0 = c.C_pack.clone()
+    C0.view(-1)[1::4] = 0.0
+    return ([c] + [QuantConsts(*packs, ("floor",), c.gamma,
+                               c.delta * 0.85 ** r) for r in (1, 4)]
+            + [QuantConsts(bits0, C0, c.mask_pack, c.load_pack, c.modes,
+                           c.gamma, c.delta)]
+            + [QuantConsts(*packs, c.modes, c.gamma, d)
+               for d in INGEST_EDGE_DELTAS])
+
+
 @pytest.mark.parametrize("Us", [0, 1, 4097, 100_003])
 @pytest.mark.parametrize("app", ["h1", "h4", "h6"])
 def test_quant_signature_kernel_byte_equal_on_card(cuda_device, app, Us):
-    """Both modes of the plan's packs, then the tighten loop's single-mode
-    packs at a Python delta_eff: the kernel's rows equal its plain
-    version's on the card and on the CPU."""
+    """Both modes of the plan's packs, the tighten loop's single-mode packs
+    at a Python delta_eff, zero bits and C, and deltas at and beyond the
+    fast path's domain, on rows with edge rates: the kernel's rows equal
+    its plain version's on the card and on the CPU."""
     c, src = _ingest_consts(app, cuda_device)
-    bundles = [c] + [QuantConsts(c.bits_pack, c.C_pack, c.mask_pack,
-                                 c.load_pack, ("floor",), c.gamma,
-                                 c.delta * 0.85 ** r) for r in (1, 4)]
+    bundles = _ingest_bundles(c)
     vec = torch.as_tensor(_ingest_rows(c, Us, Us + len(app), src),
                           device=cuda_device)
     for b in bundles:
@@ -806,6 +842,68 @@ def test_quant_signature_kernel_modes_on_card(cuda_device, modes, gamma):
     want = quant_signature_rows_ref(vec, *args)
     assert torch.equal(got, want)
     assert bool((want == -1).any()) and bool((want > 0).any())
+
+
+@pytest.mark.parametrize("K2,N", [(3, 1), (9, 41), (2, 400), (23, 15)])
+def test_quant_signature_kernel_generic_shapes_on_card(cuda_device, K2, N):
+    """The generic instantiation: one link column (64 rows a group), a group
+    whose int16 run is not a multiple of 16 bytes (N = 41: 7 rows), more
+    links a row than a block has threads (one row a group, threads loop),
+    and the Table VII depth (K2 = 23, N = 15)."""
+    rng = np.random.default_rng(K2 * 1000 + N)
+    packs = [rng.uniform(1e3, 5e6, (K2, 1)), rng.uniform(0.0, 3e-3, (K2, N)),
+             rng.random((K2, N)) > 0.2, rng.uniform(0.0, 6e8, (K2, 1))]
+    c = QuantConsts(*(torch.as_tensor(a, device=cuda_device) for a in packs),
+                    ("round", "ceil"), 10, float(rng.uniform(2e-3, 12e-3)))
+    for Us in (1, 7, 3001):
+        vec = torch.as_tensor(_ingest_rows(c, Us, Us, 0), device=cuda_device)
+        args = (c.bits_pack, c.C_pack, c.mask_pack, c.load_pack, c.modes,
+                c.gamma, c.delta)
+        assert torch.equal(quant_signature_rows(vec, *args),
+                           quant_signature_rows_ref(vec, *args))
+
+
+def _divide_operands(n, seed):
+    """Seeded float64 (a, b) pairs in B2's fast domain aimed at the divide's
+    edges: significands all ones, powers of two, short and random
+    significands, the domain's ends, zero dividends, and the ingest's own
+    magnitudes."""
+    rng = np.random.default_rng(seed)
+
+    def draw(lo, hi):
+        e = rng.integers(lo, hi + 1, n)
+        kind = rng.integers(0, 5, n)
+        m = np.where(kind == 0, 2.0 - 2.0 ** -52, np.where(
+            kind == 1, 1.0, np.where(kind == 2, 1.0 + rng.integers(
+                0, 2 ** 12, n) * 2.0 ** -12, 1.0 + rng.random(n))))
+        return np.ldexp(m, e)
+
+    a, b = draw(-199, 199), draw(-199, 199)
+    near = rng.random(n) < 0.3
+    a = np.where(near, draw(10, 23), a)
+    b = np.where(near, draw(17, 33), b)
+    ends = np.array([2.0 ** -200, 2.0 ** 200 * (1 - 2.0 ** -53)])
+    a[rng.random(n) < 0.02] = 0.0
+    a = np.where(rng.random(n) < 0.02, ends[rng.integers(0, 2, n)], a)
+    b = np.where(rng.random(n) < 0.02, ends[rng.integers(0, 2, n)], b)
+    return a, b
+
+
+@pytest.mark.parametrize("seed", [1, 2, 3])
+def test_quant_signature_fast_divide_on_card(cuda_device, seed):
+    """The kernel's fast-path divide (one correctly rounded reciprocal, a
+    faithful product and a Markstein correction) equals IEEE division bit
+    for bit, on the card and on the host."""
+    a, b = _divide_operands(1 << 21, seed)
+    n = quant_signature_divide.launches
+    got = quant_signature_divide(torch.as_tensor(a, device=cuda_device),
+                                 torch.as_tensor(b, device=cuda_device))
+    assert quant_signature_divide.launches == n + 1
+    card = torch.as_tensor(a, device=cuda_device) / torch.as_tensor(
+        b, device=cuda_device)
+    assert torch.equal(got.view(torch.int64), card.view(torch.int64))
+    assert np.array_equal(got.cpu().numpy().view(np.int64),
+                          (a / b).view(np.int64))
 
 
 def test_quant_signature_wrapper_refuses_bad_inputs(cuda_device):

@@ -29,7 +29,8 @@ from repro.kernels.ee_gate.population import \
 import repro_torch as T
 from repro_torch.convert import network_from, profile_from, requirements_from
 from repro_torch.kernels import _build
-from repro_torch.kernels.ee_gate.ops import quant_signature_rows
+from repro_torch.kernels.ee_gate.ops import (quant_signature_divide,
+                                             quant_signature_rows)
 from repro_torch.kernels.ee_gate.population import (QuantConsts,
                                                     quant_signature,
                                                     quant_signature_np)
@@ -38,6 +39,14 @@ from repro_torch.kernels.ee_gate.ref import quant_signature_rows_ref
 CPU = "cpu"
 MODE_SETS = [("floor", "ceil"), ("round", "ceil"), ("ceil",), ("floor",),
              ("round",)]
+# the CUDA kernel's fast path takes divide operands of +0 or in [2^-200,
+# 2^200]: rates at and across those ends, subnormal, tiny and huge rates and
+# the largest double; deltas outside the domain, inside it at both ends,
+# and huge
+EDGE_RATES = (5e-324, 1e-310, 2.2250738585072014e-308, 2.0 ** -200,
+              2.0 ** -200 * (1 - 2.0 ** -53), 2.0 ** 200,
+              2.0 ** 200 * (1 + 2.0 ** -52), 1e300, 1.7976931348623157e308)
+EDGE_DELTAS = (5e-324, 1e-200, 1e-55, 1e50, 1e300)
 
 
 def _plan_consts(app, modes=None, gamma=10, delta=None):
@@ -77,7 +86,8 @@ def _random_consts(seed, modes, gamma=10, K2=9, N=5):
 
 def _edge_rows(c: RefConsts, Us: int, seed: int, src: int = 0):
     """(Us, N) bandwidth rows: random rates, then rates aimed at integers
-    and at .5 ties of the scaled value (and one ulp either side), zeros,
+    and at .5 ties of the scaled value (and one ulp either side), rates
+    whose significand is all ones and powers of two, EDGE_RATES, zeros,
     NaN, +-inf, negatives and rates below the load."""
     rng = np.random.default_rng(seed)
     N = c.C_pack.shape[1]
@@ -99,6 +109,13 @@ def _edge_rows(c: RefConsts, Us: int, seed: int, src: int = 0):
                      np.where(step > 0, np.nextafter(aimed, np.inf), aimed))
     use = np.isfinite(aimed) & (aimed > 0) & (rng.random((Us, N)) < 0.5)
     vec = np.where(use, aimed, vec)
+    erng = np.random.default_rng(seed + 1)
+    pick = erng.random((Us, N))
+    two_k = 2.0 ** erng.integers(10, 40, (Us, N))
+    edge = np.array(EDGE_RATES)[erng.integers(0, len(EDGE_RATES), (Us, N))]
+    vec = np.where(pick < 0.06, np.nextafter(two_k, 0.0), vec)
+    vec = np.where((pick >= 0.06) & (pick < 0.08), two_k, vec)
+    vec = np.where((pick >= 0.08) & (pick < 0.11), edge, vec)
     special = rng.random((Us, N))
     vec[special < 0.04] = 0.0
     vec[(special >= 0.04) & (special < 0.07)] = np.nan
@@ -154,6 +171,40 @@ def test_tighten_constants_at_a_python_delta_eff():
             ref, got, _ = _plan_consts(app, modes=("floor",),
                                        delta=float(delta_eff))
             _check(ref, got, _edge_rows(ref, 513, seed=r, src=src))
+
+
+@pytest.mark.parametrize("delta", [None, *EDGE_DELTAS])
+@pytest.mark.parametrize("app", ["h1", "h4", "h6"])
+def test_zero_packs_and_edge_deltas(app, delta):
+    """The plan's packs with every third bits entry and every fourth C entry
+    zero, at the plan's delta and at EDGE_DELTAS, both modes, on edge
+    rows."""
+    ref, got, src = _plan_consts(app, delta=delta)
+    bits = ref.bits_pack.copy()
+    bits[::3] = 0.0
+    C = ref.C_pack.copy()
+    C.reshape(-1)[1::4] = 0.0
+    ref = RefConsts(bits, C, ref.mask_pack, ref.load_pack, ref.modes,
+                    ref.gamma, ref.delta)
+    got = QuantConsts(torch.as_tensor(bits), torch.as_tensor(C),
+                      got.mask_pack, got.load_pack, got.modes, got.gamma,
+                      got.delta)
+    for Us in (1, 4097):
+        _check(ref, got, _edge_rows(ref, Us, seed=Us + 5, src=src))
+
+
+def test_fast_divide_plain_version():
+    """On the CPU the fast-path divide's wrapper is IEEE division; it takes
+    no tensor of another device."""
+    rng = np.random.default_rng(2)
+    a, b = rng.uniform(1e3, 1e7, 64), rng.uniform(1e5, 1e10, 64)
+    got = quant_signature_divide(torch.as_tensor(a), torch.as_tensor(b))
+    assert got.numpy().tobytes() == (a / b).tobytes()
+    with pytest.raises(ValueError, match="no fused-ingest kernel"):
+        quant_signature_divide(torch.zeros(2, dtype=torch.float64,
+                                           device="meta"),
+                               torch.ones(2, dtype=torch.float64,
+                                          device="meta"))
 
 
 @pytest.mark.parametrize("app", ["h1", "h4", "h6"])

@@ -451,6 +451,35 @@ def test_f32_population_agrees_with_minplus():
                 assert a.energy == b.energy, t
 
 
+@pytest.mark.parametrize("gamma", [10, 25])
+@pytest.mark.parametrize("app", ["h1", "h4", "h6"])
+def test_f32_population_agrees_with_reference(app, gamma):
+    """The port's float32 cohort (``backend="f32"``, on the CPU) against the
+    reference's float32 cohort (``backend="jnp"``, numpy ingest): 24 users
+    through 4 ticks of rates on [0.2, 2] Gb/s give the same change flags,
+    Solutions (found, placement, final exit, energy) and counters."""
+    nw = ref_paper_scenario(n_extra_edge=2)
+    pf = R.paper_profile(app)
+    req = PAPER_MULTIAPP_REQS[app]
+    ref = R.Population(nw, pf, req, 24, gamma=gamma, backend="jnp",
+                       fused_ingest="numpy")
+    f32 = T.Population(network_from(nw), profile_from(pf), _req(req), 24,
+                       gamma=gamma, backend="f32", device=CPU)
+    rng = np.random.default_rng(gamma)
+    for t in range(4):
+        q = rng.uniform(0.2, 2.0, 24) * 1e9
+        ch = ref.ingest(q), f32.ingest(q)
+        assert ch[0].tobytes() == ch[1].tobytes(), t
+        for a, b in zip(ref.solve(), f32.solve()):
+            assert a.found == b.found, t
+            if a.found:
+                assert a.config.placement == b.config.placement, t
+                assert a.config.final_exit == b.config.final_exit, t
+                assert a.energy == b.energy, t
+        assert _counters(f32) == _counters(ref), t
+    assert np.array_equal(ref.inc_found, f32.inc_found)
+
+
 def test_constructor_validation():
     nw = T.paper_scenario(n_extra_edge=2)
     pf = T.paper_profile("h1")
