@@ -28,6 +28,18 @@ before it and read just after:
                       solve, a mixed tick of failure / slice / backhaul
                       deltas and a checkpoint round trip, against the CPU
                       path (incumbents, counters, state_dict bytes);
+  [churn]             the churn orchestrator over 1,000,000 users
+                      (``population_cohorts(n_extra_edge=2)``, six cohorts):
+                      3 AR(1) ``step_arrays`` ticks, a twin through
+                      ``run_arrays(stream=True)`` and the CPU path, all
+                      identical (reports, incumbents, counters);
+  [congestion]        10,000 users with the busiest shared node capped
+                      (``shared_capacity=``, 4 ticks), against the CPU path;
+  [failover]          64 h2 users through 20 ticks of tier outages with
+                      ``contingency=True`` (hits, no misses, solve-free
+                      failure ticks), against the CPU path;
+  [multiapp]          ``run_multiapp(200)`` (Fig. 8), continuous and
+                      bucketed draws, against the CPU path;
   [serve]             ``SplitServeEngine`` on qwen3-4b at full width in bf16
                       (random weights from a seed): 16 requests, then a
                       ``serve_with_churn`` trace with a node failure and its
@@ -153,11 +165,6 @@ GAMMA = 25
 N_BEST = 4
 POP_ROWS = 1 << 20
 POP_CHECK_ROWS = 65536
-#: Sec. V requirements per app, (alpha, delta s, sigma): the values of
-#: src/repro/core/multiapp.py:30-37 (PAPER_MULTIAPP_REQS), not yet ported.
-MULTIAPP_REQS = {"h1": (0.55, 5e-3, 1.0), "h2": (0.55, 5e-3, 1.0),
-                 "h3": (0.55, 5e-3, 1.0), "h4": (0.55, 5e-3, 1.0),
-                 "h5": (0.93, 0.1e-3, 1.0), "h6": (0.93, 0.1e-3, 1.0)}
 #: the [pop_tick] cohort: benchmarks/bench_online.py's pop_scale_1e6 scale
 #: (1e6 users) at one app, h4 (L = 5, floor + ceil: 90 int16 a signature),
 #: gamma 10 (online.population_cohorts' default), rates
@@ -181,6 +188,26 @@ INGEST_EDGE_RATES = (5e-324, 1e-310, 2.2250738585072014e-308, 2.0 ** -200,
 #: deltas of the [kernels] checks beside the app's: subnormal and tiny
 #: (outside the fast domain), inside it at both ends, and huge
 INGEST_EDGE_DELTAS = (5e-324, 1e-200, 1e-55, 1e50, 1e300)
+#: [churn]: benchmarks/bench_online.py's pop_scale_1e6 row (1e6 users over
+#: population_cohorts(n_extra_edge=2), hysteresis 0.05, 3 AR(1) ticks of
+#: _ar1_draws: seed 5, mean 0.65, sigma 0.05, clipped to [0.3, 1])
+CHURN_USERS = 1_000_000
+CHURN_TICKS = 3
+#: [congestion]: benchmarks/bench_congestion.py's full-mode row (10,000
+#: users, 4 ticks, the busiest shared node capped at 0.6 of its uncoupled
+#: load)
+CONGESTION_USERS = 10_000
+CONGESTION_TICKS = 4
+CONGESTION_CAP_FRAC = 0.6
+#: [failover]: benchmarks/bench_failover.py's _tier_trace_row at full mode
+#: (64 h2 users on paper_scenario(n_extra_edge=1), 20 ticks, tier outages
+#: of nodes 1 and 2, contingency=True)
+FAILOVER_USERS = 64
+FAILOVER_TICKS = 20
+#: [multiapp]: benchmarks/bench_fig8.py's population variant (200 users a
+#: app, continuous draws and 16 uplink buckets), seed 1
+MULTIAPP_USERS = 200
+MULTIAPP_BUCKETS = 16
 PLAN_USERS = 128
 PLAN_TICKS = 8
 FRONTIER_USERS = 16
@@ -1080,7 +1107,7 @@ def _plan_population(dev, users, n_best=1):
     plans = []
     for app in APPS:
         pf = T.paper_profile(app)
-        req = T.AppRequirements(*MULTIAPP_REQS[app])
+        req = T.PAPER_MULTIAPP_REQS[app]
         plans += [T.Plan(nw, pf, req, gamma=GAMMA, n_best=n_best, device=dev)
                   for _ in range(users)]
     return plans
@@ -1724,7 +1751,7 @@ def ingest_consts(app, dev, modes=None, delta=None, reprice=False):
     import repro_torch as T
     from repro_torch.kernels.ee_gate.population import QuantConsts
     nw = T.paper_scenario(n_extra_edge=2)
-    req = T.AppRequirements(*MULTIAPP_REQS[app])
+    req = T.PAPER_MULTIAPP_REQS[app]
     p = T.Plan(nw, T.paper_profile(app), req, gamma=POP_GAMMA, device=dev)
     if reprice:
         p.update_slice(0.8)
@@ -1892,7 +1919,7 @@ def _pop_cohort(where):
     import repro_torch as T
     return T.Population(T.paper_scenario(n_extra_edge=2),
                         T.paper_profile(POP_APP),
-                        T.AppRequirements(*MULTIAPP_REQS[POP_APP]), POP_USERS,
+                        T.PAPER_MULTIAPP_REQS[POP_APP], POP_USERS,
                         gamma=POP_GAMMA, backend="minplus", timing=True,
                         device=where)
 
@@ -2123,6 +2150,414 @@ def profile_pop_tick(pop, q, ticks=3):
     for line in out.getvalue().splitlines():
         if line.strip():
             log("pop_profile", line.rstrip())
+
+
+def _ar1(users, ticks, seed=5, q_mean=0.65, sigma=0.05):
+    """benchmarks/bench_online.py ``_ar1_draws``: AR(1) qualities, rho
+    0.95, clipped to [0.3, 1]."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    q = np.full(users, q_mean)
+    out = []
+    for _ in range(ticks):
+        q = np.clip(q_mean + 0.95 * (q - q_mean)
+                    + rng.normal(0, sigma, users), 0.3, 1.0)
+        out.append(q.copy())
+    return out
+
+
+def _reports(reps):
+    """TickReports as dicts, the ``t_*`` timings left out."""
+    import dataclasses
+    return [{k: v for k, v in dataclasses.asdict(r).items()
+             if not k.startswith("t_")} for r in reps]
+
+
+def _same_orchs(a, b, what):
+    """Identical cohorts (``_same_cohorts`` each: incumbents, counters,
+    state_dict bytes, hence n_states) and hysteresis ledgers."""
+    check(len(a.pops) == len(b.pops), f"{what}: cohort count")
+    for i, (p, q) in enumerate(zip(a.pops, b.pops)):
+        check(p.n_states == q.n_states, f"{what}: cohort {i} n_states "
+              f"{p.n_states} vs {q.n_states}")
+        _same_cohorts(p, q, f"{what}, cohort {i}")
+    for f in ("_ref_energy", "_cur_energy", "quality", "attached"):
+        check(getattr(a, f).tobytes() == getattr(b, f).tobytes(),
+              f"{what}: ledger {f} differs")
+
+
+def _launch_reader():
+    """Current launch counts of B1, B2 and B3."""
+    from repro_torch.kernels.ee_gate.ops import quant_signature_rows
+    from repro_torch.kernels.minplus.ops import (banded_minplus_chain,
+                                                 banded_minplus_chain_kbest)
+    return lambda: {"B1": banded_minplus_chain.launches,
+                    "B2": quant_signature_rows.launches,
+                    "B3": banded_minplus_chain_kbest.launches}
+
+
+def _reset(counters):
+    import torch
+    torch.cuda.synchronize()
+    for c in counters:
+        c.launches = 0
+
+
+def _churn_orch(where, **kw):
+    import repro_torch as T
+    return T.ChurnOrchestrator(population=T.population_cohorts(
+        CHURN_USERS, n_extra_edge=2, device=where, timing=True),
+        hysteresis=0.05, **kw)
+
+
+def _churn_tick(o, q, launches):
+    """One ``step_arrays`` tick with its log fields."""
+    import torch
+    pops = o.pops
+    n0 = [p.n_states for p in pops]
+    r0 = [p.stats.dp_relaxes for p in pops]
+    c0 = [p.stats.quant_changed for p in pops]
+    h0 = sum(p.h2d_bytes for p in pops)
+    d0 = sum(p.d2h_bytes for p in pops)
+    l0 = launches()
+    t0 = time.perf_counter()
+    rep = o.step_arrays(q)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    l1 = launches()
+    dl = {k: l1[k] - l0[k] for k in l1}
+    rows = sum((p.stats.dp_relaxes - r) * p.M for p, r in zip(pops, r0))
+    return rep, dict(
+        wall=wall, launches=dl, rows=rows,
+        born={p.profile.name: p.n_states - n
+              for p, n in zip(pops, n0) if p.n_states != n},
+        rekeyed={p.profile.name: p.stats.quant_changed - c
+                 for p, c in zip(pops, c0) if p.stats.quant_changed != c},
+        relaxed=sum(p.stats.dp_relaxes - r for p, r in zip(pops, r0)),
+        h2d=sum(p.h2d_bytes for p in pops) - h0,
+        d2h=sum(p.d2h_bytes for p in pops) - d0)
+
+
+def phase_churn(dev, counters):
+    """[churn]: the churn orchestrator over ``population_cohorts(1e6,
+    n_extra_edge=2)`` on the card (``benchmarks/bench_online.py``'s
+    pop_scale_1e6 row): 3 AR(1) ``step_arrays`` ticks, then a fresh CUDA
+    twin through ``run_arrays(stream=True, stream_overlap="always")``, then
+    the same ticks on the CPU path.  All three must give identical reports
+    (``t_*`` left out), incumbents, state counts, counters and state_dict
+    bytes.  The kernels' counts are reset just before the first CUDA run
+    and read just after it."""
+    import numpy as np
+    import torch
+    t_phase = time.perf_counter()
+    draws = _ar1(CHURN_USERS, CHURN_TICKS)
+    launches = _launch_reader()
+    _reset(counters)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gpu = _churn_orch(dev)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    log("churn", f"cuda: ChurnOrchestrator(population_cohorts({CHURN_USERS},"
+        f" n_extra_edge=2), hysteresis 0.05) init (6 cohorts, cold solve) "
+        f"{t_init:.3f} s; users per cohort "
+        f"{[p.U for p in gpu.pops]}; {sum(p.h2d_bytes for p in gpu.pops)} B "
+        f"host -> device, {sum(p.d2h_bytes for p in gpu.pops)} B device -> "
+        f"host")
+    reps = []
+    for t, q in enumerate(draws):
+        rep, r = _churn_tick(gpu, q, launches)
+        reps.append(rep)
+        rows_a = r["rows"] / r["launches"]["B1"] if r["launches"]["B1"] \
+            else 0.0
+        log("churn", f"cuda tick {t}: wall {r['wall'] * 1e3:.1f} ms; split "
+            f"(Population timing) ingest {rep.t_ingest_ms:.2f} + relax "
+            f"{rep.t_relax_ms:.2f} + post-pass {rep.t_post_ms:.2f} ms (the "
+            f"rest: the gate and the orchestrator's ledgers); n_resolved "
+            f"{rep.n_resolved}, n_held {rep.n_held}, n_failed "
+            f"{rep.n_failed}, n_migrations {rep.n_migrations}; states born "
+            f"{r['born'] or 0}, re-keyed users {r['rekeyed'] or 0}, "
+            f"dp_relaxes {r['relaxed']}; launches B1 {r['launches']['B1']} "
+            f"({rows_a:.1f} rows a launch), B2 {r['launches']['B2']}, B3 "
+            f"{r['launches']['B3']}; {r['h2d']} B host -> device, "
+            f"{r['d2h']} B device -> host")
+    launched = launches()
+    peak = torch.cuda.max_memory_allocated()
+    check(launched["B2"] > 0, "[churn] launched no B2")
+    check(launched["B1"] > 0, "[churn] launched no B1")
+    rekeyed = [p.profile.name for p in gpu.pops if p.stats.quant_changed]
+    log("churn", f"cuda: {CHURN_TICKS} ticks launched {launched}; states "
+        f"{[p.n_states for p in gpu.pops]}; cohorts that re-keyed: "
+        f"{rekeyed or 'none'}; device memory high-water "
+        f"{peak} B (torch.cuda.max_memory_allocated); "
+        f"{sum(p.h2d_bytes for p in gpu.pops)} B host -> device and "
+        f"{sum(p.d2h_bytes for p in gpu.pops)} B device -> host in all")
+    t0 = time.perf_counter()
+    twin = _churn_orch(dev, stream_overlap="always")
+    reps_s = twin.run_arrays(np.stack(draws), stream=True)
+    torch.cuda.synchronize()
+    t_stream = time.perf_counter() - t0
+    check(twin._overlap_used, "[churn] the streamed run did not overlap")
+    check(_reports(reps_s) == _reports(reps),
+          "[churn] run_arrays(stream=True) reports differ from step_arrays")
+    _same_orchs(gpu, twin, "[churn] CUDA streamed vs CUDA step_arrays")
+    del twin
+    t0 = time.perf_counter()
+    cpu = _churn_orch("cpu")
+    reps_c = [cpu.step_arrays(q) for q in draws]
+    t_cpu = time.perf_counter() - t0
+    check(_reports(reps_c) == _reports(reps),
+          "[churn] CPU path reports differ from CUDA")
+    _same_orchs(gpu, cpu, "[churn] CUDA vs the CPU path")
+    log("churn", f"{CHURN_USERS} users: CUDA step_arrays == CUDA run_arrays"
+        f"(stream=True, overlap always) == CPU path (reports, incumbents, "
+        f"n_states, counters, state_dict bytes); walls s (init and "
+        f"{CHURN_TICKS} ticks, host clock): cuda streamed {t_stream:.3f}, "
+        f"cpu {t_cpu:.3f}; the phase took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    del cpu
+    profile_churn(gpu, draws[-1], launches)
+    return launched
+
+
+def profile_churn(o, q, launches):
+    """Where a [churn] tick's time goes, on two more ``step_arrays`` ticks
+    that re-solve: every quality 0.1 lower (clipped at 0.3), under
+    torch.profiler (the device's busy share), then 0.2 lower, under
+    cProfile (the host functions by own time)."""
+    import cProfile
+    import io
+    import pstats
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    l0 = launches()
+    with torch.profiler.profile(activities=acts) as tp:
+        t0 = time.perf_counter()
+        rep = o.step_arrays(np.clip(q - 0.1, 0.3, 1.0))
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    l1 = launches()
+    busy = sum(e.device_time_total for e in tp.events()
+               if e.device_type == DeviceType.CUDA) / 1e3
+    n_dev = sum(1 for e in tp.events() if e.device_type == DeviceType.CUDA)
+    log("churn_profile", f"a tick of every quality - 0.1 under "
+        f"torch.profiler: wall {wall:.1f} ms, n_resolved {rep.n_resolved}, "
+        f"launches {({k: l1[k] - l0[k] for k in l1})}, device busy "
+        f"{busy:.3f} ms ({n_dev} device events; "
+        + ("not measured: the profiler saw no device time)" if busy <= 0
+           else f"busy {busy / wall:.2%}, idle {1 - busy / wall:.2%})"))
+    prof = cProfile.Profile()
+    prof.enable()
+    t0 = time.perf_counter()
+    rep = o.step_arrays(np.clip(q - 0.2, 0.3, 1.0))
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    prof.disable()
+    log("churn_profile", f"a tick of every quality - 0.2 under cProfile: "
+        f"wall {wall:.1f} ms, n_resolved {rep.n_resolved}")
+    out = io.StringIO()
+    pstats.Stats(prof, stream=out).sort_stats("tottime").print_stats(8)
+    for line in out.getvalue().splitlines():
+        if line.strip():
+            log("churn_profile", line.rstrip())
+
+
+def phase_congestion(dev, counters):
+    """[congestion]: ``benchmarks/bench_congestion.py``'s full-mode row.
+    10,000 users over ``population_cohorts(n_extra_edge=2)``, 4 AR(1)
+    ticks; an uncoupled run on the card calibrates the cap (0.6 of the
+    busiest shared node's load); the coupled run on the card and on the
+    CPU path must give identical reports, prices and incumbents, the
+    capacity must hold after the transient and the later ticks
+    converge."""
+    import numpy as np
+    import torch
+    import repro_torch as T
+    t_phase = time.perf_counter()
+    U = CONGESTION_USERS
+    draws = _ar1(U, CONGESTION_TICKS)
+    ref = T.ChurnOrchestrator(population=T.population_cohorts(
+        U, n_extra_edge=2, device=dev), hysteresis=0.05)
+    for q in draws:
+        ref.step_arrays(quality=q)
+    nl, _ll = T.accumulate_loads(ref.pops)
+    N = ref.pops[0].N
+    busy = int(np.argmax(np.where(np.arange(N) == ref.pops[0].src, -1.0,
+                                  nl)))
+    check(nl[busy] > 0, "[congestion] no load on a shared node")
+    node_cap = np.full(N, np.inf)
+    node_cap[busy] = nl[busy] * CONGESTION_CAP_FRAC
+    launches = _launch_reader()
+
+    def coupled(where):
+        o = T.ChurnOrchestrator(population=T.population_cohorts(
+            U, n_extra_edge=2, device=where), hysteresis=0.05,
+            shared_capacity=T.SharedCapacity(
+                node_cap=node_cap.copy(), link_cap=np.full((N, N), np.inf)))
+        t0 = time.perf_counter()
+        reps, prices = [], []
+        for q in draws:
+            reps.append(o.step_arrays(quality=q))
+            prices.append((o.congestion.node_k.copy(),
+                           o.congestion.link_k.copy()))
+        torch.cuda.synchronize()
+        return o, reps, prices, time.perf_counter() - t0
+
+    _reset(counters)
+    gpu, reps, prices, wall = coupled(dev)
+    launched = launches()
+    check(launched["B1"] + launched["B2"] > 0,
+          "[congestion] launched no kernel")
+    cpu, reps_c, prices_c, wall_c = coupled("cpu")
+    check(_reports(reps_c) == _reports(reps),
+          "[congestion] CPU path reports differ from CUDA")
+    check(all(a.tobytes() == c.tobytes() and b.tobytes() == d.tobytes()
+              for (a, b), (c, d) in zip(prices, prices_c)),
+          "[congestion] price exponents differ from the CPU path")
+    _same_orchs(gpu, cpu, "[congestion] CUDA vs the CPU path")
+    for r in reps[1:]:
+        check(r.congestion_converged, "[congestion] a post-transient tick "
+              "did not converge")
+    nl2, ll2 = T.accumulate_loads(gpu.pops)
+    check((nl2 <= gpu.congestion.node_cap).all()
+          and (ll2 <= gpu.congestion.link_cap).all(),
+          "[congestion] capacity violated")
+    r0 = reps[0]
+    log("congestion", f"{U} users, node {busy} capped at "
+        f"{CONGESTION_CAP_FRAC} of its uncoupled load ({node_cap[busy]:.6g} "
+        f"ops/s): transient tick iterations {r0.congestion_iters}, repriced "
+        f"{r0.n_repriced}, evicted {r0.n_evicted}, unplaced "
+        f"{reps[-1].n_unplaced}; node exponents after each tick "
+        f"{[list(map(int, k)) for k, _ in prices]}; later ticks converged; "
+        f"load {nl2[busy]:.6g} <= cap; CUDA == CPU path (reports, prices, "
+        f"incumbents, counters, state_dict bytes); launches {launched}; "
+        f"coupled walls (host clock) cuda {wall:.3f} s, cpu {wall_c:.3f} s;"
+        f" the phase took {time.perf_counter() - t_phase:.1f} s")
+    return launched
+
+
+def phase_failover(dev, counters):
+    """[failover]: ``benchmarks/bench_failover.py``'s ``_tier_trace_row``
+    at full mode: 64 h2 users on ``paper_scenario(n_extra_edge=1)`` through
+    20 ticks of tier outages and AR(1) fading with ``contingency=True``,
+    then the frozen-channel control whose failure ticks must relax
+    nothing.  Hits > 0, misses == 0; CUDA equals the CPU path."""
+    import torch
+    import repro_torch as T
+    t_phase = time.perf_counter()
+    U, n_ticks = FAILOVER_USERS, FAILOVER_TICKS
+    nw = T.paper_scenario(n_extra_edge=1)
+    prof = T.paper_profile("h2")
+    req = T.AppRequirements(alpha=0.5, delta=8e-3)
+    trace = T.churn_trace(U, n_ticks, seed=3, sigma=0.05, p_fail=0.4,
+                          p_recover=0.5, fail_nodes=(1, 2),
+                          failure_mode="tier")
+    ctrl = T.churn_trace(U, n_ticks, seed=3, sigma=0.0, q_mean=0.65,
+                         p_fail=0.4, p_recover=0.5, fail_nodes=(1, 2),
+                         failure_mode="tier")
+    warm = [T.ChurnEvent("uplink", u, 0.65) for u in range(U)]
+    launches = _launch_reader()
+
+    def run(where):
+        o = T.ChurnOrchestrator(population=T.Population(
+            nw, prof, req, n_users=U, device=where), contingency=True)
+        t0 = time.perf_counter()
+        stats = o.run(trace)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        o2 = T.ChurnOrchestrator(population=T.Population(
+            nw, prof, req, n_users=U, device=where), contingency=True)
+        o2.step(warm)
+        r0 = o2.pops[0].stats.dp_relaxes
+        stats2 = o2.run(ctrl)
+        return o, stats, o2, stats2, o2.pops[0].stats.dp_relaxes - r0, wall
+
+    _reset(counters)
+    o, stats, o2, stats2, fail_relax, wall = run(dev)
+    launched = launches()
+    hits = int(stats.total("contingency_hits"))
+    misses = int(stats.total("contingency_misses"))
+    prebuilt = int(stats.total("contingency_prebuilt"))
+    check(hits > 0 and misses == 0,
+          f"[failover] hits {hits}, misses {misses}")
+    check(fail_relax == 0, f"[failover] the frozen-channel control's "
+          f"failure ticks relaxed {fail_relax} states")
+    check(launched["B1"] > 0, "[failover] launched no B1")
+    c, cstats, c2, cstats2, c_fail, wall_c = run("cpu")
+    check(_reports(cstats.ticks) == _reports(stats.ticks)
+          and _reports(cstats2.ticks) == _reports(stats2.ticks),
+          "[failover] CPU path reports differ from CUDA")
+    _same_orchs(o, c, "[failover] CUDA vs the CPU path")
+    _same_orchs(o2, c2, "[failover] control, CUDA vs the CPU path")
+    outages = sum(1 for evs in trace if any(e.kind == "fail" for e in evs))
+    log("failover", f"{U} h2 users, {n_ticks} ticks, {outages} outage "
+        f"ticks: hits {hits}, misses {misses}, prebuilt states {prebuilt}; "
+        f"frozen-channel control: failure-tick dp_relaxes {fail_relax}; "
+        f"CUDA == CPU path (reports, incumbents, counters, state_dict "
+        f"bytes); launches {launched}; walls of the trace (host clock) cuda "
+        f"{wall:.3f} s, cpu {wall_c:.3f} s; the phase took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return launched
+
+
+def phase_multiapp(dev, counters):
+    """[multiapp]: ``benchmarks/bench_fig8.py``'s population variant,
+    ``run_multiapp(200, seed=1)`` with continuous draws and with 16 uplink
+    buckets, on the card and on the CPU path: every ``AppStats`` field
+    (``solve_time`` left out), ``energy_gain`` and the cache hits equal."""
+    import dataclasses
+    import numpy as np
+    import torch
+    import repro_torch as T
+    t_phase = time.perf_counter()
+
+    def fields(res):
+        out = {}
+        for app, by in res.stats.items():
+            for name, st in by.items():
+                d = dataclasses.asdict(st)
+                d.pop("solve_time")
+                d["exit_usage"] = d["exit_usage"].tobytes()
+                out[app, name] = d
+        return out
+
+    launches = _launch_reader()
+    _reset(counters)
+    walls = {}
+    res = {}
+    for where in (dev, "cpu"):
+        for buckets in (None, MULTIAPP_BUCKETS):
+            t0 = time.perf_counter()
+            res[str(where), buckets] = T.run_multiapp(
+                MULTIAPP_USERS, seed=1, uplink_buckets=buckets, device=where)
+            torch.cuda.synchronize()
+            walls[str(where), buckets] = time.perf_counter() - t0
+        if where is dev:
+            launched = launches()
+    check(launched["B1"] > 0, "[multiapp] launched no B1")
+    for buckets in (None, MULTIAPP_BUCKETS):
+        g, c = res[str(dev), buckets], res["cpu", buckets]
+        check(fields(g) == fields(c), f"[multiapp] AppStats differ from the "
+              f"CPU path (buckets {buckets})")
+        for app in g.stats:
+            a, b = g.energy_gain(app), c.energy_gain(app)
+            check(a == b or (np.isnan(a) and np.isnan(b)),
+                  f"[multiapp] energy_gain({app}) differs")
+    b = res[str(dev), MULTIAPP_BUCKETS]
+    hits = sum(b.stats[a]["mcp"].solve_cache_hits for a in b.stats)
+    gains = {a: round(float(res[str(dev), None].energy_gain(a)), 6)
+             for a in b.stats}
+    log("multiapp", f"run_multiapp({MULTIAPP_USERS}, seed=1): CUDA == CPU "
+        f"path (every AppStats field, energy_gain, cache hits), continuous "
+        f"and {MULTIAPP_BUCKETS} buckets; FIN/MCP energy {gains}; MCP "
+        f"bucket cache hits {hits}; launches {launched}; walls s (host "
+        f"clock) " + ", ".join(f"{w} buckets {k}: {v:.3f}"
+                               for (w, k), v in walls.items())
+        + f"; the phase took {time.perf_counter() - t_phase:.1f} s")
+    return launched
 
 
 def ingest_times(dev, err):
@@ -2910,6 +3345,11 @@ def main(argv) -> int:
     ingest_row = ingest_times(dev, err["ingest"])
     ingest_row["launches"] = launches_pop["quant_signature_rows"]
     rows.append(ingest_row)
+    # the churn orchestrator and the modules it imports
+    paths = {"churn": phase_churn(dev, counters),
+             "congestion": phase_congestion(dev, counters),
+             "failover": phase_failover(dev, counters),
+             "multiapp": phase_multiapp(dev, counters)}
     # B4 on solve_many(backend="dense"), B5 on the Table VII path
     dense_rows, table7_layer = dense_times(grid, dev, err)
     for row, path in zip(dense_rows, (launches_d, launches_t7)):
@@ -2940,7 +3380,9 @@ def main(argv) -> int:
         + "; B4's whole device time on [solve_many_dense] (torch.profiler): "
         + ("not measured" if b4_path_ms is None else f"{b4_path_ms:.4f} ms")
         + f"; B1 launches on [pop_tick]: "
-        f"{launches_pop['banded_minplus_chain']}")
+        f"{launches_pop['banded_minplus_chain']}; B1 / B2 / B3 launches on "
+        + ", ".join(f"[{k}] {v['B1']} / {v['B2']} / {v['B3']}"
+                    for k, v in paths.items()))
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,11 +12,16 @@
   population     -- struct-of-arrays cohorts: whole-population churn ticks
   scenarios      -- the paper's evaluation scenarios and churn traces
   contingency    -- precomputed-failover library (O(1) failure masks)
+  multiapp       -- Sec. V multi-application orchestration
+  capacity       -- population-shared node/link capacity + congestion pricing
+  online         -- the churn orchestrator over plans or cohorts
 """
+from .capacity import (CongestionController, CongestionReport,
+                       SharedCapacity, accumulate_loads, config_load_rows)
 from .contingency import (ContingencyEntry, ContingencyLibrary,
                           ContingencyPolicy, ContingencyStats,
-                          NoFeasiblePlacement, candidate_masks,
-                          tier_groups_of)
+                          NoFeasiblePlacement, PopulationContingency,
+                          candidate_masks, tier_groups_of)
 from .dnn_profile import (BITS_PER_FEATURE, DNNProfile, ExitSpec,
                           all_paper_apps, paper_profile, synthetic_profile)
 from .extended_graph import (ExtendedGraph, build_extended_graph,
@@ -27,6 +32,11 @@ from .fin import fin_all_exit_costs, solve_fin, solve_many
 from .frontier import (FrontierRow, ParetoFrontier, brute_force_frontier,
                        frontier_from_rows, pareto_mask)
 from .mcp import solve_mcp
+from .multiapp import (PAPER_MULTIAPP_REQS, AppStats, MultiAppResult,
+                       PlanCache, app_price_weights, default_solvers,
+                       run_multiapp, user_network, user_networks)
+from .online import (ChurnOrchestrator, ChurnStats, TickReport,
+                     population_cohorts, population_plans)
 from .optimum import solve_opt
 from .plan import (Plan, PlanStats, migration_delta, solve_plans,
                    update_uplinks)
@@ -44,16 +54,22 @@ __all__ = [
     "synthetic_profile", "BITS_PER_FEATURE", "AppRequirements", "Config",
     "ConfigEval", "Solution", "evaluate_config", "ExtendedGraph",
     "build_extended_graph", "build_extended_graphs", "to_networkx",
-    "FeasibleGraph",
-    "build_feasible_graph", "build_feasible_graphs", "solve_fin",
-    "solve_many", "fin_all_exit_costs",
+    "FeasibleGraph", "build_feasible_graph", "build_feasible_graphs",
+    "solve_fin", "solve_many", "fin_all_exit_costs",
     "FrontierRow", "ParetoFrontier", "brute_force_frontier",
     "frontier_from_rows", "pareto_mask",
     "Plan", "PlanStats", "solve_plans", "update_uplinks", "migration_delta",
+    "solve_mcp",
+    "solve_opt", "run_multiapp", "MultiAppResult", "AppStats",
+    "PAPER_MULTIAPP_REQS", "default_solvers", "user_network",
+    "user_networks", "PlanCache",
+    "ChurnEvent", "churn_trace", "ChurnOrchestrator", "ChurnStats",
+    "TickReport", "population_plans", "population_cohorts",
     "Population", "PopulationStats",
-    "solve_mcp", "solve_opt", "paper_scenario", "sweep_scenarios",
-    "paper_apps", "ChurnEvent", "churn_trace",
+    "SharedCapacity", "CongestionController", "CongestionReport",
+    "accumulate_loads", "config_load_rows", "app_price_weights",
     "ContingencyEntry", "ContingencyLibrary", "ContingencyPolicy",
-    "ContingencyStats", "NoFeasiblePlacement", "candidate_masks",
-    "tier_groups_of",
+    "ContingencyStats", "NoFeasiblePlacement", "PopulationContingency",
+    "candidate_masks", "tier_groups_of",
+    "paper_apps", "paper_scenario", "sweep_scenarios",
 ]

@@ -25,8 +25,13 @@ frontier the warm re-solve it replaces would have produced.
 :class:`NoFeasiblePlacement` is the typed graceful-degradation error: it
 carries the masked node set and the last feasible frontier.
 
-The reference's ``PopulationContingency`` (the cohort form) needs the
-``Population`` engine and comes with the population slice.
+:class:`PopulationContingency` (per :class:`~repro_torch.core.population.
+Population`) is the cohort form: candidate (pack, mask) signatures are
+materialized as pinned cohort states through the signature-dedupe layer
+(their DP inputs built on the cohort's device in one batch) and relaxed in
+one chained banded relaxation (kernel B1 on the card), counted in
+``PopulationStats.prebuilt_states``; a failure tick whose joint mask was
+prebuilt relaxes nothing.
 """
 from __future__ import annotations
 
@@ -38,12 +43,13 @@ import numpy as np
 
 from .frontier import ParetoFrontier
 from .plan import Plan, migration_delta
+from .population import Population
 from .problem import Config, Solution
 from .system_model import Network
 
 __all__ = ["NoFeasiblePlacement", "ContingencyStats", "ContingencyPolicy",
-           "ContingencyEntry", "ContingencyLibrary", "candidate_masks",
-           "tier_groups_of"]
+           "ContingencyEntry", "ContingencyLibrary", "PopulationContingency",
+           "candidate_masks", "tier_groups_of"]
 
 
 class NoFeasiblePlacement(RuntimeError):
@@ -371,3 +377,156 @@ class ContingencyLibrary:
         self.stats.refills += 1
         self.stats.entries_built += len(entries)
         return len(entries)
+
+
+class PopulationContingency:
+    """Prebuilt failover cohort states for one :class:`Population`.
+
+    ``refill()`` walks the live cohort states, generates each state's
+    candidate failure masks, materializes the (pack, candidate-mask)
+    signatures that do not exist yet through the population's own
+    signature-dedupe registry, and relaxes all the newborn states in one
+    chained banded relaxation (counted in ``stats.prebuilt_states``, not
+    in ``dp_relaxes`` -- a covered failure tick's relaxation count stays
+    zero).  The prebuilt states are pinned through cache compaction until
+    the next refill re-derives the pin set.
+
+    ``coverage(node, kind, users)`` is the event-time probe the
+    orchestrator calls when a failure/recovery event arrives: per unique
+    affected state it checks whether the flipped-mask signature is
+    already relaxed.  It runs before the tick's channel ingest, so it is
+    optimistic when a fade re-keys a user in the same tick.
+    """
+
+    def __init__(self, pop: Population, *,
+                 policy: Optional[ContingencyPolicy] = None):
+        self.pop = pop
+        self.policy = policy if policy is not None else ContingencyPolicy()
+        tg = self.policy.tier_groups
+        self.tier_groups: List[Tuple[int, ...]] = (
+            tier_groups_of(pop.network0) if tg == "auto"
+            else [tuple(int(n) for n in g) for g in tg])
+        self.stats = ContingencyStats()
+        self._observed: Counter = Counter()
+        self._observed_masks: Dict[bytes, np.ndarray] = {}
+
+    # ----------------------------------------------------------------- probe
+    def observe(self, mask: np.ndarray) -> None:
+        m = np.asarray(mask, dtype=bool)
+        key = m.tobytes()
+        self._observed[key] += 1
+        if key not in self._observed_masks:
+            self._observed_masks[key] = m.copy()
+        self.stats.observed += 1
+
+    def coverage(self, node: int, kind: str,
+                 users: Optional[Sequence[int]] = None) -> Tuple[int, int]:
+        """Predict a failure/recovery event's library coverage: for every
+        unique cohort state the event actually flips, is the flipped-mask
+        signature present and relaxed?  Returns (hit_states, miss_states)
+        and feeds the observed-mask counter."""
+        if kind not in ("fail", "recover"):
+            raise ValueError(f"kind must be 'fail' or 'recover', "
+                             f"got {kind!r}")
+        pop = self.pop
+        sel = (np.arange(pop.U) if users is None
+               else np.asarray(users, dtype=np.int64))
+        val = kind == "fail"
+        sel = sel[pop._masked[sel, node] != val]
+        hits = misses = 0
+        for sid in np.unique(pop._user_state[sel]):
+            st = pop._states[int(sid)]
+            m = st.mask.copy()
+            m[node] = val
+            self.observe(m)
+            s2 = pop._state_ids.get(pop._state_key(st.stq, m))
+            if s2 is not None and pop._states[int(s2)].dps is not None:
+                hits += 1
+            else:
+                misses += 1
+        self.stats.hits += hits
+        self.stats.misses += misses
+        return hits, misses
+
+    # ----------------------------------------------------------- checkpointing
+    def state_dict(self) -> dict:
+        """The observed-mask counters as plain arrays, in insertion order
+        (``Counter.most_common`` breaks count ties by insertion, so the
+        order is part of which masks the next refill covers)."""
+        keys = list(self._observed.keys())
+        N = self.pop.N
+        masks = (np.stack([self._observed_masks[k] for k in keys])
+                 if keys else np.zeros((0, N), dtype=bool))
+        counts = np.asarray([self._observed[k] for k in keys],
+                            dtype=np.int64)
+        return {"obs_masks": masks, "obs_counts": counts}
+
+    def restore_state(self, d: dict) -> None:
+        """Restore :meth:`state_dict` (the prebuilt states themselves ride
+        the cohort's own ``state_dict``)."""
+        masks = np.asarray(d["obs_masks"], dtype=bool)
+        counts = np.asarray(d["obs_counts"], dtype=np.int64)
+        if masks.ndim != 2 or masks.shape[0] != len(counts) \
+                or (len(masks) and masks.shape[1] != self.pop.N):
+            raise ValueError(f"observed-mask checkpoint shapes "
+                             f"{masks.shape} / {counts.shape} do not fit "
+                             f"a {self.pop.N}-node population")
+        self._observed = Counter()
+        self._observed_masks = {}
+        for m, c in zip(masks, counts):
+            key = m.tobytes()
+            self._observed[key] = int(c)
+            self._observed_masks[key] = m.copy()
+
+    # ---------------------------------------------------------------- refill
+    def refill(self, *, extra_masks: Sequence[np.ndarray] = ()) -> int:
+        """Prebuild the candidate failover states of every live cohort
+        state: find-or-add each (pack, candidate-mask) signature, relax
+        every newborn in one chained batched relaxation (prebuilt counter,
+        zero ``dp_relaxes``), build the vectorized-post-pass fast tables,
+        and pin the whole set through compaction.  ``extra_masks`` adds
+        operator-supplied absolute masks ahead of the observed candidates.
+        Returns the number of states relaxed (0 = full coverage already).
+
+        The missing signatures are materialized in one ``_add_states``
+        batch (one device build of their DP inputs).  A key met twice in
+        one refill resolves to its first newborn, and the ids are handed
+        out in the order of first sight, as one ``_add_state`` per pair
+        would."""
+        pop = self.pop
+        obs = [np.asarray(m, dtype=bool).copy() for m in extra_masks] \
+            + [self._observed_masks[k] for k, _c in
+               self._observed.most_common(self.policy.top_observed)]
+        pinned: set = set()
+        born: Dict[bytes, int] = {}
+        items: List[Tuple[bytes, np.ndarray, np.ndarray, int]] = []
+        for sid in np.unique(pop._user_state):
+            st = pop._states[int(sid)]
+            cands = candidate_masks(
+                st.mask, pop.src, single_node=self.policy.single_node,
+                tier_groups=self.tier_groups, observed=obs,
+                include_base=False, max_masks=self.policy.max_masks)
+            for mask in cands:
+                key = pop._state_key(st.stq, mask)
+                s2 = pop._state_ids.get(key)
+                if s2 is None:
+                    s2 = born.get(key)
+                if s2 is None:
+                    s2 = born[key] = len(pop._states) + len(items)
+                    items.append((key, st.stq.copy(), mask.copy(), -1))
+                pinned.add(int(s2))
+        sids = pop._add_states(items)
+        assert sids == [born[it[0]] for it in items]
+        need = sorted(s for s in pinned if pop._states[s].dps is None)
+        pop._relax_states(need, prebuilt=True)
+        if pop._vector_postpass and pop._proto._admissible:
+            for s in pinned:
+                st = pop._states[s]
+                if st.fast is None:
+                    pop._build_fast(st)
+        pop._pinned = pinned
+        if len(pop._states) > pop.max_states:
+            pop._compact_states()
+        self.stats.refills += 1
+        self.stats.entries_built += len(need)
+        return len(need)

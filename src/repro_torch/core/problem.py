@@ -33,6 +33,14 @@ class Config:
     placement: List[int]        # node index per block, len = final block + 1
     final_exit: int             # index into profile.exits
 
+    def tier_histogram(self, network: Network) -> dict:
+        """Blocks deployed per tier name."""
+        hist: dict = {}
+        for p in self.placement:
+            t = network.tier_of(p)
+            hist[t] = hist.get(t, 0) + 1
+        return hist
+
 
 @dataclass
 class ConfigEval:

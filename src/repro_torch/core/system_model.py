@@ -123,6 +123,9 @@ class Network:
     def e_rx(self) -> np.ndarray:
         return np.array([nd.e_rx for nd in self.nodes])
 
+    def tier_of(self, idx: int) -> str:
+        return self.nodes[idx].tier
+
 
 def make_network(tiers: Sequence[str] = ("mobile", "edge", "cloud"),
                  *,

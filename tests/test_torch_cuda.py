@@ -988,3 +988,49 @@ def test_population_on_card_equals_cpu_path(cuda_device):
     assert quant_signature_rows.launches > b2
     assert banded_minplus_chain.launches > b1
     assert pops[0].h2d_bytes > 0 and pops[0].d2h_bytes > 0
+
+
+def test_churn_orchestrator_on_card_equals_cpu_path(cuda_device):
+    """[churn] at 3,000 users: ``population_cohorts(n_extra_edge=2)`` on the
+    card through 3 AR(1) ``step_arrays`` ticks, a fresh CUDA twin through
+    ``run_arrays(stream=True, stream_overlap="always")`` and the same ticks
+    on the CPU path give equal reports (``t_*`` left out), incumbents,
+    state counts and counters; the ticks launched B2 and B1.  The fading
+    is the heavier one of ``benchmarks/bench_online.py``'s mesh row (mean
+    0.5, sigma 0.15), so that at this size users re-solve and re-key."""
+    U = 3000
+    rng = np.random.default_rng(5)
+    q = np.full(U, 0.5)
+    draws = []
+    for _ in range(3):
+        q = np.clip(0.5 + 0.95 * (q - 0.5) + rng.normal(0, 0.15, U),
+                    0.3, 1.0)
+        draws.append(q.copy())
+    b2, b1 = quant_signature_rows.launches, banded_minplus_chain.launches
+
+    def orch(dev):
+        return T.ChurnOrchestrator(population=T.population_cohorts(
+            U, n_extra_edge=2, device=dev), hysteresis=0.05,
+            stream_overlap="always")
+
+    runs = []
+    for dev, stream in ((cuda_device, False), (cuda_device, True),
+                        ("cpu", False)):
+        o = orch(dev)
+        reps = (o.run_arrays(np.stack(draws), stream=True) if stream
+                else [o.step_arrays(d) for d in draws])
+        runs.append((o, [{k: v for k, v in dataclasses.asdict(r).items()
+                          if not k.startswith("t_")} for r in reps]))
+    (o0, r0) = runs[0]
+    for o, r in runs[1:]:
+        assert r == r0
+        for a, b in zip(o0.pops, o.pops):
+            for f in ("inc_found", "_inc_place", "_inc_exit", "_inc_energy"):
+                assert getattr(a, f).tobytes() == getattr(b, f).tobytes(), f
+            assert a.n_states == b.n_states
+            sa, sb = (dataclasses.asdict(p.stats) for p in (a, b))
+            assert {k: v for k, v in sa.items() if not k.startswith("t_")} \
+                == {k: v for k, v in sb.items() if not k.startswith("t_")}
+    assert runs[1][0]._overlap_used
+    assert quant_signature_rows.launches > b2
+    assert banded_minplus_chain.launches > b1

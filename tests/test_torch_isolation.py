@@ -5,7 +5,8 @@
 * Importing ``repro_torch`` in a fresh interpreter leaves ``jax`` out of
   ``sys.modules``.
 * ``device=None`` means ``cuda:0`` and raises where CUDA is absent, for
-  the solvers, the population cohort and the serving engine and its
+  the solvers, the population cohort, the cohort and plan builders of the
+  churn orchestrator, the multi-app solvers and the serving engine and its
   launcher.
 * ``chip_smoke.py`` exits non-zero, printing no result, without a card.
 """
@@ -43,6 +44,10 @@ def _imported_modules(path: Path):
 def _port_files():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
+    for mod in ("core/capacity.py", "core/contingency.py",
+                "core/multiapp.py", "core/online.py",
+                "runtime/straggler.py"):
+        assert PORT / mod in files, mod
     return files
 
 
@@ -63,7 +68,9 @@ def test_import_in_fresh_interpreter_loads_no_jax_and_builds_nothing():
             "repro_torch.kernels.minplus.ops, repro_torch.convert, "
             "repro_torch.kernels.ee_gate.ops, "
             "repro_torch.kernels.ee_gate.population, "
-            "repro_torch.core.population, "
+            "repro_torch.core.population, repro_torch.core.capacity, "
+            "repro_torch.core.multiapp, repro_torch.core.online, "
+            "repro_torch.runtime.straggler, "
             "repro_torch.kernels.decode_attn.ops, "
             "repro_torch.runtime.serve_engine, repro_torch.launch.serve\n"
             "from repro_torch.kernels import _build\n"
@@ -105,6 +112,25 @@ def test_entry_points_do_not_fall_back_to_cpu():
                  lambda: T.Population(nw, pf, req, 4, fused_ingest="numpy")):
         with pytest.raises(RuntimeError, match="cuda"):
             call()
+
+
+def test_orchestrator_entry_points_default_to_cuda_and_raise_without_it():
+    """``population_cohorts``, ``population_plans``, ``default_solvers``,
+    ``PlanCache`` and ``run_multiapp`` build on ``cuda:0`` unless told
+    otherwise, and raise where there is no card."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: device=None resolves to it")
+    for call in (lambda: T.population_cohorts(6),
+                 lambda: T.population_plans(6),
+                 lambda: T.default_solvers(),
+                 lambda: T.PlanCache(),
+                 lambda: T.run_multiapp(2)):
+        with pytest.raises(RuntimeError, match="cuda"):
+            call()
+    assert all(p.device == torch.device("cpu")
+               for p in T.population_cohorts(6, device="cpu"))
+    assert all(p.device == torch.device("cpu")
+               for p in T.population_plans(2, device="cpu"))
 
 
 def test_serving_entry_points_default_to_cuda_and_raise_without_it():

@@ -452,7 +452,7 @@ def test_f32_population_agrees_with_minplus():
 
 
 @pytest.mark.parametrize("gamma", [10, 25])
-@pytest.mark.parametrize("app", ["h1", "h4", "h6"])
+@pytest.mark.parametrize("app", ["h1", "h2", "h3", "h4", "h5", "h6"])
 def test_f32_population_agrees_with_reference(app, gamma):
     """The port's float32 cohort (``backend="f32"``, on the CPU) against the
     reference's float32 cohort (``backend="jnp"``, numpy ingest): 24 users
