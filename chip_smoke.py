@@ -40,6 +40,25 @@ before it and read just after:
                       failure ticks), against the CPU path;
   [multiapp]          ``run_multiapp(200)`` (Fig. 8), continuous and
                       bucketed draws, against the CPU path;
+  [resume]            [churn]'s orchestrator through 4 ticks of
+                      ``run_arrays(checkpoint_dir=, checkpoint_every=2)``
+                      with a crash injected after tick 3, synchronous and
+                      streamed: ``resume`` in a fresh orchestrator replays
+                      the tail of the uninterrupted run (reports,
+                      incumbents, state_dict bytes), on CUDA and from the
+                      same checkpoint on the CPU path;
+  [mesh]              [pop_tick]'s cohort with ``backend="mesh"`` (the
+                      users mesh over the visible cards, one f32 B1 launch
+                      a shard) against the CPU path and an ``f32`` cohort,
+                      then the relaxer's retry ladder under injected stalls;
+  [multihost]         this script again as two gloo ranks on the one card
+                      (``--multihost-rank``): ragged shards through the
+                      two-rank mesh equal a local relaxer, and a symmetric
+                      stall schedule demotes each rank once, exactly;
+  [elastic]           ``fin_failover`` over 64 h2 ``Plan``s, failing and
+                      recovering each node, with and without the
+                      contingency library, against cold ``solve_fin`` and
+                      the CPU path; the mesh planner for qwen3-4b;
   [serve]             ``SplitServeEngine`` on qwen3-4b at full width in bf16
                       (random weights from a seed): 16 requests, then a
                       ``serve_with_churn`` trace with a node failure and its
@@ -208,6 +227,14 @@ FAILOVER_TICKS = 20
 #: app, continuous draws and 16 uplink buckets), seed 1
 MULTIAPP_USERS = 200
 MULTIAPP_BUCKETS = 16
+#: [resume]: [churn]'s configuration through 4 ticks, checkpoints every 2
+#: (at most 2 kept), a crash injected after tick 3 (stage "post")
+RESUME_TICKS = 4
+RESUME_CRASH = 3
+#: [multihost]: rank r relaxes MULTIHOST_ROWS + 7 r chains at the [mesh]
+#: cohort's widths; [elastic]: [failover]'s 64 h2 users as Plans
+MULTIHOST_ROWS = 20_000
+ELASTIC_PLANS = 64
 PLAN_USERS = 128
 PLAN_TICKS = 8
 FRONTIER_USERS = 16
@@ -2560,6 +2587,502 @@ def phase_multiapp(dev, counters):
     return launched
 
 
+# ---------------------------------------------------------------------------
+# fault tolerance: checkpoint / resume, the users mesh, elastic failover
+# ---------------------------------------------------------------------------
+
+def _timed_method(obj, name, walls):
+    """Wrap ``obj.name`` so that each call's wall (host clock, ending in
+    synchronize) is appended to ``walls``."""
+    import torch
+    orig = getattr(obj, name)
+
+    def timed(*a, **k):
+        t0 = time.perf_counter()
+        out = orig(*a, **k)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        return out
+    setattr(obj, name, timed)
+
+
+def _join_relaxes(o):
+    """Let a crashed orchestrator's in-flight background relaxations end
+    (its cohorts' one-thread executors) before anything else runs."""
+    import torch
+    for p in o.pops:
+        if p._relax_executor is not None:
+            p._relax_executor.shutdown(wait=True)
+    torch.cuda.synchronize()
+
+
+def _same_resumed(a, b, what):
+    """Identical incumbents and state_dict bytes (cohort by cohort) and
+    hysteresis ledgers; the cumulative PopulationStats of a resumed run
+    start at its restore, so its counters are compared through the
+    reports."""
+    check(len(a.pops) == len(b.pops), f"{what}: cohort count")
+    for i, (p, q) in enumerate(zip(a.pops, b.pops)):
+        check(p.n_states == q.n_states, f"{what}: cohort {i} n_states")
+        _same_cohorts(p, q, f"{what}, cohort {i}", stats=False)
+    for f in ("_ref_energy", "_cur_energy", "quality", "attached"):
+        check(getattr(a, f).tobytes() == getattr(b, f).tobytes(),
+              f"{what}: ledger {f} differs")
+
+
+def phase_resume(dev, counters):
+    """[resume]: the [churn] configuration (``population_cohorts(1e6,
+    n_extra_edge=2)``, hysteresis 0.05, ``_ar1`` draws) through
+    ``RESUME_TICKS`` ticks of ``run_arrays(checkpoint_dir=,
+    checkpoint_every=2, checkpoint_keep=2)`` with an injected crash after
+    tick 3 (stage ``post``), synchronous and streamed.  Each crash must
+    raise ``InjectedCrash``; a fresh CUDA orchestrator's ``resume`` must
+    give the tail reports, incumbents and state_dict bytes of an
+    uninterrupted CUDA run, which equals the CPU path; the CUDA checkpoint
+    resumed on the CPU path gives the same tail.  The kernels' counts are
+    reset before the resumes and read after."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.core.faults import FaultPlan, FaultSpec, InjectedCrash
+    from repro_torch.runtime import checkpoint as ckpt
+    t_phase = time.perf_counter()
+    Q = np.stack(_ar1(CHURN_USERS, RESUME_TICKS))
+    launches = _launch_reader()
+    t0 = time.perf_counter()
+    clean = _churn_orch(dev)
+    reps = clean.run_arrays(Q, stream=False)
+    torch.cuda.synchronize()
+    wall_clean = time.perf_counter() - t0
+    cpu = _churn_orch("cpu")
+    check(_reports(cpu.run_arrays(Q, stream=False)) == _reports(reps),
+          "[resume] uninterrupted CPU path reports differ from CUDA")
+    _same_resumed(clean, cpu, "[resume] uninterrupted CUDA vs CPU path")
+    del cpu
+    plan = FaultPlan(specs=[FaultSpec(kind="crash", tick=RESUME_CRASH,
+                                      stage="post")])
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_resume_")
+    totals = {"B1": 0, "B2": 0, "B3": 0}
+    try:
+        for stream in (False, True):
+            d = str(Path(tmp) / ("stream" if stream else "sync"))
+            crashed = _churn_orch(dev, stream_overlap="always")
+            saves = []
+            _timed_method(crashed, "checkpoint", saves)
+            t0 = time.perf_counter()
+            try:
+                crashed.run_arrays(Q, stream=stream, checkpoint_dir=d,
+                                   checkpoint_every=2, checkpoint_keep=2,
+                                   fault_plan=plan)
+                raise PhaseFailed("[resume] the injected crash did not fire")
+            except InjectedCrash:
+                pass
+            _join_relaxes(crashed)
+            wall_crash = time.perf_counter() - t0
+            del crashed
+            steps = ckpt.available_steps(d)
+            check(1 <= len(steps) <= 2, f"[resume] {len(steps)} checkpoints "
+                  f"on disk (keep 2)")
+            files = list(Path(d).rglob("*"))
+            nbytes = sum(f.stat().st_size for f in files if f.is_file())
+            raw = (Path(d) / f"step_{steps[-1]:012d}" / ckpt.ARRAYS
+                   ).read_bytes()[:4]
+            zstd = raw == ckpt._ZSTD_MAGIC
+            _reset(counters)
+            resumed = _churn_orch(dev, stream_overlap="always")
+            rest = []
+            _timed_method(resumed, "restore", rest)
+            l0 = launches()
+            t0 = time.perf_counter()
+            tail = resumed.resume(d, Q, stream=stream)
+            torch.cuda.synchronize()
+            wall_resume = time.perf_counter() - t0
+            l1 = launches()
+            pos = RESUME_TICKS - len(tail)
+            check(pos == RESUME_CRASH - RESUME_CRASH % 2,
+                  f"[resume] resumed at trace position {pos}")
+            check(_reports(tail) == _reports(reps[pos:]),
+                  f"[resume] stream={stream}: resumed tail reports differ "
+                  f"from the uninterrupted run")
+            _same_resumed(clean, resumed, f"[resume] stream={stream}: "
+                          f"resumed vs uninterrupted")
+            for k in totals:
+                totals[k] += l1[k] - l0[k]
+            # the restore re-relaxes every state that held grids (B1); the
+            # tail's ingest launches B2 only for re-solved users' rows
+            check(l1["B1"] - l0["B1"] > 0,
+                  f"[resume] the resume launched no B1 ({l1})")
+            del resumed
+            on_cpu = _churn_orch("cpu")
+            check(_reports(on_cpu.resume(d, Q, stream=stream))
+                  == _reports(reps[pos:]),
+                  "[resume] the CUDA checkpoint resumed on the CPU path "
+                  "gives another tail")
+            _same_resumed(clean, on_cpu, "[resume] CUDA checkpoint resumed "
+                          "on the CPU path")
+            del on_cpu
+            log("resume", f"stream={stream}: {CHURN_USERS} users, "
+                f"{RESUME_TICKS} ticks, checkpoint_every 2, crash after "
+                f"tick {RESUME_CRASH} (post) raised InjectedCrash after "
+                f"{wall_crash:.3f} s (init, ticks, saves); checkpoints on "
+                f"disk {steps} ({nbytes} B, zstd {zstd}); save walls s "
+                f"{[round(w, 3) for w in saves]}; restore wall "
+                f"{rest[0]:.3f} s; resume (restore + {len(tail)} ticks) "
+                f"{wall_resume:.3f} s; launches of the resume B1 "
+                f"{l1['B1'] - l0['B1']}, B2 {l1['B2'] - l0['B2']}, B3 "
+                f"{l1['B3'] - l0['B3']}; tail == uninterrupted CUDA run "
+                f"(reports, incumbents, state_dict bytes, ledgers) == the "
+                f"CPU path == this checkpoint resumed on the CPU path")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log("resume", f"uninterrupted CUDA run (init + {RESUME_TICKS} ticks) "
+        f"{wall_clean:.3f} s; the phase took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return totals
+
+
+def _mesh_cohort(where, backend):
+    import repro_torch as T
+    return T.Population(T.paper_scenario(n_extra_edge=2),
+                        T.paper_profile(POP_APP),
+                        T.PAPER_MULTIAPP_REQS[POP_APP], POP_USERS,
+                        gamma=POP_GAMMA, backend=backend, timing=True,
+                        device=where)
+
+
+def _mesh_run(where, backend, q0, draws):
+    """[pop_tick]'s cold attach, AR(1) ticks and mixed tick (failures for
+    every 8th user, recovery, slice and backhaul repricings: newborn
+    states for the relaxer) on one cohort."""
+    import numpy as np
+    import torch
+    from repro_torch.core.scenarios import MOBILE_UPLINK_BPS
+    t0 = time.perf_counter()
+    pop = _mesh_cohort(where, backend)
+    pop.attach_many(MOBILE_UPLINK_BPS * q0)
+    walls = [time.perf_counter() - t0]
+    for q in draws:
+        t0 = time.perf_counter()
+        changed = pop.ingest(MOBILE_UPLINK_BPS * q)
+        _no, feas, _en = pop.evaluate_incumbents()
+        pop.solve(np.nonzero(changed | ~feas)[0], build_solutions=False)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    _pop_mixed(pop)
+    torch.cuda.synchronize()
+    walls.append(time.perf_counter() - t0)
+    return pop, walls
+
+
+def phase_mesh(dev, counters):
+    """[mesh]: ``Population(backend="mesh")`` of the [pop_tick] cohort
+    (1,000,000 h4 users, gamma 10) on ``cuda:0`` through [pop_tick]'s cold
+    attach, AR(1) draws and mixed tick: a users mesh over the visible
+    cards, one float32 B1 launch a shard a relax.  It must equal the same
+    cohort on the CPU path (incumbents, counters, state_dict bytes) and a
+    ``backend="f32"`` CUDA cohort (incumbents: every user's placement,
+    exit and energy).  With more than one card, ragged stacks through the
+    mesh of every card equal a one-card relaxer's.  Then the retry ladder
+    on the cohort's relaxer: a stall within the budget is retried and stays
+    exact; one that never heals is demoted down to one card and raises
+    there."""
+    import numpy as np
+    import torch
+    from repro_torch.core.faults import FaultPlan
+    t_phase = time.perf_counter()
+    q0, draws = _pop_draws()
+    launches = _launch_reader()
+    _reset(counters)
+    gpu, walls = _mesh_run(dev, "mesh", q0, draws)
+    launched = launches()
+    rx = gpu._mesh_relaxer
+    check(rx is not None, "[mesh] the cohort built no relaxer")
+    n_cards = rx.n_devices
+    fused = gpu.stats.fused_relaxes
+    check(launched["B1"] >= fused * rx.n_devices > 0,
+          f"[mesh] B1 launches {launched['B1']} < mesh relaxes {fused} x "
+          f"shards {rx.n_devices}")
+    check(launched["B2"] > 0, "[mesh] launched no B2")
+    f32, walls_f = _mesh_run(dev, "f32", q0, draws)
+    for f in ("_inc_place", "_inc_exit", "_inc_energy"):
+        check(getattr(gpu, f).tobytes() == getattr(f32, f).tobytes(),
+              f"[mesh] {f} differs from the f32 CUDA cohort")
+    del f32
+    cpu, walls_c = _mesh_run("cpu", "mesh", q0, draws)
+    _same_cohorts(gpu, cpu, "[mesh] CUDA vs the CPU path")
+    del cpu
+    if rx.n_devices > 1:
+        from repro_torch.sharding import MeshRelaxer, PopulationMesh
+        one = MeshRelaxer(PopulationMesh((torch.device(dev),)))
+        init, E, steep = _rank_problem(0)
+        for D in (1, rx.n_devices + 1, 3 * rx.n_devices - 1, len(init)):
+            a = rx.relax(init[:D], E[:D], steep[:D], None)
+            b = one.relax(init[:D], E[:D], steep[:D], None)
+            check(all(x.tobytes() == y.tobytes() for x, y in zip(a, b)),
+                  f"[mesh] {rx.n_devices} cards != one card at {D} chains")
+        log("mesh", f"ragged stacks of 1 .. {len(init)} chains over "
+            f"{rx.n_devices} cards == one card (hist, parents)")
+    # the retry ladder on the cohort's relaxer, on its own stacks
+    states = [s for s in gpu._states if s.dps is not None][:64]
+    grid = torch.cat([s.grid for s in states])
+    steep = torch.cat([s.steep for s in states])
+    E_one = gpu._proto._ext.E
+    E = E_one[None].expand((len(grid),) + tuple(E_one.shape))
+    lo = gpu.depth_window_lo
+    rx.backoff_s, rx.max_retries = 0.0, 2
+    h0, p0 = rx.relax(grid, E, steep, lo)
+    r0, d0 = rx.retries, rx.demotions
+    rx.fault_hook = FaultPlan.stall_hook(2)
+    h1, p1 = rx.relax(grid, E, steep, lo)
+    check((rx.retries - r0, rx.demotions - d0) == (2, 0)
+          and h1.tobytes() == h0.tobytes() and p1.tobytes() == p0.tobytes(),
+          "[mesh] a stall within the retry budget was not retried exactly")
+    rx.fault_hook = FaultPlan.stall_hook(10 ** 6)
+    try:
+        rx.relax(grid, E, steep, lo)
+        raise PhaseFailed("[mesh] a stall that never heals did not raise")
+    except TimeoutError:
+        pass
+    check(rx.n_devices == 1 and rx.demotions - d0 == (n_cards > 1),
+          "[mesh] the ladder was not taken to its bottom")
+    rx.fault_hook = None
+    log("mesh", f"{POP_USERS} h4 users, backend mesh on {n_cards} "
+        f"card(s): cold attach + {len(draws)} AR(1) ticks + the mixed tick;"
+        f" walls s (host clock) mesh "
+        + ", ".join(f"{w:.3f}" for w in walls) + " | f32 "
+        + ", ".join(f"{w:.3f}" for w in walls_f) + " | cpu mesh "
+        + ", ".join(f"{w:.3f}" for w in walls_c)
+        + f"; {gpu.n_states} states, mesh relaxes {fused}, launches "
+        f"{launched} (B1 >= relaxes x shards); relaxer bytes "
+        f"{rx.h2d_bytes} up, {rx.d2h_bytes} down; == the CPU path "
+        f"(incumbents, counters, state_dict bytes) == the f32 CUDA cohort "
+        f"(incumbents); stall_hook(2) with max_retries 2: retried twice, "
+        f"exact, no demotion; a stall that never heals raised "
+        f"TimeoutError after {rx.retries - r0 - 2} more retries and "
+        f"{rx.demotions - d0} demotions; the phase took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return launched
+
+
+def _rank_problem(rank):
+    """A rank's ragged shard at the [mesh] cohort's widths (h4: 4 layers,
+    N 5, G+1 11): MULTIHOST_ROWS + 7 * rank chains, from a seed."""
+    import numpy as np
+    rng = np.random.default_rng(60 + rank)
+    D, L, N, Gp1 = MULTIHOST_ROWS + 7 * rank, 4, 5, POP_GAMMA + 1
+    steep = np.where(rng.random((D, L, N, N)) < 0.5,
+                     rng.integers(0, Gp1 - 1, (D, L, N, N)).astype(float),
+                     np.inf)
+    E = rng.random((D, L, N, N))
+    init = np.where(rng.random((D, N, Gp1)) < 0.3,
+                    rng.random((D, N, Gp1)), np.inf)
+    return init, E, steep
+
+
+def multihost_rank(rank, world, port):
+    """One gloo rank of [multihost] (``chip_smoke.py --multihost-rank``):
+    its ragged shard through the two-rank mesh on ``cuda:0`` equals a local
+    relaxer; the symmetric stall schedule demotes it once, exactly; the
+    orchestrator's gather sees both ranks' relax times."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=world)
+    try:
+        from repro_torch.core.faults import FaultPlan
+        from repro_torch.kernels.minplus.ops import banded_minplus_chain
+        from repro_torch.sharding import (MeshRelaxer, PopulationMesh,
+                                          population_mesh)
+        dev = torch.device("cuda", 0)
+        init, E, steep = _rank_problem(rank)
+        dev_in = [torch.as_tensor(x, device=dev) for x in (init, E, steep)]
+        mr = MeshRelaxer(population_mesh(), timeout_s=120.0)
+        cards = torch.cuda.device_count()
+        check(mr.multihost and mr.n_devices == world * cards,
+              f"rank {rank}: mesh of {mr.n_devices} devices")
+        banded_minplus_chain.launches = 0
+        t0 = time.perf_counter()
+        hist, par = mr.relax(*dev_in, None)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = banded_minplus_chain.launches
+        local = MeshRelaxer(PopulationMesh((dev,)))
+        hl, pl = local.relax(*dev_in, None)
+        check(hist.tobytes() == hl.tobytes() and par.tobytes() ==
+              pl.tobytes(), f"rank {rank}: global != local")
+        drop = MeshRelaxer(population_mesh(), max_retries=1, backoff_s=0.0,
+                           timeout_s=120.0)
+        drop.fault_hook = FaultPlan.stall_hook(2)
+        hd, pd = drop.relax(*dev_in, None)
+        check((drop.demotions, drop.retries) == (1, 1)
+              and not drop.multihost, f"rank {rank}: ladder "
+              f"{drop.demotions} demotions, {drop.retries} retries")
+        check(hd.tobytes() == hl.tobytes() and pd.tobytes() == pl.tobytes(),
+              f"rank {rank}: inexact after the demotion")
+        print(f"[multihost] rank {rank}: {len(init)} chains, global == local"
+              f" exact ({wall * 1e3:.1f} ms, B1 launches {launches}, "
+              f"{mr.h2d_bytes} B up, {mr.d2h_bytes} B down); demoted once "
+              f"(1 retry), exact", flush=True)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_multihost():
+    """[multihost]: this script started twice as gloo ranks on the one card
+    (``--multihost-rank r 2 port``); both must exit 0 and report their
+    checks."""
+    import socket
+    t_phase = time.perf_counter()
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                               "--multihost-rank", str(r), "2", str(port)],
+                              cwd=ROOT, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            out, _ = p.communicate(timeout=300)
+            outs.append((p.returncode, out))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    b1 = 0
+    for r, (rc, out) in enumerate(outs):
+        tail = "\n".join(out.splitlines()[-15:])
+        check(rc == 0, f"[multihost] rank {r} exited {rc}:\n{tail}")
+        line = [ln for ln in out.splitlines()
+                if ln.startswith(f"[multihost] rank {r}:")]
+        check(len(line) == 1, f"[multihost] rank {r} printed no result")
+        print(line[0], flush=True)
+        b1 += int(line[0].split("B1 launches ")[1].split(",")[0])
+    log("multihost", f"2 gloo ranks on one card, ragged shards "
+        f"{MULTIHOST_ROWS} / {MULTIHOST_ROWS + 7}: both exact, both demoted "
+        f"once; B1 launches in the ranks' mesh relaxes {b1}; the phase took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return {"B1": b1, "B2": 0, "B3": 0}
+
+
+def _elastic_plans(where):
+    import numpy as np
+    import repro_torch as T
+    from repro_torch.core.scenarios import MOBILE_UPLINK_BPS
+    nw = T.paper_scenario(n_extra_edge=1)
+    prof = T.paper_profile("h2")
+    req = T.AppRequirements(alpha=0.5, delta=8e-3)
+    q = np.random.default_rng(8).uniform(0.3, 1.0, ELASTIC_PLANS)
+    plans = []
+    for u in range(ELASTIC_PLANS):
+        p = T.Plan(nw, prof, req, device=where)
+        p.update_uplink(MOBILE_UPLINK_BPS * q[u])
+        p.solve()
+        plans.append(p)
+    return plans
+
+
+def _elastic_run(where, library):
+    """Fail and recover every non-mobile node of every plan through
+    ``fin_failover``; each failure's solution is held to a cold
+    ``solve_fin`` on the reduced network.  Returns the outcomes as
+    comparable tuples and the library hits."""
+    import numpy as np
+    import repro_torch as T
+    from repro_torch.runtime.elastic import fin_failover
+    plans = _elastic_plans(where)
+    out, hits = [], 0
+    for plan in plans:
+        lib = None
+        if library:
+            lib = T.ContingencyLibrary(plan)
+            lib.refill()
+        for node in range(1, plan.network.n_nodes):
+            for recover in (False, True):
+                r = fin_failover(plan, node, recover=recover, library=lib)
+                hits += r.library_hit
+                sol = r.solution
+                out.append((sol.found, sol.energy if sol.found else None,
+                            tuple(sol.config.placement) if sol.found
+                            else None, r.blocks_moved, r.migration_bits,
+                            r.library_hit))
+                if recover:
+                    continue
+                nw = plan.network
+                keep = [i for i in range(nw.n_nodes) if i != node]
+                red = T.Network(nodes=[nw.nodes[i] for i in keep],
+                                bandwidth=nw.bandwidth[np.ix_(keep, keep)]
+                                .copy(), compute=nw.compute[keep].copy(),
+                                source_node=0)
+                cold = T.solve_fin(red, plan.profile, plan.req,
+                                   device=where)
+                check(cold.found == sol.found
+                      and (not sol.found or (
+                          cold.energy == sol.energy
+                          and [keep[p] for p in cold.config.placement]
+                          == sol.config.placement)),
+                      f"[elastic] fin_failover of node {node} differs from "
+                      f"a cold solve_fin on the reduced network")
+    return out, hits
+
+
+def phase_elastic(dev, counters):
+    """[elastic]: ``fin_failover`` over ``ELASTIC_PLANS`` h2 ``Plan``s on
+    the card, failing and recovering each non-mobile node, without and with
+    a ``ContingencyLibrary``: each failure equals a cold ``solve_fin`` on
+    the reduced network, the library serves hits with identical outcomes,
+    and the whole sequence equals the CPU path.  Then the mesh planner for
+    qwen3-4b."""
+    import torch
+    from repro_torch.configs import get
+    from repro_torch.runtime.elastic import (MeshPlan, candidate_meshes,
+                                             plan_rescale)
+    t_phase = time.perf_counter()
+    launches = _launch_reader()
+    _reset(counters)
+    walls, res = {}, {}
+    for where in (dev, "cpu"):
+        for library in (False, True):
+            t0 = time.perf_counter()
+            res[str(where), library] = _elastic_run(where, library)
+            torch.cuda.synchronize()
+            walls[str(where), library] = time.perf_counter() - t0
+        if where is dev:
+            launched = launches()
+    check(launched["B1"] > 0, "[elastic] launched no B1")
+    for library in (False, True):
+        check(res[str(dev), library] == res["cpu", library],
+              f"[elastic] CUDA differs from the CPU path (library "
+              f"{library})")
+    plain, _ = res[str(dev), False]
+    with_lib, hits = res[str(dev), True]
+    check(hits > 0, "[elastic] the library served no hit")
+    check([o[:5] for o in plain] == [o[:5] for o in with_lib],
+          "[elastic] library outcomes differ from the warm re-solves")
+    cfg = get("qwen3-4b")
+    cands = candidate_meshes(cfg, 250)
+    resc = plan_rescale(cfg, MeshPlan(data=16, model=16), 240,
+                        param_bytes=8.8e9, global_batch=256)
+    check(bool(cands) and resc is not None, "[elastic] no mesh for qwen3-4b")
+    log("elastic", f"{ELASTIC_PLANS} h2 plans x {len(plain) // ELASTIC_PLANS}"
+        f" failovers (fail + recover of each non-mobile node): each failure"
+        f" == cold solve_fin on the reduced network; library hits {hits} of "
+        f"{len(with_lib)}, outcomes identical to the warm re-solves; CUDA "
+        f"== CPU path; launches {launched}; walls s (host clock) "
+        + ", ".join(f"{w} library {k}: {v:.3f}" for (w, k), v in
+                    walls.items())
+        + f"; qwen3-4b: candidate_meshes(250) best {cands[0]}, "
+        f"plan_rescale(16x16 -> 240 chips) new {resc.new}, moved "
+        f"{resc.moved_bytes:.4g} B, batch_ok {resc.batch_ok}; the phase took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return launched
+
+
 def ingest_times(dev, err):
     """B2 at the population tick's ingest, 1e6 rows, for h4 (the [pop_tick]
     cohort: 90 int16 a row) and h6 (L = 3: 50): device ms a call from
@@ -3309,6 +3832,9 @@ def main(argv) -> int:
                 minplus_vecmat_argmin, ee_gate, decode_attn,
                 quant_signature_rows)
 
+    if argv[:1] == ["--multihost-rank"] and len(argv) == 4:
+        multihost_rank(int(argv[1]), int(argv[2]), argv[3])
+        return 0
     if argv and (argv[0] != "--times" or not set(argv[1:]) <= set(TIMES)):
         print(f"usage: python3 chip_smoke.py [--times [{'] ['.join(TIMES)}]]"
               f"; got {argv}", file=sys.stderr)
@@ -3350,6 +3876,12 @@ def main(argv) -> int:
              "congestion": phase_congestion(dev, counters),
              "failover": phase_failover(dev, counters),
              "multiapp": phase_multiapp(dev, counters)}
+    # the fault-tolerance layer: checkpoint / resume, the users mesh on one
+    # and two ranks, elastic failover
+    paths["resume"] = phase_resume(dev, counters)
+    paths["mesh"] = phase_mesh(dev, counters)
+    paths["multihost"] = phase_multihost()
+    paths["elastic"] = phase_elastic(dev, counters)
     # B4 on solve_many(backend="dense"), B5 on the Table VII path
     dense_rows, table7_layer = dense_times(grid, dev, err)
     for row, path in zip(dense_rows, (launches_d, launches_t7)):

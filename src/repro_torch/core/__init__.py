@@ -15,6 +15,8 @@
   multiapp       -- Sec. V multi-application orchestration
   capacity       -- population-shared node/link capacity + congestion pricing
   online         -- the churn orchestrator over plans or cohorts
+  faults         -- deterministic fault injection (crashes, stalls, corrupt
+                    telemetry); its names stay at ``core.faults``
 """
 from .capacity import (CongestionController, CongestionReport,
                        SharedCapacity, accumulate_loads, config_load_rows)

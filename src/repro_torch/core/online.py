@@ -35,15 +35,19 @@ through such churn:
 optimal re-planning whose configurations are bit-exact vs cold per-user
 ``solve_fin`` calls.
 
+*Crash consistency*: in population mode the full serving state
+checkpoints atomically (``runtime/checkpoint.py``, the reference's layout:
+a checkpoint of either package restores in the other), ``resume`` replays
+the tail a crash swallowed bit-identically, and ``run_arrays(fault_plan=)``
+fires ``core/faults.py``'s deterministic crash points.  Cohorts on the
+``mesh`` backend expose their relaxers: the straggler detector demotes
+them, and the per-tick retry / demotion counts land in the report.
+
 Port of ``repro/core/online.py``.  The orchestrator is host numpy over
 the cohorts' host incumbents; the plans and cohorts it drives run their
 ingest (kernel B2) and relaxations (kernel B1; B3 for plans built with
 ``n_best > 1``) on their own device, ``cuda:0`` unless built with
-``device="cpu"``.  Not ported yet (``ROADMAP.md`` A.2b): checkpoint,
-restore, resume and the fault-injection hooks of ``run_arrays``, which
-raise ``NotImplementedError``.  The device-mesh relaxers (A.4) do not
-exist here, so the straggler detector flags workers but demotes nothing,
-and the relax times it reads are this process's own.
+``device="cpu"``.
 """
 from __future__ import annotations
 
@@ -66,6 +70,7 @@ from .problem import AppRequirements, Config
 from .scenarios import (MOBILE_UPLINK_BPS, ChurnEvent, churn_trace,
                         paper_scenario)
 from .system_model import Network
+from ..runtime import checkpoint as ckpt
 from ..runtime.straggler import StragglerDetector
 
 __all__ = ["ChurnEvent", "churn_trace", "TickReport", "ChurnStats",
@@ -761,7 +766,10 @@ class ChurnOrchestrator:
                    attaches: Optional[np.ndarray] = None, *,
                    stream: bool = True,
                    checkpoint_dir: Optional[str] = None,
-                   fault_plan: object = None) -> List[TickReport]:
+                   checkpoint_every: int = 0,
+                   checkpoint_keep: int = 3,
+                   fault_plan: object = None,
+                   _trace_offset: int = 0) -> List[TickReport]:
         """Run a whole array-form churn trace (population mode only).
 
         ``qualities`` is (T, U) per-tick channel draws; ``attaches`` an
@@ -777,12 +785,21 @@ class ChurnOrchestrator:
         each tick around shared state, so those configurations (and
         ``stream=False``) take the synchronous path.
 
-        Checkpointing (``checkpoint_dir``) and fault injection
-        (``fault_plan``) are not ported yet (``ROADMAP.md`` A.2b) and
-        raise.
+        Crash consistency: with ``checkpoint_dir`` set, the full serving
+        state (:meth:`checkpoint`) is written atomically after every
+        ``checkpoint_every`` completed ticks (counted in ABSOLUTE trace
+        position, so a resumed run checkpoints on the same boundaries as
+        the run it continues) and always after the final tick.  At a
+        boundary the streaming pipeline first drains its in-flight tick
+        (its relaxation results reach the host before the state is read),
+        so a checkpoint never contains lookahead ingest state — a process
+        killed anywhere and resumed via :meth:`resume` replays the lost
+        tail bit-identically.  ``fault_plan`` (``core/faults.py``) injects
+        deterministic mid-tick crashes: ``ingest`` fires before a tick's
+        channel ingest, ``relax`` while its relaxation is in flight (on
+        the synchronous path, together with ``ingest``), ``post`` after
+        the tick fully completed; hook ticks are absolute positions too.
         """
-        if checkpoint_dir is not None or fault_plan is not None:
-            _no_checkpoints("run_arrays(checkpoint_dir=, fault_plan=)")
         if self.pops is None:
             raise ValueError("run_arrays requires population mode")
         qualities = np.asarray(qualities, dtype=np.float64)
@@ -796,16 +813,47 @@ class ChurnOrchestrator:
                 raise ValueError(
                     f"attaches must match qualities shape "
                     f"{qualities.shape}, got {attaches.shape}")
+        if checkpoint_every and checkpoint_dir is None:
+            raise ValueError("checkpoint_every= needs checkpoint_dir=")
         T = len(qualities)
+        off = int(_trace_offset)
+        every = int(checkpoint_every)
         if not stream or self.congestion is not None \
                 or self.placement_policy == "frontier":
-            return [self.step_arrays(qualities[t],
-                                     None if attaches is None
-                                     else attaches[t])
-                    for t in range(T)]
+            reports = []
+            for t in range(T):
+                pos = off + t
+                if fault_plan is not None:
+                    fault_plan.crash_hook("ingest", pos)
+                    fault_plan.crash_hook("relax", pos)
+                rep = self.step_arrays(
+                    qualities[t],
+                    None if attaches is None else attaches[t])
+                reports.append(rep)
+                if fault_plan is not None:
+                    fault_plan.crash_hook("post", pos)
+                if checkpoint_dir is not None and every > 0 \
+                        and (pos + 1) % every == 0 and t + 1 < T:
+                    self.checkpoint(checkpoint_dir, trace_pos=pos + 1,
+                                    keep=checkpoint_keep)
+            if checkpoint_dir is not None and T:
+                self.checkpoint(checkpoint_dir, trace_pos=off + T,
+                                keep=checkpoint_keep)
+            return reports
         reports: List[TickReport] = []
-        prev = None          # in-flight tick: (rep, pendings, snap)
+        prev = None          # in-flight tick: (rep, pendings, snap, pos)
         for t in range(T):
+            pos = off + t
+            if prev is not None and checkpoint_dir is not None \
+                    and every > 0 and pos % every == 0:
+                # boundary: drain the in-flight tick BEFORE this tick's
+                # ingest, so the checkpoint holds exactly ticks < pos
+                self._drain_tick(reports, prev, fault_plan)
+                prev = None
+                self.checkpoint(checkpoint_dir, trace_pos=pos,
+                                keep=checkpoint_keep)
+            if fault_plan is not None:
+                fault_plan.crash_hook("ingest", pos)
             rep = TickReport(tick=self._tick)
             self._tick += 1
             snap = self._timing_snapshot()
@@ -824,29 +872,168 @@ class ChurnOrchestrator:
             # its begin-time snapshot
             self._stream_ingest(rep)
             if prev is not None:
-                self._finish_tick(*prev)
-                reports.append(prev[0])
-            prev = (rep, self._gate_and_begin(rep), snap)
+                self._drain_tick(reports, prev, fault_plan)
+            prev = (rep, self._gate_and_begin(rep), snap, pos)
+            if fault_plan is not None:
+                fault_plan.crash_hook("relax", pos)
         if prev is not None:
-            self._finish_tick(*prev)
-            reports.append(prev[0])
+            self._drain_tick(reports, prev, fault_plan)
+        if checkpoint_dir is not None and T:
+            self.checkpoint(checkpoint_dir, trace_pos=off + T,
+                            keep=checkpoint_keep)
         return reports
+
+    def _drain_tick(self, reports: List[TickReport], prev,
+                    fault_plan) -> None:
+        """Finish the pipeline's in-flight tick and fire its ``post``
+        crash point."""
+        rep, pendings, snap, pos = prev
+        self._finish_tick(rep, pendings, snap)
+        reports.append(rep)
+        if fault_plan is not None:
+            fault_plan.crash_hook("post", pos)
 
     # --------------------------------------------------- checkpoint / restore
     def checkpoint(self, ckpt_dir: str, *, trace_pos: int = 0,
                    keep: int = 3) -> str:
-        """Not ported yet (``ROADMAP.md`` A.2b): raises."""
-        _no_checkpoints("ChurnOrchestrator.checkpoint")
+        """Atomically write the orchestrator's full serving state
+        (population mode only) as checkpoint step ``self._tick`` under
+        ``ckpt_dir`` (``runtime/checkpoint.py`` layout: temp dir + atomic
+        rename, zstd when available).
 
-    def restore(self, ckpt_dir: str, step: Optional[int] = None) -> int:
-        """Not ported yet (``ROADMAP.md`` A.2b): raises."""
-        _no_checkpoints("ChurnOrchestrator.restore")
+        The tree covers every input the next tick reads: the orchestrator
+        ledgers (quality, attachments, hysteresis baselines), each
+        cohort's SoA state including the cohort-state table and pin set
+        (``Population.state_dict``, host arrays), the congestion
+        controller's price state and the contingency libraries'
+        observed-mask counters.  ``trace_pos`` records how many trace rows
+        were consumed, so :meth:`resume` knows where to continue.
+        """
+        if self.pops is None:
+            raise ValueError("checkpointing requires population mode")
+        return ckpt.save(ckpt_dir, self._tick, self._checkpoint_tree(),
+                         keep=keep,
+                         extra={"trace_pos": int(trace_pos),
+                                "tick": int(self._tick),
+                                "n_users": int(self.n_users)})
+
+    def restore(self, ckpt_dir: str,
+                step: Optional[int] = None) -> int:
+        """Restore the orchestrator from ``ckpt_dir`` (newest undamaged
+        checkpoint unless ``step`` pins one — damaged or partial step
+        directories are skipped like ``checkpoint.restore_latest``) and
+        return the saved trace position.  The orchestrator must be built
+        from the same cohorts/configuration as the one that saved; the
+        checkpoint may come from the reference's orchestrator."""
+        if self.pops is None:
+            raise ValueError("checkpointing requires population mode")
+        if step is not None:
+            flat, manifest = ckpt.load_arrays(ckpt_dir, step)
+        else:
+            flat = manifest = None
+            err: Optional[Exception] = None
+            for s in reversed(ckpt.available_steps(ckpt_dir)):
+                try:
+                    flat, manifest = ckpt.load_arrays(ckpt_dir, s)
+                    break
+                except Exception as e:     # damaged: fall back one step
+                    err = e
+            if manifest is None:
+                raise FileNotFoundError(
+                    f"no restorable checkpoint under {ckpt_dir!r}"
+                    + (f" (last error: {err})" if err is not None else ""))
+        self._restore_tree(flat, manifest)
+        return int(manifest.get("extra", {}).get("trace_pos", 0))
 
     def resume(self, ckpt_dir: str, qualities: np.ndarray,
-               attaches: Optional[np.ndarray] = None, **kw
-               ) -> List[TickReport]:
-        """Not ported yet (``ROADMAP.md`` A.2b): raises."""
-        _no_checkpoints("ChurnOrchestrator.resume")
+               attaches: Optional[np.ndarray] = None, *,
+               step: Optional[int] = None, stream: bool = True,
+               checkpoint_dir: Optional[str] = None,
+               checkpoint_every: int = 0, checkpoint_keep: int = 3,
+               fault_plan: object = None) -> List[TickReport]:
+        """Restore from ``ckpt_dir`` and continue the FULL original trace
+        from the saved position: pass the same ``qualities``/``attaches``
+        the interrupted run was given, and the returned reports are the
+        bit-identical tail the crash swallowed.  With ``checkpoint_every``
+        set, checkpointing continues into ``checkpoint_dir`` (default:
+        ``ckpt_dir``) on the same absolute boundaries."""
+        pos = self.restore(ckpt_dir, step=step)
+        qualities = np.asarray(qualities, dtype=np.float64)
+        if pos > len(qualities):
+            raise ValueError(f"checkpoint consumed {pos} trace rows but "
+                             f"the trace has only {len(qualities)}")
+        if checkpoint_dir is None and checkpoint_every > 0:
+            checkpoint_dir = ckpt_dir
+        return self.run_arrays(
+            qualities[pos:],
+            None if attaches is None else attaches[pos:],
+            stream=stream, checkpoint_dir=checkpoint_dir,
+            checkpoint_every=checkpoint_every,
+            checkpoint_keep=checkpoint_keep, fault_plan=fault_plan,
+            _trace_offset=pos)
+
+    def _checkpoint_tree(self) -> Dict:
+        tree: Dict[str, object] = {
+            "orch": {
+                "quality": self.quality.copy(),
+                "attached": self.attached.copy(),
+                "ref_energy": self._ref_energy.copy(),
+                "cur_energy": self._cur_energy.copy(),
+            },
+            "pops": [p.state_dict() for p in self.pops],
+        }
+        if self.congestion is not None:
+            tree["congestion"] = self.congestion.state_dict()
+        if self.contingency_libs is not None:
+            tree["contingency"] = [lib.state_dict()
+                                   for lib in self.contingency_libs]
+        return tree
+
+    def _restore_tree(self, flat: Dict[str, np.ndarray],
+                      manifest: Dict) -> None:
+        extra = manifest.get("extra", {})
+        if int(extra.get("n_users", self.n_users)) != self.n_users:
+            raise ValueError(f"checkpoint holds {extra['n_users']} users, "
+                             f"orchestrator has {self.n_users}")
+
+        def sub(prefix: str) -> Dict[str, np.ndarray]:
+            pre = prefix + "/"
+            return {k[len(pre):]: v for k, v in flat.items()
+                    if k.startswith(pre)}
+
+        # 1) congestion prices FIRST: restore_state re-installs the
+        #    crash-time slice/backhaul factors into the cohorts' proto
+        #    tensors, which the cohort restores below re-relax against
+        cong = sub("congestion")
+        if self.congestion is not None:
+            if not cong:
+                raise ValueError("checkpoint has no congestion state but "
+                                 "this orchestrator has shared_capacity=")
+            self.congestion.restore_state(cong)
+        elif cong:
+            raise ValueError("checkpoint has congestion state; rebuild "
+                             "the orchestrator with the original "
+                             "shared_capacity= before restoring")
+        # 2) per-cohort SoA state (arrays, cohort-state table, pin set)
+        for pi, p in enumerate(self.pops):
+            p.restore_state(sub(f"pops/{pi}"))
+        # 3) orchestrator ledgers
+        orch = sub("orch")
+        self.quality[:] = orch["quality"]
+        self.attached[:] = orch["attached"]
+        self._att_ver += 1
+        self._ref_energy[:] = orch["ref_energy"]
+        self._cur_energy[:] = orch["cur_energy"]
+        self._tick = int(extra.get("tick", manifest.get("step", 0)))
+        self._fac = None            # factor cache re-derives from attached
+        self._fac_attached = None
+        self._mesh_cursor = (0, 0)  # fresh relaxers start at zero
+        # 4) contingency observed-mask counters — the prebuilt states and
+        #    the pin set themselves rode the cohort checkpoints, so the
+        #    restored table serves the same hits without any refill
+        if self.contingency_libs is not None:
+            for li, lib in enumerate(self.contingency_libs):
+                lib.restore_state(sub(f"contingency/{li}"))
 
     def _stream_ingest(self, rep: TickReport) -> None:
         """Dense fused ingest of the current quality/attachment state into
@@ -999,9 +1186,10 @@ class ChurnOrchestrator:
         return (mr, md)
 
     def _relaxers(self):
-        """The cohorts' live mesh relaxers: none, as the port's
-        ``Population`` has no mesh backend yet (``ROADMAP.md`` A.4)."""
-        return []
+        """The cohorts' live mesh relaxers (lazily built by the mesh
+        backend; empty on every other backend)."""
+        return [p._mesh_relaxer for p in self.pops
+                if p._mesh_relaxer is not None]
 
     def _straggler_tick(self, rep: TickReport) -> None:
         if not self._straggler_cfg:
@@ -1029,9 +1217,14 @@ class ChurnOrchestrator:
                 rx.demote()
 
     def _gather_relax_times(self, rep: TickReport) -> np.ndarray:
-        """This tick's relax wall time (single-process: no mesh spans
-        hosts here)."""
-        return np.asarray([float(rep.t_relax_ms)])
+        """This tick's relax wall time, gathered across ranks (over the
+        mesh's gloo group) when a multi-rank mesh is live, so every rank
+        sees the same vector."""
+        t = float(rep.t_relax_ms)
+        for rx in self._relaxers():
+            if rx.multihost:
+                return rx.allgather(t)
+        return np.asarray([t])
 
     _TIMING_FIELDS = ("t_ingest_ms", "t_relax_ms", "t_post_ms",
                       "t_post_scan_ms", "t_post_fast_ms",
@@ -1286,8 +1479,3 @@ def population_cohorts(n_users: int, *,
                                device=device, **pop_kwargs))
     return pops
 
-
-def _no_checkpoints(what: str) -> None:
-    raise NotImplementedError(
-        f"{what}: checkpoints, resume and fault injection are not ported "
-        f"yet (see ROADMAP.md A.2b)")

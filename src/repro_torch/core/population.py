@@ -44,8 +44,10 @@ float64 ``minplus`` backend: the ingest replicates the packed requantizer
 elementwise, states materialize through the same scatter formulas, the
 relaxation is B1 (bit-equal to the reference's float64 engine) and the
 post-pass is the shared host code.  ``backend="f32"`` relaxes in float32
-(the reference's ``jnp`` / ``pallas``); the reference's device-mesh
-backend (``mesh``) is not ported yet.
+(the reference's ``jnp`` / ``pallas``); ``backend="mesh"`` routes the
+chained relaxation through the device-mesh layer
+(``sharding/population.py``): one float32 B1 launch a shard of a users
+mesh over the visible cards (logical shards on the CPU).
 """
 from __future__ import annotations
 
@@ -370,10 +372,12 @@ class Population:
     ``online.population_cohorts``.
 
     ``backend``: ``minplus``/``banded`` (float64, bit-exact vs the
-    reference's numpy engine and ``Plan.solve()``) or ``f32`` (the float32
-    relaxation, the reference's ``jnp``/``pallas``).  ``device`` is where
-    the relaxation and the fused ingest run (``cuda:0`` by default,
-    raising without a card; ``"cpu"`` runs the kernels' plain versions).
+    reference's numpy engine and ``Plan.solve()``), ``f32`` (the float32
+    relaxation, the reference's ``jnp``/``pallas``) or ``mesh`` (float32,
+    sharded over the users axis of a device mesh, ``MeshRelaxer``).
+    ``device`` is where the relaxation and the fused ingest run
+    (``cuda:0`` by default, raising without a card; ``"cpu"`` runs the
+    kernels' plain versions).
     ``fused_ingest``: ``device`` (kernel B2 on the cohort's device) or
     ``numpy`` (the host oracle).
     """
@@ -390,16 +394,14 @@ class Population:
                  fused_ingest: str = "device", device: DeviceLike = None):
         if n_users <= 0:
             raise ValueError(f"n_users must be positive, got {n_users}")
-        if backend == "mesh":
-            raise NotImplementedError(
-                "Population backend 'mesh' (the relaxation sharded over a "
-                "device mesh) is not ported yet: see ROADMAP.md A4; use "
-                "minplus or f32")
-        engine = _engine(backend)
+        #: backend of the rare per-user Plan fallback (same engine family;
+        #: the mesh's is the float32 one, the reference's ``jnp``)
+        plan_backend = "f32" if backend == "mesh" else backend
+        engine = _engine(plan_backend)
         if engine not in ("banded", "f32"):
             raise ValueError("Population requires a banded engine; the "
                              "dense backends exist for equivalence testing "
-                             "only (use minplus/banded/f32)")
+                             "only (use minplus/banded/f32/mesh)")
         if gamma >= np.iinfo(np.int16).max:
             raise ValueError(f"gamma {gamma} overflows the int16 state "
                              f"encoding")
@@ -412,8 +414,7 @@ class Population:
                              f"{fused_ingest!r} (expected device or numpy)")
         self.device = resolve_device(device)
         self.backend = backend
-        #: backend of the rare per-user Plan fallback (same engine family)
-        self._plan_backend = backend
+        self._plan_backend = plan_backend
         self._engine = engine
         self._dist_tol = dist_tol(self._engine)
 
@@ -521,6 +522,10 @@ class Population:
         self._mask_count = 0
         self._timing = bool(timing)
         self._relax_executor = None      # lazy 1-thread pool (streaming)
+        #: the mesh backend's relaxer (``sharding/population.py``), built
+        #: on first use; the orchestrator reads its retry / demotion
+        #: counters and demotes it on straggler flags
+        self._mesh_relaxer = None
         #: wall seconds of the most recent relaxation launch — the
         #: streaming pipeline's adaptive-overlap signal (see
         #: ``online.run_arrays``); always recorded, timing flag or not
@@ -1211,7 +1216,7 @@ class Population:
                 if np.isfinite(pd.hist[:, added, :]).any():
                     return None
             return ("share", parent, 0)
-        if self._engine != "banded":
+        if self._engine != "banded" or self.backend == "mesh":
             return None
         if not np.array_equal(s.mask, parent.mask):
             return None
@@ -1243,7 +1248,16 @@ class Population:
         E_one = self._proto._ext.E
         lo = self.depth_window_lo
         chunk = self._relax_chunk()
-        if B <= chunk:
+        if self.backend == "mesh":
+            # one B1 launch a shard, whole: the mesh spreads the stack
+            rx = self._mesh()
+            h0, d0 = rx.h2d_bytes, rx.d2h_bytes
+            E = E_one[None].expand((B,) + tuple(E_one.shape))
+            hist, par = rx.relax(grid, E, steep, lo)
+            self.h2d_bytes += rx.h2d_bytes - h0
+            self.d2h_bytes += rx.d2h_bytes - d0
+            self.stats.fused_relaxes += 1
+        elif B <= chunk:
             hist, par = self._relax_batch(grid, E_one, steep, lo)
             self.stats.fused_relaxes += 1
         else:
@@ -1262,6 +1276,16 @@ class Population:
             s.dps = [_BandedArgDP(hist[off + mi], par[off + mi],
                                   steep_h[off + mi]) for mi in range(m)]
             off += m
+
+    def _mesh(self):
+        """The mesh backend's relaxer, over every visible card for a cohort
+        on CUDA (every rank's, under ``torch.distributed``), or one logical
+        CPU shard for a cohort on the CPU."""
+        if self._mesh_relaxer is None:
+            from ..sharding.population import MeshRelaxer, population_mesh
+            self._mesh_relaxer = MeshRelaxer(population_mesh(
+                device="cpu" if self.device.type == "cpu" else None))
+        return self._mesh_relaxer
 
     def _relax_chunk(self) -> int:
         """Stack rows a relaxation launch takes: the reference's

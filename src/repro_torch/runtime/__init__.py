@@ -1,1 +1,2 @@
-"""Runtime of the port: the split-serving engine."""
+"""Runtime of the port: the split-serving engine, straggler detection,
+checkpoints and elastic failover."""

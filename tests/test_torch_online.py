@@ -295,6 +295,9 @@ def test_run_arrays_resumable_and_always_resolve(always):
 
 
 def test_run_arrays_validation_and_checkpoints_raise(tmp_path):
+    """Malformed traces raise; checkpoint misuse raises as in the
+    reference (``checkpoint_every`` without a dir, plan mode, an empty
+    dir, a trace shorter than the saved position)."""
     qual, att = ar1(24, 2)
     po = T.ChurnOrchestrator(population=T.population_cohorts(
         24, n_extra_edge=2, device=CPU))
@@ -307,14 +310,33 @@ def test_run_arrays_validation_and_checkpoints_raise(tmp_path):
         plain.run_arrays(qual[:, :1])
     with pytest.raises(ValueError, match="population"):
         plain.step_arrays(qual[0, :1])
-    for call in (lambda: po.run_arrays(qual, checkpoint_dir=str(tmp_path)),
-                 lambda: po.run_arrays(qual, fault_plan=object()),
-                 lambda: po.checkpoint(str(tmp_path)),
-                 lambda: po.restore(str(tmp_path)),
-                 lambda: po.resume(str(tmp_path), qual)):
-        with pytest.raises(NotImplementedError, match="A.2b"):
-            call()
+    # checkpoint misuse is rejected as the reference rejects it
+    ro = R.ChurnOrchestrator(population=R.population_cohorts(
+        24, n_extra_edge=2, fused_ingest="numpy"))
+    ref_plain = R.ChurnOrchestrator(R.population_plans(1))
+    d = str(tmp_path / "ck")
+    for a, b, exc, match in (
+            (lambda: ro.run_arrays(qual, checkpoint_every=1),
+             lambda: po.run_arrays(qual, checkpoint_every=1),
+             ValueError, "checkpoint_dir"),
+            (lambda: ref_plain.checkpoint(d), lambda: plain.checkpoint(d),
+             ValueError, "population mode"),
+            (lambda: ref_plain.restore(d), lambda: plain.restore(d),
+             ValueError, "population mode"),
+            (lambda: ro.restore(d), lambda: po.restore(d),
+             FileNotFoundError, "no restorable checkpoint")):
+        with pytest.raises(exc, match=match):
+            a()
+        with pytest.raises(exc, match=match):
+            b()
     assert po._tick == 0
+    po.run_arrays(qual, checkpoint_dir=d)       # trace_pos 2
+    with pytest.raises(ValueError, match="trace has only 1"):
+        T.ChurnOrchestrator(population=T.population_cohorts(
+            24, n_extra_edge=2, device=CPU)).resume(d, qual[:1])
+    with pytest.raises(ValueError, match="trace has only 1"):
+        R.ChurnOrchestrator(population=R.population_cohorts(
+            24, n_extra_edge=2, fused_ingest="numpy")).resume(d, qual[:1])
 
 
 def test_timing_breakdown_and_straggler_detector():

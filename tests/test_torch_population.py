@@ -498,8 +498,13 @@ def test_constructor_validation():
         T.Population(nw, pf, req, 2, fused_ingest="jnp", device=CPU)
     with pytest.raises(ValueError, match="fused_ingest"):
         T.Population(nw, pf, req, 2, fused_ingest="xla", device=CPU)
-    with pytest.raises(NotImplementedError, match="A4"):
-        T.Population(nw, pf, req, 2, backend="mesh", device=CPU)
+    for name in ("Mesh", "mesh-f32", "meshes"):
+        with pytest.raises(ValueError, match="backend"):
+            T.Population(nw, pf, req, 2, backend=name, device=CPU)
+    mesh = T.Population(nw, pf, req, 2, backend="mesh", device=CPU)
+    assert (mesh.backend, mesh._plan_backend, mesh._engine) == \
+        ("mesh", "f32", "f32")
+    assert mesh._mesh_relaxer is None          # built at the first relax
     pop = T.Population(nw, pf, req, 3, device=CPU)
     assert pop.device == torch.device("cpu") and pop.n_users == 3
     assert pop.n_states == 1 and pop.depth_window_lo is None

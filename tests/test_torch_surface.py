@@ -119,3 +119,34 @@ def test_to_networkx_equals_the_reference(app, n_extra_edge):
         for key in ("energy", "latency"):
             assert np.float64(got.edges[u, v][key]).tobytes() == \
                 np.float64(attrs[key]).tobytes(), (u, v, key)
+
+
+@pytest.mark.parametrize("ref_mod,port_mod,names", [
+    ("repro.core.faults", "repro_torch.core.faults",
+     ("FaultPlan", "FaultSpec", "InjectedCrash", "CRASH_STAGES",
+      "corrupt_specs")),
+    ("repro.runtime.checkpoint", "repro_torch.runtime.checkpoint",
+     ("save", "available_steps", "load_arrays", "restore", "restore_latest",
+      "MANIFEST", "ARRAYS")),
+    ("repro.runtime.elastic", "repro_torch.runtime.elastic",
+     ("MeshPlan", "candidate_meshes", "ReshardPlan", "plan_rescale",
+      "FinFailover", "fin_failover")),
+    ("repro.sharding.population", "repro_torch.sharding.population",
+     ("population_mesh", "MeshRelaxer"))])
+def test_fault_tolerance_modules_mirror_the_reference(ref_mod, port_mod,
+                                                      names):
+    """The fault-tolerance layer keeps the reference's module paths and
+    names (``repro.core.__all__`` does not export them); the constants are
+    equal and the public functions take the reference's parameters."""
+    import importlib
+    ref, port = importlib.import_module(ref_mod), importlib.import_module(
+        port_mod)
+    assert set(getattr(ref, "__all__", ())) <= set(dir(port))
+    for name in names:
+        a, b = getattr(ref, name), getattr(port, name)
+        if isinstance(a, (str, tuple)):
+            assert a == b, name
+        elif inspect.isfunction(a):
+            pa = [p for p in inspect.signature(a).parameters]
+            pb = [p for p in inspect.signature(b).parameters]
+            assert pa == pb[:len(pa)], name
