@@ -64,11 +64,27 @@ before it and read just after:
                       ``serve_with_churn`` trace with a node failure and its
                       recovery (B1 through the engine's Plan, B6, B7);
   [serve_parity]      qwen3-4b widths at 3 layers in float32: the engine and
-                      ``decode_step`` on CUDA against the port's CPU path.
+                      ``decode_step`` on CUDA against the port's CPU path;
+  [serve_ssm]         [serve]'s engine run on mamba2-1.3b at full width and
+                      depth in bf16 (48 SSM layers: B6 and B1, no B7);
+  [serve_moe]         the same on mixtral-8x22b at full width cut to 4 of
+                      its 56 periods (B7 at G = 6, D = 128), then a
+                      4,608-token ``prefill`` into its 4,096-slot window
+                      (the ring slots wrap) and 8 decode steps at B = 1;
+  [prefill]           teacher forcing on the card in float32 (prefill of
+                      S - 1 tokens plus a decode step equals
+                      ``forward_train``): qwen3-4b at 3 layers, mamba2-1.3b
+                      whole, mixtral at 4 periods past its window; and
+                      hubert-xlarge's ``encode`` at full width in bf16;
+  [serve_parity]      again for mamba2 (2 periods) and mixtral (1 period)
+                      widths in float32: ``forward_train``, ``prefill`` and
+                      ``decode_step`` on CUDA against the CPU path.
 
-It then times the kernels at their paths' shapes, relaxes 2^20 scenario
-rows at population size, and prints the kernels JSON line followed by the
-final status line.  Every failing phase raises; without a CUDA card, or
+It then times the kernels at their paths' shapes (B7 also at mixtral's
+heads over 4,096 slots), the plain PyTorch programs ``_ssd_scan``,
+``chunked_attention`` and ``_moe_gather`` at their paths' shapes
+([programs]), relaxes 2^20 scenario rows at population size, and prints
+the kernels JSON line followed by the final status line.  Every failing phase raises; without a CUDA card, or
 without the repository beside it, it exits non-zero and prints no result.
 
   python3 chip_smoke.py --times [chain] [dense] [kbest] [gate] [attn] [plan]
@@ -115,8 +131,12 @@ ATTN_SOURCE = "src/repro_torch/kernels/decode_attn/csrc/decode_attn.cu"
 INGEST_SOURCE = "src/repro_torch/kernels/ee_gate/csrc/quant_signature.cu"
 # (B, V) of the exit-gate checks; the qwen3-4b padded vocab has a -inf tail
 # of 153,600 - 151,936 = 1,664 columns
-GATE_SHAPES = [(1, 128), (5, 5000), (4, 153600), (16, 50304)]
+GATE_SHAPES = [(1, 128), (5, 5000), (4, 153600), (16, 50304),
+               (4, 32768), (4, 51200)]
 VOCAB_TAIL = 1664
+# the gate's other serving shapes: mixtral-8x22b's padded vocab (no tail)
+# and mamba2-1.3b's (51,200 - 50,280 = 920 -inf columns)
+GATE_MORE_SHAPES = [(4, 32768, 0), (4, 51200, 920)]
 # (B, V) of the split-gate checks (gate_rows): V below, at and above one
 # block's 2,048 elements, V = 4097 (rows not 16-byte aligned), B above the
 # SM count (one block a row)
@@ -133,7 +153,15 @@ ATTN_SHAPES = [(1, 4, 4, 32, 128), (2, 8, 2, 64, 256), (1, 8, 1, 64, 300),
 # leaves no slot live (the uniform average)
 ATTN_MASK_CASES = [((1, 32, 8, 80, 2048), "range"),
                    ((4, 32, 8, 80, 4097), "range"),
-                   ((4, 32, 8, 80, 256), "dead"), ((1, 8, 1, 64, 300), "dead")]
+                   ((4, 32, 8, 80, 256), "dead"), ((1, 8, 1, 64, 300), "dead"),
+                   ((4, 48, 8, 128, 4096), "range")]
+# mixtral-8x22b's heads (H = 48, KV = 8, G = 6, D = 128) at its 4,096-slot
+# window: (shape, window, mask); "full" has every slot live up to
+# pos = T - 1, so T = 4,097 drops slot 0 by the window alone
+ATTN_MOE_CASES = [((4, 48, 8, 128, 4096), 0, "tail"),
+                  ((4, 48, 8, 128, 4096), 4096, "full"),
+                  ((1, 48, 8, 128, 4097), 4096, "full"),
+                  ((4, 48, 8, 128, 4097), 4096, "full")]
 # cache lengths of the B7 timings: the serving shape and two long caches
 ATTN_TIME_T = (256, 8192, 32768)
 SERVE_ARCH = "qwen3-4b"
@@ -142,6 +170,20 @@ SERVE_CACHE = 256
 SERVE_REQUESTS = 16
 SERVE_NEW = 8
 SERVE_PROMPT = 3
+# the rest of model serving: mamba2-1.3b at full width and depth, and
+# mixtral-8x22b at full width cut to MOE_PERIODS of its 56 periods
+SSM_ARCH = "mamba2-1.3b"
+MOE_ARCH = "mixtral-8x22b"
+MOE_PERIODS = 4
+MOE_PROMPT = 4608                 # past mixtral's 4,096-token window
+MOE_DECODE = 8
+SSM_PROBE = 16                    # threshold probe batch (48 f32 states)
+SSM_PROMPT = 4096                 # [serve_ssm]'s prefill, as [serve_moe]'s
+# [prefill] teacher forcing in float32: (arch, periods or None for all,
+# B, S); mixtral's S - 1 = 4,199 prompt tokens run past its window
+PREFILL_CASES = [("qwen3-4b", 3, 2, 64), ("mamba2-1.3b", None, 2, 300),
+                 ("mixtral-8x22b", MOE_PERIODS, 1, 4200)]
+ENCODE_FRAMES = (2, 1024)         # hubert-xlarge encode batch, frames
 CARD_SHAPES = [(1, 1, 4, 4), (64, 4, 5, 26), (8, 2, 23, 26), (4, 4, 8, 131)]
 # (case, B, L, N, G+1) of B1's launch plans, each checked to reach what it
 # names: a batch that is no multiple of the group, B = 1, more groups than
@@ -486,9 +528,12 @@ def phase_environment():
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60)
     print(smi.stdout.strip().splitlines()[0], flush=True)
+    from repro_torch.models import layers
     log("env", f"python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)} "
-        f"count {torch.cuda.device_count()}")
+        f"count {torch.cuda.device_count()}; float32-output half products "
+        f"(mm, bmm out_dtype): {layers._MM_OUT_DTYPE}, "
+        f"{getattr(layers, '_BMM_OUT_DTYPE', 'none')}")
     t0 = time.perf_counter()
     lib = load_library()
     log("env", f"kernel libraries {[p.name for p in lib.paths]}: parallel "
@@ -3264,7 +3309,7 @@ def phase_kernels_serve(dev):
             check_gate(x, f"B6 split {(B, V)} {dtype} P={P}", want)
     cases = ([(s, 0, "tail") for s in ATTN_SHAPES]
              + [((1, 4, 2, 32, 256), w, "tail") for w in (16, 64)]
-             + [(s, 0, m) for s, m in ATTN_MASK_CASES])
+             + [(s, 0, m) for s, m in ATTN_MASK_CASES] + ATTN_MOE_CASES)
     for (B, H, KV, D, T), window, mask in cases:
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v, cpos, pos = attn_inputs(B, H, KV, D, T, dtype, dev,
@@ -3273,25 +3318,48 @@ def phase_kernels_serve(dev):
             again = decode_attn(q, k, v, cpos, pos, window=window)
             want = decode_attn_ref(q, k, v, cpos, pos, window=window)
             torch.cuda.synchronize()
-            tol = 2e-5 if dtype == torch.float32 else 2e-2
             e = max_abs_err(got.float(), want.float())
-            ok = bool(((got.float() - want.float()).abs()
-                       <= tol + tol * want.float().abs()).all())
+            ok, tol = attn_within(got, want)
             tag = f"B7 {(B, H, KV, D, T)} {dtype} window={window} mask={mask}"
-            check(ok, f"{tag}: off by {e:.3g} (rtol = atol = {tol})")
+            check(ok, f"{tag}: off by {e:.3g} ({tol})")
             check(torch.equal(got, again), f"{tag}: a repeat call gave "
                   f"other bits")
+            if window and T > window:
+                # the check's own power: an output that ignores the window
+                # (the dropped slots kept) must fail it
+                blind = decode_attn_ref(q, k, v, cpos, pos, window=0)
+                check(not attn_within(blind, want)[0], f"{tag}: the check "
+                      f"passes an output that ignores the window")
             err["decode_attn"] = max(err["decode_attn"], e)
-            log("kernels_serve", f"{tag}: max_abs_err {e:.3g} within "
-                f"rtol = atol = {tol}; a repeat call gives the same bits")
+            log("kernels_serve", f"{tag}: max_abs_err {e:.3g} within {tol}; "
+                f"a repeat call gives the same bits"
+                + ("; an output that ignores the window fails the check"
+                   if window and T > window else ""))
     return err
+
+
+def attn_within(got, want):
+    """B7 against its plain version: float32 within rtol = atol = 2e-5;
+    bf16 within two bf16 ulps of the largest output (2^-6 max|want|, at
+    least 2 ulps of any element), a bound scaled to the output's rounding
+    and not to 1, since a long cache's outputs are small (~sqrt(e / T)).
+    Returns (ok, the tolerance as text)."""
+    import torch
+    d = (got.float() - want.float()).abs()
+    if got.dtype == torch.float32:
+        tol = 2e-5
+        return bool((d <= tol + tol * want.abs()).all()), \
+            f"rtol = atol = {tol}"
+    tol = 2.0 ** -6 * float(want.float().abs().max())
+    return bool((d <= tol).all()), f"atol = 2^-6 max|want| = {tol:.3g}"
 
 
 def attn_inputs(B, H, KV, D, T, dtype, dev, mask, seed):
     """Seeded decode-attention inputs.  mask "tail": the last quarter of the
     ring is empty (cache_pos -1) and the three slots before it lie in the
     future (pos = T - T/4 - 3); "range": the slots of the second block of
-    B7's cluster empty, pos = T - 1; "dead": every slot empty."""
+    B7's cluster empty, pos = T - 1; "full": every slot live, pos = T - 1;
+    "dead": every slot empty."""
     import numpy as np
     import torch
     from repro_torch.kernels.decode_attn.ops import split_plan, split_ranges
@@ -3310,7 +3378,7 @@ def attn_inputs(B, H, KV, D, T, dtype, dev, mask, seed):
         check(P > 1, f"B7 {(B, H, KV, D, T)}: one block, no range to empty")
         lo, hi = split_ranges(T, P)[1]
         cpos[lo:hi] = -1
-    else:
+    elif mask == "dead":
         cpos[:] = -1
     return q, k, v, cpos, pos
 
@@ -3369,14 +3437,32 @@ def _weight_bytes(params, cfg):
     return layers, head, layers + (len(cfg.exit_layer_list) + 1) * head
 
 
+def _state_bytes(caches):
+    """Bytes of the SSM layers' float32 recurrent states, which a decode
+    step reads and writes once each."""
+    return sum(c["state"].numel() * 4 for c in caches.values()
+               if "state" in c)
+
+
+def _attn_layers(cfg):
+    return cfg.n_periods * sum(s.kind == "attn" for s in cfg.pattern)
+
+
 def phase_serve(dev, counters):
     """The serving path: qwen3-4b at full width in bf16 through the engine,
     16 requests, then a churn trace with a failure and a recovery."""
+    return _serve_path("serve", _serve_cfg(), dev, counters)
+
+
+def _serve_path(tag, cfg, dev, counters, probe=64, programs=()):
+    """``cfg`` at its widths in bf16 through ``SplitServeEngine``:
+    ``SERVE_REQUESTS`` requests of ``SERVE_NEW`` tokens at B =
+    ``SERVE_BATCH``, then a churn trace with a failure and a recovery;
+    launches, ms/step and the step's byte bound, then a profiled window."""
     import dataclasses
     import torch
     from repro_torch.models import transformer as TT
     from repro_torch.runtime.serve_engine import serve_with_churn
-    cfg = _serve_cfg()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = TT.init_model(cfg, seed=0, device=dev)
@@ -3384,22 +3470,29 @@ def phase_serve(dev, counters):
     t_init = time.perf_counter() - t0
     n_params = TT.param_count(params)
     layer_b, head_b, step_b = _weight_bytes(params, cfg)
-    log("serve", f"{cfg.name}: {cfg.n_layers} layers d_model {cfg.d_model} "
-        f"heads {cfg.n_heads}/{cfg.n_kv_heads} head_dim {cfg.head_dim_} d_ff "
-        f"{cfg.d_ff} vocab {cfg.vocab_size} (padded {cfg.padded_vocab}) "
-        f"{cfg.dtype}, exits after periods {cfg.exit_layer_list}; "
-        f"{n_params} parameters drawn in {t_init:.3f} s; "
-        f"max_memory_allocated {torch.cuda.max_memory_allocated()} B")
-    thresholds = _probe_thresholds(params, cfg, dev)
-    log("serve", f"thresholds from a 64-token probe step (median conf per "
+    log(tag, f"{cfg.name}: {cfg.n_layers} layers {list(cfg.pattern)[:2]}... "
+        f"d_model {cfg.d_model} heads {cfg.n_heads}/{cfg.n_kv_heads} head_dim "
+        f"{cfg.head_dim if cfg.n_heads else 0} d_ff {cfg.d_ff} experts "
+        f"{cfg.n_experts} top_k {cfg.top_k} ssm_state {cfg.ssm_state} vocab "
+        f"{cfg.vocab_size} (padded {cfg.padded_vocab}) {cfg.dtype}, exits "
+        f"after periods {cfg.exit_layer_list}; {n_params} parameters drawn "
+        f"in {t_init:.3f} s; max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated()} B")
+    thresholds = _probe_thresholds(params, cfg, dev, n=probe)
+    log(tag, f"thresholds from a {probe}-token probe step (median conf per "
         f"early exit): {thresholds}")
 
     for c in counters:
         c.launches = 0
+    for p in programs:
+        p.calls = 0
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     eng = _serve_engine(cfg, params, dev, thresholds)
     t_build = time.perf_counter() - t0
+    state_b = _state_bytes(eng.caches)
+    step_b += 2 * state_b
     reqs = [eng.submit([1 + i % 7] + list(range(2, SERVE_PROMPT + 1)),
                        SERVE_NEW) for i in range(SERVE_REQUESTS)]
     torch.cuda.synchronize()
@@ -3409,7 +3502,7 @@ def phase_serve(dev, counters):
     wall = time.perf_counter() - t0
     steps_run = stats.steps
     check(all(r.done and len(r.tokens) == SERVE_NEW for r in reqs),
-          "serve: a request did not end with its tokens")
+          f"{tag}: a request did not end with its tokens")
     placement0 = list(eng.placement.placement)
     # churn: a failure and a recovery of a non-source node mid-serving
     src = eng.plan.network.source_node
@@ -3421,53 +3514,59 @@ def phase_serve(dev, counters):
     torch.cuda.synchronize()
     wall_churn = time.perf_counter() - t0
     launches = {c.__name__: c.launches for c in counters}
+    hiwater = torch.cuda.max_memory_allocated()
     st = eng.stats
+    n_attn = _attn_layers(cfg)
     check(all(r.done and len(r.tokens) == SERVE_NEW for r in more),
-          "serve: a request under churn did not end with its tokens")
+          f"{tag}: a request under churn did not end with its tokens")
     check(sum(r["n_fail"] for r in reports) == 1
           and sum(r["n_recover"] for r in reports) == 1,
-          "serve: the churn trace did not fail and recover one node")
+          f"{tag}: the churn trace did not fail and recover one node")
     check(st.contingency_hits + st.contingency_misses == 2,
-          "serve: the failure and the recovery did not go through the "
-          "contingency protocol")
+          f"{tag}: the failure and the recovery did not go through the "
+          f"contingency protocol")
     check(launches["ee_gate"] == (len(cfg.exit_layer_list) + 1) * st.steps,
-          f"serve: B6 launched {launches['ee_gate']} times in {st.steps} "
+          f"{tag}: B6 launched {launches['ee_gate']} times in {st.steps} "
           f"steps, not {len(cfg.exit_layer_list) + 1} a step")
-    check(launches["decode_attn"] == cfg.n_layers * st.steps,
-          f"serve: B7 launched {launches['decode_attn']} times in "
-          f"{st.steps} steps, not {cfg.n_layers} a step")
+    check(launches["decode_attn"] == n_attn * st.steps,
+          f"{tag}: B7 launched {launches['decode_attn']} times in "
+          f"{st.steps} steps, not {n_attn} a step")
     check(launches["banded_minplus_chain"] > 0,
-          "serve: the engine's Plan did not launch B1")
+          f"{tag}: the engine's Plan did not launch B1")
     check(len(st.exit_histogram) >= 2,
-          f"serve: one exit taken only ({st.exit_histogram})")
+          f"{tag}: one exit taken only ({st.exit_histogram})")
     ms_step = wall / steps_run * 1e3
     tok_s = SERVE_REQUESTS * SERVE_NEW / wall
     bound_ms = step_b / HBM_BYTES_PER_S * 1e3
-    log("serve", f"engine built in {t_build:.3f} s (Plan, frontier, "
+    log(tag, f"engine built in {t_build:.3f} s (Plan, frontier, "
         f"contingency library); {SERVE_REQUESTS} requests x {SERVE_NEW} "
         f"tokens in {steps_run} steps, {wall:.3f} s wall (host clock, ending"
         f" in synchronize): {ms_step:.3f} ms/step, {tok_s:.1f} tokens/s")
-    log("serve", f"byte bound of a step: {step_b} B (layers {layer_b} B + "
-        f"{len(cfg.exit_layer_list) + 1} x head {head_b} B) / 3.35 TB/s = "
-        f"{bound_ms:.4f} ms, {SERVE_BATCH / bound_ms * 1e3:.1f} tokens/s at "
-        f"B = {SERVE_BATCH}; the step takes {ms_step / bound_ms:.2f}x the "
-        f"bound")
-    log("serve", f"churn: {len(reports)} ticks, victim node {victim}, "
+    log(tag, f"byte bound of a step: {step_b} B (layers {layer_b} B + "
+        f"{len(cfg.exit_layer_list) + 1} x head {head_b} B + 2 x SSM state "
+        f"{state_b} B) / 3.35 TB/s = {bound_ms:.4f} ms, "
+        f"{SERVE_BATCH / bound_ms * 1e3:.1f} tokens/s at B = {SERVE_BATCH}; "
+        f"the step takes {ms_step / bound_ms:.2f}x the bound")
+    log(tag, f"churn: {len(reports)} ticks, victim node {victim}, "
         f"reports {reports}; {wall_churn:.3f} s with {st.steps - steps_run} "
         f"more steps")
-    log("serve", f"kernel launches on the path {launches} over "
-        f"{st.steps} steps: B6 {launches['ee_gate'] / st.steps:.0f} and B7 "
-        f"{launches['decode_attn'] / st.steps:.0f} per step")
-    log("serve", f"placement {placement0} -> {list(eng.placement.placement)}"
+    log(tag, f"kernel launches on the path {launches} over {st.steps} "
+        f"steps: B6 {launches['ee_gate'] / st.steps:.0f} and B7 "
+        f"{launches['decode_attn'] / st.steps:.0f} per step, B1 "
+        f"{launches['banded_minplus_chain']}; device memory high-water "
+        f"{hiwater} B")
+    log(tag, f"placement {placement0} -> {list(eng.placement.placement)}"
         f" (final exit {eng.placement.final_exit}); exit histogram "
         f"{dict(sorted(st.exit_histogram.items()))}; stats "
         f"{dataclasses.asdict(st)}")
-    prof = profile_serve(eng, dev)
+    prof = profile_serve(eng, dev, tag=f"{tag}_profile")
+    del eng
     return params, cfg, launches, dict(ms_step=ms_step, tok_s=tok_s,
-                                       bound_ms=bound_ms, **prof)
+                                       bound_ms=bound_ms, hiwater=hiwater,
+                                       **prof)
 
 
-def profile_serve(eng, dev, steps=6):
+def profile_serve(eng, dev, steps=6, tag="serve_profile"):
     """Where a decode step's time goes: torch.profiler over ``steps``
     engine steps, device time by kernel family, against the steps' wall."""
     import torch
@@ -3488,7 +3587,7 @@ def profile_serve(eng, dev, steps=6):
     events = [e for e in tp.key_averages() if e.device_type != DeviceType.CPU]
     busy = sum(e.self_device_time_total for e in events) / 1e3     # ms
     if busy <= 0:
-        log("serve_profile", "device time: not measured (the profiler saw "
+        log(tag, "device time: not measured (the profiler saw "
             "no device time)")
         return {}
     fam = {"matmul": 0.0, "B7 decode_attn": 0.0, "B6 ee_gate": 0.0,
@@ -3513,19 +3612,21 @@ def profile_serve(eng, dev, steps=6):
     sync = sum(e.self_cpu_time_total for e in tp.key_averages()
                if e.device_type == DeviceType.CPU
                and ("Synchronize" in e.key or "cudaMemcpy" in e.key)) / 1e3
-    log("serve_profile", f"{steps} steps under torch.profiler: wall "
-        f"{wall / steps * 1e3:.3f} ms/step, device busy {busy / steps:.3f} "
+    n_dev = sum(e.count for e in events) / steps
+    log(tag, f"{steps} steps under torch.profiler: wall "
+        f"{wall / steps * 1e3:.3f} ms/step, {n_dev:.0f} device kernels and "
+        f"copies a step, device busy {busy / steps:.3f} "
         f"ms/step ({busy / (wall * 1e3):.1%}, idle "
         f"{1 - busy / (wall * 1e3):.1%}); host blocked in syncs / copies "
         f"{sync / steps:.3f} ms/step; device per step "
         + ", ".join(f"{k} {v:.4f} ms" for k, v in per.items()))
     for e in sorted(events, key=lambda e: e.self_device_time_total,
                     reverse=True)[:8]:
-        log("serve_profile", f"device {e.key[:80]}: "
+        log(tag, f"device {e.key[:80]}: "
             f"{e.self_device_time_total / 1e3 / steps:.4f} ms/step over "
             f"{e.count // steps} calls/step")
     return dict(busy_ms=busy / steps, wall_prof_ms=wall / steps * 1e3,
-                sync_ms=sync / steps, split=per)
+                sync_ms=sync / steps, split=per, kernels=n_dev)
 
 
 def phase_serve_parity(dev):
@@ -3578,6 +3679,514 @@ def phase_serve_parity(dev):
     del params, cpu, caches
 
 
+def _arch_cfg(arch, periods=None, **overrides):
+    """``arch`` at its published widths, cut to ``periods`` periods (all
+    when None), with the early exits re-derived for the cut depth."""
+    import dataclasses
+    from repro_torch.configs import get
+    cfg = get(arch)
+    if periods is not None:
+        overrides.setdefault("n_layers", periods * len(cfg.pattern))
+    return dataclasses.replace(cfg, **overrides)
+
+
+class CallCounter:
+    """Counts the calls of a module function (a plain PyTorch program of
+    the path: ``_ssd_scan``, ``chunked_attention``, ``_moe_gather``) while
+    installed; the module's own callers look the name up at call time."""
+
+    def __init__(self, module, name):
+        self.module, self.name = module, name
+        self.fn = getattr(module, name)
+        self.calls = 0
+
+    def __enter__(self):
+        def counted(*a, **kw):
+            self.calls += 1
+            return self.fn(*a, **kw)
+        setattr(self.module, self.name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.fn)
+
+
+def _program_counters():
+    from repro_torch.models import attention, moe, ssm
+    return {"ssd_scan": CallCounter(ssm, "_ssd_scan"),
+            "chunked_attention": CallCounter(attention, "chunked_attention"),
+            "moe_gather": CallCounter(moe, "_moe_gather")}
+
+
+def phase_serve_ssm(dev, counters):
+    """mamba2-1.3b at full width and depth in bf16 through the engine, as
+    [serve]: the recurrent state of 48 SSM layers, B6 and B1, no B7; then
+    an SSM_PROMPT-token prompt through ``prefill`` (the chunked SSD of
+    every layer) and one decode step from its caches."""
+    import numpy as np
+    import torch
+    from repro_torch.models import transformer as TT
+    cfg = _arch_cfg(SSM_ARCH)
+    params, cfg, launches, out = _serve_path("serve_ssm", cfg, dev, counters,
+                                             probe=SSM_PROBE)
+    check(launches["decode_attn"] == 0, "serve_ssm: B7 launched in an "
+          "attention-free model")
+    toks = torch.as_tensor(np.random.default_rng(13).integers(
+        0, cfg.vocab_size, (1, SSM_PROMPT + 1)), device=dev)
+    with _program_counters()["ssd_scan"] as ssd:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        logits, caches = TT.prefill(params, cfg,
+                                    {"tokens": toks[:, :SSM_PROMPT]},
+                                    cache_len=SSM_PROMPT + 1)
+        torch.cuda.synchronize()
+        t_pre = time.perf_counter() - t0
+    hi_pre = torch.cuda.max_memory_allocated()
+    check(tuple(logits.shape) == (1, cfg.padded_vocab)
+          and bool(torch.isfinite(logits[:, :cfg.vocab_size]).all()),
+          "serve_ssm: prefill logits not finite or of the wrong shape")
+    check(all(bool(torch.isfinite(c["state"]).all())
+              for c in caches.values()), "serve_ssm: a prefill state is "
+          "not finite")
+    check(ssd.calls == cfg.n_layers, f"serve_ssm: {ssd.calls} _ssd_scan "
+          f"calls in a prefill of {cfg.n_layers} SSM layers")
+    lg, caches, _ = TT.decode_step(params, cfg, toks[:, SSM_PROMPT:],
+                                   caches, SSM_PROMPT)
+    check(bool(torch.isfinite(lg[:, :cfg.vocab_size]).all()),
+          "serve_ssm: the decode step after prefill is not finite")
+    log("serve_ssm", f"prefill of {SSM_PROMPT} tokens (B = 1, bf16): "
+        f"{t_pre:.3f} s wall (host clock, ending in synchronize), "
+        f"{SSM_PROMPT / t_pre:.1f} tokens/s, device memory high-water "
+        f"{hi_pre} B; _ssd_scan calls {ssd.calls}; one decode step after "
+        f"it finite")
+    out.update(prefill_s=t_pre, ssd_calls=ssd.calls)
+    del params, caches
+    torch.cuda.empty_cache()
+    return launches, out
+
+
+def phase_serve_moe(dev, counters):
+    """mixtral-8x22b at full width cut to MOE_PERIODS periods, in bf16:
+    the engine run of [serve]; then a MOE_PROMPT-token prompt through
+    ``prefill`` with cache_len 4,096 (the ring slots wrap past the window)
+    and MOE_DECODE decode steps at B = 1 (B7 windowed over 4,096 slots)."""
+    import numpy as np
+    import torch
+    from repro_torch.models import transformer as TT
+    cfg = _arch_cfg(MOE_ARCH, MOE_PERIODS)
+    progs = _program_counters()
+    with progs["moe_gather"], progs["chunked_attention"]:
+        params, cfg, launches, out = _serve_path(
+            "serve_moe", cfg, dev, counters,
+            programs=(progs["moe_gather"], progs["chunked_attention"]))
+        log("serve_moe", f"depth cut: {MOE_PERIODS} of {MOE_ARCH}'s 56 "
+            f"periods; _moe_gather calls on the engine run (its profiled "
+            f"window included) "
+            f"{progs['moe_gather'].calls}")
+        toks = torch.as_tensor(np.random.default_rng(11).integers(
+            0, cfg.vocab_size, (1, MOE_PROMPT + MOE_DECODE)), device=dev)
+        for c in counters:
+            c.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        g0 = progs["moe_gather"].calls
+        t0 = time.perf_counter()
+        logits, caches = TT.prefill(params, cfg,
+                                    {"tokens": toks[:, :MOE_PROMPT]},
+                                    cache_len=cfg.sliding_window)
+        torch.cuda.synchronize()
+        t_pre = time.perf_counter() - t0
+        hi_pre = torch.cuda.max_memory_allocated()
+        T = cfg.sliding_window
+        want_pos = torch.full((T,), -1, dtype=torch.int32)
+        live = torch.arange(MOE_PROMPT - T, MOE_PROMPT, dtype=torch.int32)
+        want_pos[live % T] = live
+        check(torch.equal(caches["l0"]["pos"].cpu(),
+                          want_pos.expand(cfg.n_periods, T)),
+              "serve_moe: the prefill cache does not hold the last 4,096 "
+              "positions at their ring slots")
+        check(tuple(logits.shape) == (1, cfg.padded_vocab)
+              and bool(torch.isfinite(logits[:, :cfg.vocab_size]).all()),
+              "serve_moe: prefill logits not finite or of the wrong shape")
+        walls = []
+        for i in range(MOE_DECODE):
+            pos = MOE_PROMPT + i
+            t0 = time.perf_counter()
+            lg, caches, ex = TT.decode_step(params, cfg, toks[:, pos:pos + 1],
+                                            caches, pos)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            check(bool(torch.isfinite(lg[:, :cfg.vocab_size]).all()),
+                  f"serve_moe: decode logits at {pos} not finite")
+        dec_launches = {c.__name__: c.launches for c in counters}
+        check(dec_launches["decode_attn"] == _attn_layers(cfg) * MOE_DECODE,
+              f"serve_moe: B7 launched {dec_launches['decode_attn']} times "
+              f"in {MOE_DECODE} decode steps")
+        n_attn_prog = progs["chunked_attention"].calls
+        log("serve_moe", f"prefill of {MOE_PROMPT} tokens (B = 1, cache_len "
+            f"{T}): {t_pre:.3f} s wall (host clock, ending in synchronize), "
+            f"{MOE_PROMPT / t_pre:.1f} tokens/s, device memory high-water "
+            f"{hi_pre} B; ring slots hold positions {MOE_PROMPT - T}.."
+            f"{MOE_PROMPT - 1}; chunked_attention calls {n_attn_prog}, "
+            f"_moe_gather calls {progs['moe_gather'].calls - g0}")
+        log("serve_moe", f"{MOE_DECODE} decode steps after it at B = 1 "
+            f"(B7 over {T} slots, window {cfg.sliding_window}): ms/step "
+            f"{[round(w * 1e3, 3) for w in walls]}; launches "
+            f"{dec_launches}")
+    for k, v in dec_launches.items():
+        launches[k] += v
+    out.update(prefill_s=t_pre, decode_ms=walls, programs={
+        k: c.calls for k, c in progs.items()})
+    del caches
+    torch.cuda.empty_cache()
+    moe_gather_times(params, cfg, dev, progs["moe_gather"].calls)
+    attn_program_times(cfg, dev, n_attn_prog)
+    del params
+    torch.cuda.empty_cache()
+    return launches, out
+
+
+def _rel_last(full, lg):
+    """The reference's teacher-forcing error: max |a - b| over the finite
+    logits, relative to max |a|."""
+    import torch
+    a, b = full.double(), lg.double()
+    m = torch.isfinite(a) & torch.isfinite(b)
+    check(bool((torch.isfinite(a) == torch.isfinite(b)).all()),
+          "prefill: the -inf vocab tails differ")
+    return float((a[m] - b[m]).abs().max() / (a[m].abs().max() + 1e-9))
+
+
+def phase_prefill(dev):
+    """Teacher forcing on the card in float32 (tests/test_models_smoke.py's
+    check): prefill of S - 1 tokens plus one decode step equals
+    ``forward_train`` at the last position, relative error < 1e-4, for
+    PREFILL_CASES; then ``encode`` for hubert-xlarge at full width and
+    depth in bf16.  Returns the walls."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.models import transformer as TT
+    out = {}
+    progs = _program_counters()
+    for arch, periods, B, S in PREFILL_CASES:
+        cfg = _arch_cfg(arch, periods, dtype="float32")
+        if cfg.n_experts:                  # no capacity drops
+            cfg = dataclasses.replace(cfg, capacity_factor=16.0)
+        torch.cuda.reset_peak_memory_stats()
+        params = TT.init_model(cfg, seed=2, device=dev)
+        toks = torch.as_tensor(np.random.default_rng(S).integers(
+            0, cfg.vocab_size, (B, S)), device=dev)
+        with progs["ssd_scan"], progs["chunked_attention"], \
+                progs["moe_gather"]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            full = TT.forward_train(params, cfg, {"tokens": toks})["final"][
+                :, -1]
+            torch.cuda.synchronize()
+            t_fwd = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            _, caches = TT.prefill(params, cfg, {"tokens": toks[:, :S - 1]},
+                                   cache_len=S + 4)
+            torch.cuda.synchronize()
+            t_pre = time.perf_counter() - t0
+            lg, _, _ = TT.decode_step(params, cfg, toks[:, S - 1:], caches,
+                                      S - 1)
+        err = _rel_last(full, lg)
+        check(err < 1e-4, f"prefill {arch}: decode after prefill differs "
+              f"from forward_train by {err:.3g} relative (>= 1e-4)")
+        wraps = cfg.sliding_window and S - 1 > cfg.sliding_window
+        log("prefill", f"{arch} ({cfg.n_layers} layers, f32, B = {B}, S = "
+            f"{S}{', capacity_factor 16' if cfg.n_experts else ''}"
+            f"{', prompt past the window: ring slots wrap' if wraps else ''})"
+            f": decode after prefill within {err:.3g} relative of "
+            f"forward_train; walls (host clock, ending in synchronize) "
+            f"forward_train {t_fwd:.3f} s, prefill {t_pre:.3f} s; device "
+            f"memory high-water {torch.cuda.max_memory_allocated()} B")
+        out[arch] = dict(err=err, forward_s=t_fwd, prefill_s=t_pre)
+        del params, caches, full, lg
+        torch.cuda.empty_cache()
+    log("prefill", "program calls over the three cases: "
+        + ", ".join(f"{k} {c.calls}" for k, c in progs.items()))
+    out["programs"] = {k: c.calls for k, c in progs.items()}
+    # encode: hubert-xlarge at full width and depth, bf16
+    cfg = _arch_cfg("hubert-xlarge")
+    params = TT.init_model(cfg, seed=3, device=dev)
+    B, S = ENCODE_FRAMES
+    g = torch.Generator(device=dev).manual_seed(5)
+    frames = torch.randn(B, S, cfg.d_model, generator=g, device=dev).to(
+        params["final_norm"]["scale"].dtype)
+    TT.encode(params, cfg, {"frames": frames})
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits = TT.encode(params, cfg, {"frames": frames})
+    torch.cuda.synchronize()
+    t_enc = time.perf_counter() - t0
+    check(tuple(logits.shape) == (B, S, cfg.padded_vocab)
+          and bool(torch.isfinite(logits[..., :cfg.vocab_size]).all())
+          and bool(torch.isinf(logits[..., cfg.vocab_size:]).all()),
+          "prefill: hubert-xlarge encode logits not finite or of the wrong "
+          "shape")
+    log("prefill", f"hubert-xlarge encode ({cfg.n_layers} layers, {cfg.dtype}, "
+        f"frames {(B, S, cfg.d_model)}, {TT.param_count(params)} "
+        f"parameters): logits {tuple(logits.shape)} finite (tail -inf), "
+        f"{t_enc * 1e3:.3f} ms wall (second call; host clock, ending in "
+        f"synchronize), {B * S / t_enc:.1f} frames/s")
+    out["encode_ms"] = t_enc * 1e3
+    del params, logits, frames
+    torch.cuda.empty_cache()
+    return out
+
+
+def _close_tree(a, b, tol, what):
+    """Leaves of two trees within rtol = atol = tol (integers equal)."""
+    import torch
+    if isinstance(b, dict):
+        check(set(a) == set(b), f"{what}: keys differ")
+        return max([_close_tree(a[k], b[k], tol, f"{what}/{k}") for k in b],
+                   default=0.0)
+    a = a.cpu()
+    if not b.dtype.is_floating_point:
+        check(torch.equal(a, b), f"{what}: differs")
+        return 0.0
+    ad, bd = a.double(), b.double()
+    ok = bool(((ad == bd) | ((ad - bd).abs() <= tol + tol * bd.abs()))
+              .all())                    # equal infinities (the vocab tail)
+    e = max_abs_err(a, b)
+    check(ok, f"{what}: off by {e:.3g} (rtol = atol = {tol})")
+    return e
+
+
+def phase_serve_parity_more(dev):
+    """[serve_parity] for the SSM and MoE layers: mamba2-1.3b widths at 2
+    periods and mixtral-8x22b widths at 1 period, float32: decode_step (4
+    steps), prefill (logits and caches) and forward_train on CUDA against
+    the port's CPU path, same weights, within rtol = atol = 1e-4."""
+    import numpy as np
+    import torch
+    from repro_torch.models import transformer as TT
+    for arch, periods in ((SSM_ARCH, 2), (MOE_ARCH, 1)):
+        cfg = _arch_cfg(arch, periods, dtype="float32", exit_layers=())
+        params = TT.init_model(cfg, seed=4, device=dev)
+        t0 = time.perf_counter()
+        cpu = TT.tree_to(params, "cpu")
+        t_copy = time.perf_counter() - t0
+        B, S = 2, 24
+        toks = torch.as_tensor(np.random.default_rng(6).integers(
+            0, cfg.vocab_size, (B, S + 4)))
+        worst = {}
+        where = {dev: params, "cpu": cpu}
+        fw = {w: TT.forward_train(p, cfg, {"tokens": toks[:, :S].to(w)})
+              for w, p in where.items()}
+        worst["forward_train"] = _close_tree(fw[dev], fw["cpu"], 1e-4,
+                                             f"serve_parity {arch} forward")
+        pre = {w: TT.prefill(p, cfg, {"tokens": toks[:, :S].to(w)},
+                             cache_len=S + 8) for w, p in where.items()}
+        worst["prefill"] = _close_tree(
+            {"logits": pre[dev][0], "caches": pre[dev][1]},
+            {"logits": pre["cpu"][0], "caches": pre["cpu"][1]}, 1e-4,
+            f"serve_parity {arch} prefill")
+        for pos in range(S, S + 4):
+            step = {w: TT.decode_step(p, cfg, toks[:, pos:pos + 1].to(w),
+                                      pre[w][1], pos)
+                    for w, p in where.items()}
+            worst[f"decode {pos}"] = _close_tree(
+                {"logits": step[dev][0], "exits": step[dev][2]},
+                {"logits": step["cpu"][0], "exits": step["cpu"][2]}, 1e-4,
+                f"serve_parity {arch} decode at {pos}")
+        _close_tree(pre[dev][1], pre["cpu"][1], 1e-4,
+                    f"serve_parity {arch} caches after decode")
+        log("serve_parity", f"{arch} widths at {cfg.n_layers} layers, f32 "
+            f"({TT.param_count(params)} parameters, copied to the host in "
+            f"{t_copy:.3f} s): forward_train, prefill (logits and caches) "
+            f"and 4 decode steps on CUDA within rtol = atol = 1e-4 of the "
+            f"CPU path; max abs err " + ", ".join(
+                f"{k} {v:.3g}" for k, v in worst.items()))
+        del params, cpu, fw, pre, step
+        torch.cuda.empty_cache()
+
+
+def _program_row(tag, ms, calls, nbytes, ops, peak, lib):
+    """Log one plain-PyTorch program of the path (an XLA program in the
+    reference, not a Pallas kernel) against its bound."""
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / peak
+    bound = max(t_b, t_o) * 1e3
+    by = "bytes" if t_b >= t_o else "operations"
+    log("programs", f"{tag}: device ms a call {ms:.4f} (plain PyTorch), "
+        f"calls on the path {calls}, bound {bound:.6f} ms by {by} "
+        f"({nbytes} B, {ops} ops at {peak / 1e12:.0f} TFLOP/s), "
+        f"{bound / ms:.1%} of the bound; library "
+        + ("none" if lib is None else f"{lib:.4f} ms"))
+    return dict(ms=ms, calls=calls, bound_ms=bound, bound_by=by,
+                library_ms=lib)
+
+
+def _program_ms(fn, reps=3):
+    return graph_ms(fn, reps) or cuda_ms(fn, reps, 1)
+
+
+def moe_gather_times(params, cfg, dev, calls):
+    """``_moe_gather`` of layer 0 at the engine's decode shape (4 groups of
+    one token) and at the prefill shape (one group of MOE_PROMPT tokens),
+    bf16.  Bytes: the experts this run's tokens select, read once, the
+    router, x and y; operations: the router and each kept (token, expert)
+    pair's SwiGLU."""
+    import torch
+    from repro_torch.models import moe as M
+    from repro_torch.models import transformer as TT
+    p = TT._period(params["layers"], 0)["l0"]["mlp"]
+    d, ff, E, k = cfg.d_model, cfg.d_ff, cfg.n_experts, cfg.top_k
+    g = torch.Generator(device=dev).manual_seed(8)
+    rows = {}
+    for G, t in ((SERVE_BATCH, 1), (1, MOE_PROMPT)):
+        x = torch.randn(G, t, d, generator=g, device=dev).to(torch.bfloat16)
+        _, _, ids = M._route(p, cfg, x)
+        used = int(torch.unique(ids).numel())
+        C = min(M._capacity(t, cfg), t)
+        kept = int((torch.zeros(G, t, E, device=dev).scatter_(
+            -1, ids, 1.0).sum(1).clamp(max=C)).sum())
+        nbytes = used * 3 * d * ff * 2 + d * E * 4 + 2 * G * t * d * 2
+        ops = 2 * d * E * G * t + kept * 3 * 2 * d * ff
+        ms = _program_ms(lambda: M._moe_gather(p, cfg, x))
+        rows[(G, t)] = _program_row(
+            f"_moe_gather bf16 x {(G, t, d)} (experts used {used} of {E}, "
+            f"{kept} kept (token, expert) pairs, capacity {C})", ms,
+            calls if (G, t) == (SERVE_BATCH, 1) else None, nbytes, ops,
+            989e12, None)
+    return rows
+
+
+def attn_program_times(cfg, dev, calls):
+    """``chunked_attention`` at [serve_moe]'s prefill shape (B = 1,
+    MOE_PROMPT tokens, mixtral's heads, window 4,096, bf16) beside
+    scaled_dot_product_attention with the same boolean mask.  Operations:
+    4 H D for each live (query, key) pair."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.models import attention as A
+    B, S, H, KV, D = 1, MOE_PROMPT, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    W = cfg.sliding_window
+    g = torch.Generator(device=dev).manual_seed(9)
+    q = torch.randn(B, S, H, D, generator=g, device=dev).to(torch.bfloat16)
+    k = torch.randn(B, S, KV, D, generator=g, device=dev).to(torch.bfloat16)
+    v = torch.randn(B, S, KV, D, generator=g, device=dev).to(torch.bfloat16)
+    pos = torch.arange(S, dtype=torch.int32, device=dev)
+    fn = lambda: A.chunked_attention(q, k, v, pos, pos, causal=True,
+                                     window=W, chunk=cfg.attn_chunk)
+    ms = _program_ms(fn, 2)
+    mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - W)
+    lib_fn = lambda: F.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        attn_mask=mask, enable_gqa=True)
+    e = max_abs_err(lib_fn().transpose(1, 2).float(), fn().float())
+    check(e <= 2e-2, f"chunked_attention vs scaled_dot_product_attention off "
+          f"by {e:.3g}")
+    lib = _program_ms(lib_fn, 2)
+    live = sum(min(i + 1, W) for i in range(S)) * B
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2
+    return _program_row(f"chunked_attention bf16 q {tuple(q.shape)} k/v "
+                        f"{tuple(k.shape)} window {W} chunk {cfg.attn_chunk} "
+                        f"({live} live pairs; library within {e:.3g})", ms,
+                        calls, nbytes, 4 * H * D * live, 989e12, lib)
+
+
+def ssd_program_times(dev, calls):
+    """``_ssd_scan`` at [serve_ssm]'s prefill shape (B = 1, SSM_PROMPT
+    tokens, 64 heads of 64, N = 128, chunk 256; xh, B and C in bf16 as the
+    conv gives them, dt and log a in float32).  Operations: the causal
+    half of each chunk's dual form, the inter-chunk product and the state
+    update, on the real rows."""
+    import torch
+    from repro_torch.models import ssm as M
+    from repro_torch.models.ssm import ssm_dims
+    cfg = _arch_cfg(SSM_ARCH)
+    di, H, P, N = ssm_dims(cfg)
+    B, S = 1, SSM_PROMPT
+    g = torch.Generator(device=dev).manual_seed(10)
+    bf = torch.bfloat16
+    xh = torch.randn(B, S, H, P, generator=g, device=dev).to(bf)
+    Bm = torch.randn(B, S, N, generator=g, device=dev).to(bf)
+    Cm = torch.randn(B, S, N, generator=g, device=dev).to(bf)
+    dt = torch.rand(B, S, H, generator=g, device=dev) * 0.5 + 0.01
+    a_log = -torch.rand(B, S, H, generator=g, device=dev) * dt
+    ms = _program_ms(lambda: M._ssd_scan(cfg, xh, Bm, Cm, dt, a_log))
+    Q = min(cfg.ssm_chunk, S)
+    ops = 0
+    for c0 in range(0, S, Q):
+        q = min(Q, S - c0)
+        pairs = q * (q + 1) // 2
+        ops += B * (2 * N * pairs + 2 * H * pairs + 2 * H * P * pairs
+                    + 4 * q * N * H * P)
+    nbytes = (2 * (2 * xh.numel() + Bm.numel() + Cm.numel())
+              + 4 * (dt.numel() + a_log.numel() + B * H * P * N))
+    return _program_row(f"_ssd_scan bf16 xh {tuple(xh.shape)} N {N} chunk "
+                        f"{cfg.ssm_chunk}", ms, calls, nbytes, ops, 67e12,
+                        None)
+
+
+def attn_times_moe(dev, err):
+    """B7 at mixtral-8x22b's heads (H = 48, KV = 8, G = 6, D = 128) over a
+    full 4,096-slot window, bf16, at B = 4 and at the decode path's B = 1:
+    CUDA-graph replays against the byte bound, the plain version and
+    scaled_dot_product_attention on the cache's view.  Returns the
+    kernels-line row of B = 4."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attn import ops as attn_ops
+    from repro_torch.kernels.decode_attn.ops import decode_attn
+    from repro_torch.kernels.decode_attn.ref import decode_attn_ref
+    H, KV, D, T = 48, 8, 128, 4096
+    W = T
+    g = torch.Generator(device=dev).manual_seed(12)
+    row = None
+    for B in (4, 1):
+        q = torch.randn(B, H, D, generator=g, device=dev).bfloat16()
+        k = torch.randn(B, T, KV, D, generator=g, device=dev).bfloat16()
+        v = torch.randn(B, T, KV, D, generator=g, device=dev).bfloat16()
+        cpos = torch.arange(T, dtype=torch.int32, device=dev)
+        pos = T - 1
+        kern = lambda: decode_attn(q, k, v, cpos, pos, window=W)
+        ms = graph_ms(kern, 20) or cuda_ms(kern, 50, 5)
+        plain_fn = lambda: decode_attn_ref(q, k, v, cpos, pos, window=W)
+        plain = graph_ms(plain_fn, 5) or cuda_ms(plain_fn, 5, 1)
+        mask = ((cpos >= 0) & (cpos <= pos) & (cpos > pos - W))[
+            None, None, None, :]
+        qs = q[:, :, None].contiguous()
+        ks, vs = (t.transpose(1, 2) for t in (k, v))
+        lib_fn = lambda: F.scaled_dot_product_attention(
+            qs, ks, vs, attn_mask=mask, enable_gqa=True)
+        e = max_abs_err(lib_fn()[:, :, 0].float(), kern().float())
+        check(e <= 2e-2, f"B7 {(B, H, KV, D, T)} vs scaled_dot_product_"
+              f"attention off by {e:.3g}")
+        lib = graph_ms(lib_fn, 20) or cuda_ms(lib_fn, 50, 5)
+        nbytes = q.numel() * 2 * 2 + (k.numel() + v.numel()) * 2 + T * 4
+        ops = 4 * B * H * T * D
+        t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS_PER_S["float32"]
+        bound, by = max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else \
+            "operations"
+        log("times", f"B7 bf16 mixtral heads q {tuple(q.shape)} cache "
+            f"{tuple(k.shape)} window {W} (blocks a cluster P = "
+            f"{attn_ops.split_plan(B, KV, T, D, 2)}, slots a warp "
+            f"{attn_ops.slots_per_warp(D, 2)}): device ms a call (CUDA graph of 20 calls, plain 5) kernel "
+            f"{ms:.4f}, plain {plain:.4f}, library scaled_dot_product_"
+            f"attention on the cache's view {lib:.4f} (within {e:.3g}) | "
+            f"bound {bound:.6f} ms by {by} ({nbytes} B, {ops} ops); "
+            f"{nbytes / (ms * 1e-3) / 1e9:.1f} GB/s achieved, "
+            f"{bound / ms:.1%} of the bound")
+        if B == 4:
+            row = dict(name="decode_attn@mixtral-8x22b", route="cuda",
+                       source=ATTN_SOURCE,
+                       replaces="src/repro/kernels/decode_attn/"
+                                "decode_attn.py:72",
+                       launches=None, max_abs_err=err, ms=ms,
+                       plain_ms=plain, bound_ms=bound, bound_by=by,
+                       library_ms=lib)
+        del q, k, v, ks, vs, qs
+        torch.cuda.empty_cache()
+    return row
+
+
 def gate_times(dev, err):
     """B6 at the serving shape, [4, 153,600] with the qwen3-4b -inf vocab
     tail, on seeded logits in float32 and bf16: device ms a call from
@@ -3620,6 +4229,24 @@ def gate_times(dev, err):
                        launches=None, max_abs_err=err, ms=ms, plain_ms=plain,
                        bound_ms=bound, bound_by=by, library_ms=lib)
             gate_split_sweep(x, dev)
+    for B, V, tail in GATE_MORE_SHAPES:
+        logits = np.random.default_rng(V).normal(size=(B, V)) * 4
+        logits[:, V - tail:] = -np.inf
+        x = torch.as_tensor(logits, dtype=torch.float32, device=dev)
+        ms = graph_ms(lambda: ee_gate(x), 50) or cuda_ms(lambda: ee_gate(x),
+                                                         200, 10)
+        plain = graph_ms(lambda: ee_gate_ref(x), 20) or \
+            cuda_ms(lambda: ee_gate_ref(x), 50, 5)
+        lib = graph_ms(lambda: torch.softmax(x, -1).max(-1), 20) or \
+            cuda_ms(lambda: torch.softmax(x, -1).max(-1), 50, 5)
+        nbytes, ops = x.numel() * 4 + B * 8, 4 * x.numel()
+        bound = max(nbytes / HBM_BYTES_PER_S,
+                    ops / PEAK_OPS_PER_S["float32"]) * 1e3
+        log("times", f"B6 float32 {(B, V)} tail {tail} "
+            f"({_plan_note('gate', B, V)}): device ms a call (CUDA graph) "
+            f"kernel {ms:.4f}, plain {plain:.4f}, library softmax(x).max(-1)"
+            f" {lib:.4f} | bound {bound:.6f} ms by bytes ({nbytes} B), "
+            f"{bound / ms:.1%} of the bound")
     return row
 
 
@@ -3788,7 +4415,8 @@ def attn_split_sweep(B, H, KV, D, dev, g):
         torch.cuda.empty_cache()
 
 
-TIMES = ("chain", "dense", "kbest", "gate", "attn", "plan", "ingest")
+TIMES = ("chain", "dense", "kbest", "gate", "attn", "plan", "ingest",
+         "serve")
 
 
 def times_only(dev, which, counters) -> None:
@@ -3810,6 +4438,8 @@ def times_only(dev, which, counters) -> None:
         plan_times(dev, counters)
     if "ingest" in which:
         ingest_times(dev, None)
+    if "serve" in which:
+        _serve_path("serve", _serve_cfg(), dev, counters)
 
 
 def main(argv) -> int:
@@ -3899,6 +4529,24 @@ def main(argv) -> int:
     del params
     torch.cuda.empty_cache()
     phase_serve_parity(dev)
+    # the rest of model serving: Mamba-2, MoE, prefill and encode
+    launches_ssm, serve_ssm = phase_serve_ssm(dev, counters)
+    launches_moe, serve_moe = phase_serve_moe(dev, counters)
+    phase_prefill(dev)
+    phase_serve_parity_more(dev)
+    ssd_program_times(dev, serve_ssm["ssd_calls"])
+    moe_row = attn_times_moe(dev, err_serve["decode_attn"])
+    moe_row["launches"] = launches_moe["decode_attn"]
+    check(moe_row["launches"] > 0, "decode_attn: no launch on [serve_moe]")
+    check(launches_ssm["ee_gate"] > 0 and launches_moe["ee_gate"] > 0,
+          "ee_gate: no launch on [serve_ssm] or [serve_moe]")
+    rows.append(moe_row)
+    log("order", f"launches on [serve_ssm]: B6 {launches_ssm['ee_gate']}, "
+        f"B7 {launches_ssm['decode_attn']}, B1 "
+        f"{launches_ssm['banded_minplus_chain']}; on [serve_moe]: B6 "
+        f"{launches_moe['ee_gate']}, B7 {launches_moe['decode_attn']}, B1 "
+        f"{launches_moe['banded_minplus_chain']}; plain programs "
+        f"{serve_moe['programs']}")
     # B5's launches on its path are Table VII layers, not the [times] shape
     at_path = {r["name"]: (r["ms"], r["bound_ms"]) for r in rows}
     at_path["minplus_vecmat"] = table7_layer

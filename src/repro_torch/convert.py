@@ -107,6 +107,32 @@ def _tensor_from(x, device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a).copy()).to(device)
 
 
+def _layer_skeleton(cfg) -> dict:
+    """The port's layer tree of one period of ``cfg``'s pattern, on the
+    ``meta`` device (shapes only: nothing is drawn or allocated; only its
+    keys are read)."""
+    from .models.transformer import _layer_init
+    gen = torch.Generator()
+    return {f"l{i}": _layer_init(gen, cfg, spec, torch.float32, "meta")
+            for i, spec in enumerate(cfg.pattern)}
+
+
+def _kind(x) -> str:
+    return "a subtree" if isinstance(x, Mapping) else "a leaf"
+
+
+def _check_keys(tree: Mapping, want: Mapping, where: str) -> None:
+    if set(tree) != set(want):
+        raise ValueError(f"parameter tree keys {sorted(tree)} at {where} "
+                         f"differ from {sorted(want)}")
+    for k, v in want.items():
+        if _kind(v) != _kind(tree[k]):
+            raise ValueError(f"parameter tree keys: {where}/{k} is "
+                             f"{_kind(tree[k])}, the port reads {_kind(v)}")
+        if isinstance(v, Mapping):
+            _check_keys(tree[k], v, f"{where}/{k}")
+
+
 def transformer_params_from(params_np: Mapping, cfg, *,
                             device: DeviceLike = None) -> dict:
     """The port's transformer parameters from another implementation's
@@ -114,9 +140,13 @@ def transformer_params_from(params_np: Mapping, cfg, *,
     ``device`` (``None``: ``cuda:0``, raising without a card).
 
     Both trees share names and layouts: per-period layer stacks
-    ``[n_periods, ...]``, ``wq`` ``[d, H, hd]``, ``wo`` ``[H, hd, d]``, exits
-    keyed ``exit_{period}``, so each leaf is copied as it is (dtype kept).
-    Keys the port's model does not read raise ``ValueError``.
+    ``[n_periods, ...]``, ``wq`` ``[d, H, hd]``, ``wo`` ``[H, hd, d]``, the
+    SSM mixers' ``in_proj`` / ``conv_w`` / ``A_log`` / ``D`` / ``dt_bias``,
+    the MoE ``router`` ``[d, E]`` and experts ``[E, ...]``, exits keyed
+    ``exit_{period}``, so each leaf is copied as it is (dtype kept: the
+    SSM decay and skip terms and the router stay float32 in a bf16 tree).
+    Keys the port's model does not read raise ``ValueError``, at every
+    level of a layer.
     """
     dev = resolve_device(device)
 
@@ -134,6 +164,7 @@ def transformer_params_from(params_np: Mapping, cfg, *,
     if set(params_np["exits"]) != want_exits:
         raise ValueError(f"exit heads {sorted(params_np['exits'])} differ "
                          f"from {sorted(want_exits)}")
+    _check_keys(params_np["layers"], _layer_skeleton(cfg), "layers")
     out = conv(params_np)
     for leaf in out["layers"].values():
         n = leaf["norm1"]["scale"].shape[0]

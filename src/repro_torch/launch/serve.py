@@ -2,9 +2,10 @@
     --arch qwen3-4b --requests 16 --max-new 8 [--threshold 0.7] [--device cpu]
 
 Runs the split-serving engine (exit-aware continuous batching) on the
-reduced config with a FIN placement over the paper's mobile-edge-cloud
-system, and reports throughput / exit usage / placement-model energy.  The
-counterpart of ``repro/launch/serve.py`` with the same flags, plus
+reduced config of any decoder architecture (dense, MoE, Mamba-2 SSM,
+hybrid, vision; the encoder-only hubert-xlarge has no serve path) with a
+FIN placement over the paper's mobile-edge-cloud system, and reports
+throughput / exit usage / placement-model energy.  The counterpart of ``repro/launch/serve.py`` with the same flags, plus
 ``--device``: it runs on ``cuda:0`` unless ``--device cpu`` is given.  The
 weights are drawn from ``torch.Generator(...).manual_seed(0)``.
 """

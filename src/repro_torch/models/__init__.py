@@ -1,2 +1,2 @@
-"""LM backbones of the port: layers, decode attention, early exits and the
-decode path of the transformer."""
+"""LM backbones of the port: layers, attention, the Mamba-2 SSM mixer, the
+MoE FFN, early exits and the transformer's entry points."""

@@ -1,14 +1,18 @@
-"""Attention for decoding: GQA with RoPE, optional qk-norm, causal /
-sliding-window masks, and a KV-cache decode step (a ring buffer under a
+"""Attention: GQA with RoPE, optional qk-norm, causal / sliding-window /
+bidirectional masks; chunked online-softmax attention for the full-sequence
+forward and prefill, and a KV-cache decode step (a ring buffer under a
 sliding window).
 
-Port of the decode half of ``repro/models/attention.py``.
+Port of ``repro/models/attention.py``.  ``chunked_attention`` is the
+reference's loop over KV chunks with the running (max, sum, acc) in
+float32 and its finite ``NEG_INF``: a chunk masked out for a row leaves a
+finite running max there, and the next live chunk wipes its share through
+``corr = exp(m - m_new)``.  It stays a loop of plain PyTorch products (an
+XLA program in the reference, not a Pallas kernel).
 ``decode_attention`` is the reference's function of the same name: on CUDA
 it launches the hand-written flash-decode kernel B7
 (``kernels/decode_attn``), on the CPU it runs that kernel's plain version,
-which is the reference's function line for line.  The full-sequence
-``chunked_attention`` / ``attn_apply`` (prefill and training) belong to a
-later slice.
+which is the reference's function line for line.
 
 Caches keep the reference's layout (``k``/``v`` ``[B, T, KV, D]``, ``pos``
 ``[T]``) but are updated in place: the reference returns new arrays, the
@@ -20,11 +24,14 @@ from dataclasses import dataclass
 from typing import Dict, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
 from ..kernels.decode_attn.ops import decode_attn
 from .layers import (F32, apply_rope, dense_init, rmsnorm, rmsnorm_init,
                      scalar)
+
+NEG_INF = -1e30
 
 
 # ---------------------------------------------------------------------------
@@ -62,6 +69,85 @@ def _project_qkv(params, cfg: ArchConfig, x: torch.Tensor,
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
+
+
+def out_proj(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
+    """``einsum("bshk,hkd->bsd")`` in out's dtype (float32 accumulation)."""
+    H, hd, d = wo.shape
+    return torch.matmul(out.reshape(*out.shape[:-2], H * hd),
+                        wo.reshape(H * hd, d))
+
+
+# ---------------------------------------------------------------------------
+# Chunked online-softmax attention (full sequence / prefill)
+# ---------------------------------------------------------------------------
+
+def _mask_bias(q_pos: torch.Tensor, k_pos: torch.Tensor, causal: bool,
+               window: int) -> torch.Tensor:
+    """[Sq, Sk] float32 additive bias for causal / SWA / bidirectional
+    masks; key slots at negative positions (padding) are masked."""
+    dq = q_pos[:, None]
+    dk = k_pos[None, :]
+    ok = (dk >= 0).expand(dq.shape[0], dk.shape[1])
+    if causal:
+        ok = ok & (dk <= dq)
+    if window > 0:
+        ok = ok & (dk > dq - window)
+    return torch.where(ok, scalar(0.0, ok.device), scalar(NEG_INF, ok.device))
+
+
+def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      q_pos: torch.Tensor, k_pos: torch.Tensor, *,
+                      causal: bool, window: int, chunk: int) -> torch.Tensor:
+    """q: [B, Sq, H, D]; k / v: [B, Sk, KV, D]; returns [B, Sq, H, D].
+
+    A loop over KV chunks with the running (max, sum, acc) in float32:
+    O(Sq * chunk) live scores.  Sk is padded to a multiple of ``chunk``
+    with key position -10**9, which the mask drops.  GQA groups the heads
+    as [B, Sq, KV, G, D]."""
+    B, Sq, H, D = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    if H % KV:
+        raise ValueError(f"{H} query heads are not a multiple of {KV} KV "
+                         f"heads")
+    G = H // KV
+    scale = D ** -0.5
+    if Sk % chunk:
+        pad = chunk - Sk % chunk
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+        k_pos = F.pad(k_pos, (0, pad), value=-10**9)
+        Sk += pad
+    qg = q.reshape(B, Sq, KV, G, D).to(F32)
+    m = torch.full((B, Sq, KV, G), NEG_INF, dtype=F32, device=q.device)
+    l = torch.zeros((B, Sq, KV, G), dtype=F32, device=q.device)
+    acc = torch.zeros((B, Sq, KV, G, D), dtype=F32, device=q.device)
+    for c0 in range(0, Sk, chunk):
+        kc = k[:, c0:c0 + chunk].to(F32)
+        vc = v[:, c0:c0 + chunk]
+        s = torch.einsum("bqkgd,bckd->bqkgc", qg, kc) * scale
+        s = s + _mask_bias(q_pos, k_pos[c0:c0 + chunk], causal,
+                           window)[:, None, None, :]
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bqkgc,bckd->bqkgd", p.to(q.dtype).to(F32), vc.to(F32))
+        m = m_new
+    out = acc / l.clamp_min(1e-30)[..., None]
+    return out.reshape(B, Sq, H, D).to(q.dtype)
+
+
+def attn_apply(params, cfg: ArchConfig, x: torch.Tensor,
+               positions: torch.Tensor) -> torch.Tensor:
+    """Full-sequence attention (forward / prefill). x: [B, S, d];
+    positions: [B, S] integer."""
+    q, k, v = _project_qkv(params, cfg, x, positions)
+    out = chunked_attention(q, k, v, positions[0], positions[0],
+                            causal=cfg.causal, window=cfg.sliding_window,
+                            chunk=cfg.attn_chunk)
+    return out_proj(out, params["wo"])
 
 
 # ---------------------------------------------------------------------------
@@ -159,7 +245,4 @@ def attn_decode_step(params, cfg: ArchConfig, x: torch.Tensor, cache: dict,
     cache["pos"][slot] = pos
     out = decode_attention(q, k_read, v_read, cache["pos"], pos,
                            window=cfg.sliding_window)
-    H, hd, d = params["wo"].shape
-    y = torch.matmul(out.reshape(*out.shape[:-2], H * hd),
-                     params["wo"].reshape(H * hd, d))
-    return y, cache
+    return out_proj(out, params["wo"]), cache

@@ -27,11 +27,12 @@ F32 = torch.float32
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
 
-#: does this torch offer ``mm(a, b, out_dtype=float32)`` for half-precision
-#: inputs (float32 accumulation without rounding the output)?  Read once
-#: from the operator's overloads; where it is missing, ``matmul_f32``
-#: upcasts the operands instead.
+#: does this torch offer ``mm(a, b, out_dtype=float32)`` (and ``bmm``) for
+#: half-precision inputs (float32 accumulation without rounding the
+#: output)?  Read once from the operators' overloads; where it is missing,
+#: ``matmul_f32`` / ``bmm_f32`` upcast the operands instead.
 _MM_OUT_DTYPE = "dtype" in torch.ops.aten.mm.overloads()
+_BMM_OUT_DTYPE = "dtype" in torch.ops.aten.bmm.overloads()
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -61,6 +62,16 @@ def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     else:
         out = torch.mm(x2.to(F32), w.to(F32))
     return out.reshape(*lead, w.shape[-1])
+
+
+def bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``torch.bmm`` with a float32 result, as ``matmul_f32``: a [E, M, K],
+    b [E, K, N] -> [E, M, N] float32."""
+    if a.dtype == F32 and b.dtype == F32:
+        return torch.bmm(a, b)
+    if a.is_cuda and _BMM_OUT_DTYPE:
+        return torch.bmm(a, b, out_dtype=F32)
+    return torch.bmm(a.to(F32), b.to(F32))
 
 
 # ---------------------------------------------------------------------------

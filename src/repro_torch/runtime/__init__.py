@@ -1,2 +1,2 @@
-"""Runtime of the port: the split-serving engine, straggler detection,
-checkpoints and elastic failover."""
+"""Runtime of the port: the split-serving engine, the serve-step builders,
+straggler detection, checkpoints and elastic failover."""

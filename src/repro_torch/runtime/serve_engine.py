@@ -4,7 +4,9 @@ Port of ``repro/runtime/serve_engine.py``, the paper's execution model of a
 dynamic DNN:
 
   * every decode step runs the full stack once for the active batch (the
-    attention of every layer through kernel B7 on the card);
+    attention of every attention layer through kernel B7 on the card; a
+    Mamba-2 layer steps its recurrent state, an MoE layer routes each
+    token to its top-k experts);
   * the exit gate (kernel B6) scores each exit's logits; a sequence whose
     confidence clears its threshold takes THAT exit's token (first exit
     wins), and deeper blocks' output for it is discarded;
@@ -27,10 +29,14 @@ dynamic DNN:
   * churn-driven serving: ``on_tick`` applies a ``scenarios.churn_trace``
     tick, and ``serve_with_churn`` interleaves ticks with decode steps.
 
-The engine keeps the reference's behaviour to the letter, its quirks
-included: request ids are ``len(queue) + 10_000`` and all slots share one
-``pos``.  Each step copies every exit's (conf, argmax) to the host, three
-device-to-host synchronisations a step at qwen3-4b, as the reference does.
+The engine serves every decoder architecture of the registry and keeps
+the reference's behaviour to the letter, its quirks included: request ids
+are ``len(queue) + 10_000``; all slots share one ``pos``; a recycled slot
+keeps what its last request left in the caches (attention K/V entries at
+positions below the new request's, which it attends to, and an SSM
+layer's recurrent state and conv tail), as the reference's do.  Each
+step copies every exit's (conf, argmax) to the host, three device-to-host
+synchronisations a step at qwen3-4b, as the reference does.
 The engine runs on ``device`` (default ``cuda:0``): its caches, its
 parameters and its ``Plan`` live there.
 """

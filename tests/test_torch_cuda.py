@@ -500,6 +500,55 @@ def test_serve_engine_on_card_equals_cpu_path(cuda_device):
     assert n6 == 2 * st_g["steps"] and n7 == 2 * st_g["steps"]
 
 
+def _close_trees(a, b, tol=1e-4):
+    if isinstance(b, dict):
+        assert set(a) == set(b)
+        for k in b:
+            _close_trees(a[k], b[k], tol)
+        return
+    torch.testing.assert_close(a.cpu(), b, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "mixtral-8x22b",
+                                  "jamba-1.5-large-398b", "arctic-480b",
+                                  "hubert-xlarge"])
+def test_full_sequence_entry_points_on_card_equal_cpu_path(cuda_device,
+                                                           arch):
+    """The reduced SSM, MoE, hybrid and encoder-only models in float32:
+    forward_train, prefill (logits and caches; mixtral's prompt wraps its
+    16-slot window) and three decode steps on CUDA within 1e-4 of the CPU
+    path, with B7 launched once per attention layer a step."""
+    from repro_torch.models import transformer as TT
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get(arch, reduced=True)
+    params = TT.init_model(cfg, seed=5, device=cuda_device)
+    cpu = TT.tree_to(params, "cpu")
+    B, S = 2, 24
+    rng = np.random.default_rng(2)
+    if cfg.frontend == "audio":
+        batch = {"frames": torch.from_numpy(
+            rng.normal(size=(B, S, cfg.d_model)).astype(np.float32))}
+    else:
+        batch = {"tokens": torch.from_numpy(
+            rng.integers(0, cfg.vocab_size, (B, S + 3)).astype(np.int64))}
+    on = lambda b, d: {k: v[:, :S].to(d) for k, v in b.items()}
+    _close_trees(TT.forward_train(params, cfg, on(batch, cuda_device)),
+                 TT.forward_train(cpu, cfg, on(batch, "cpu")))
+    if not cfg.has_decoder:
+        return
+    lg, cg = TT.prefill(params, cfg, on(batch, cuda_device), cache_len=32)
+    lc, cc = TT.prefill(cpu, cfg, on(batch, "cpu"), cache_len=32)
+    _close_trees({"l": lg, "c": cg}, {"l": lc, "c": cc})
+    n_attn = cfg.n_periods * sum(s.kind == "attn" for s in cfg.pattern)
+    for pos in range(S, S + 3):
+        tok = batch["tokens"][:, pos:pos + 1]
+        n7 = decode_attn.launches
+        lg, cg, eg = TT.decode_step(params, cfg, tok.to(cuda_device), cg, pos)
+        assert decode_attn.launches - n7 == n_attn
+        lc, cc, ec = TT.decode_step(cpu, cfg, tok, cc, pos)
+        _close_trees({"l": lg, "e": eg, "c": cg}, {"l": lc, "e": ec, "c": cc})
+
+
 def _dense_problem(B, S, T, seed, dtype, device, per_row, density=0.6):
     """Seeded dense inputs with missing edges, a -inf and a NaN entry (both
     missing) and a duplicated source state (ties)."""

@@ -50,7 +50,8 @@ def _port_files():
     for mod in ("core/capacity.py", "core/contingency.py",
                 "core/multiapp.py", "core/online.py", "core/faults.py",
                 "runtime/straggler.py", "runtime/checkpoint.py",
-                "runtime/elastic.py", "sharding/population.py"):
+                "runtime/elastic.py", "sharding/population.py",
+                "models/ssm.py", "models/moe.py", "runtime/steps.py"):
         assert PORT / mod in files, mod
     return files
 
@@ -78,7 +79,9 @@ def test_import_in_fresh_interpreter_loads_no_jax_and_builds_nothing():
             "repro_torch.runtime.checkpoint, repro_torch.runtime.elastic, "
             "repro_torch.sharding.population, "
             "repro_torch.kernels.decode_attn.ops, "
-            "repro_torch.runtime.serve_engine, repro_torch.launch.serve\n"
+            "repro_torch.runtime.serve_engine, repro_torch.launch.serve, "
+            "repro_torch.models.ssm, repro_torch.models.moe, "
+            "repro_torch.runtime.steps\n"
             "from repro_torch.kernels import _build\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
@@ -140,8 +143,9 @@ def test_orchestrator_entry_points_default_to_cuda_and_raise_without_it():
 
 
 def test_serving_entry_points_default_to_cuda_and_raise_without_it():
-    """``SplitServeEngine``, ``init_model`` and ``launch/serve.py`` run on
-    ``cuda:0`` unless told otherwise, and raise where there is no card."""
+    """``SplitServeEngine``, ``init_model``, ``init_caches`` and
+    ``launch/serve.py`` run on ``cuda:0`` unless told otherwise, for every
+    layer kind, and raise where there is no card."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: device=None resolves to it")
     from repro_torch.configs import get
@@ -154,7 +158,12 @@ def test_serving_entry_points_default_to_cuda_and_raise_without_it():
                                           cache_len=8),
                  lambda: TT.init_model(cfg),
                  lambda: TT.init_caches(cfg, 2, 8),
-                 lambda: serve.main(["--arch", "qwen3-4b"])):
+                 lambda: TT.init_model(get("mamba2-1.3b", reduced=True)),
+                 lambda: TT.init_caches(get("jamba-1.5-large-398b",
+                                            reduced=True), 2, 8),
+                 lambda: serve.main(["--arch", "qwen3-4b"]),
+                 lambda: serve.main(["--arch", "mamba2-1.3b"]),
+                 lambda: serve.main(["--arch", "mixtral-8x22b"])):
         with pytest.raises(RuntimeError, match="cuda"):
             call()
 

@@ -40,6 +40,7 @@ from repro.models import layers as RL
 from repro.models import transformer as RT
 
 from repro_torch.configs import ARCH_NAMES, get
+from repro_torch.configs.base import LayerSpec
 from repro_torch.convert import transformer_params_from
 from repro_torch.kernels.decode_attn import ops as attn_ops
 from repro_torch.kernels.decode_attn.ops import decode_attn
@@ -481,34 +482,72 @@ def test_decode_step_matches_reference(variant):
                                   np.asarray(c_r["l0"]["pos"]))
 
 
-@pytest.mark.parametrize("arch", ["qwen3-4b", "phi3-medium-14b",
-                                  "internvl2-2b", "granite-34b"])
-def test_init_model_and_caches_mirror_reference_tree(arch):
-    """Same tree, shapes and dtypes as the reference's params and caches."""
-    ref_cfg, cfg = ref_get(arch, reduced=True), get(arch, reduced=True)
-    params_r = RT.init_model(jax.random.PRNGKey(0), ref_cfg)
+def _shape_dtypes(tree):
+    return [(jax.tree_util.keystr(p), tuple(x.shape),
+             str(x.dtype).replace("torch.", ""))
+            for p, x in jax.tree_util.tree_flatten_with_path(tree)[0]]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", REF_ARCH_NAMES)
+def test_init_model_and_caches_mirror_reference_tree(arch, dtype):
+    """Same tree, shapes and dtypes as the reference's params and caches,
+    for every architecture (attention, SSM, MoE, hybrid, encoder-only):
+    the SSM decay / skip terms and the router stay float32 in bf16."""
+    ref_cfg = dataclasses.replace(ref_get(arch, reduced=True), dtype=dtype)
+    cfg = dataclasses.replace(get(arch, reduced=True), dtype=dtype)
+    params_r = jax.eval_shape(lambda: RT.init_model(jax.random.PRNGKey(0),
+                                                    ref_cfg))
     params = TT.init_model(cfg, seed=0, device=CPU)
-    flat_r = jax.tree_util.tree_flatten_with_path(params_r)[0]
-    flat_t = jax.tree_util.tree_flatten_with_path(params)[0]
-    assert [(jax.tree_util.keystr(p), tuple(x.shape)) for p, x in flat_r] == \
-        [(jax.tree_util.keystr(p), tuple(x.shape)) for p, x in flat_t]
+    assert _shape_dtypes(params) == _shape_dtypes(params_r)
     assert TT.param_count(params) == RT.param_count(params_r)
     c_r = RT.init_caches(ref_cfg, 2, 8)
     c_t = TT.init_caches(cfg, 2, 8, device=CPU)
-    assert jax.tree.map(lambda x: (tuple(x.shape), str(x.dtype)), c_r) == \
-        jax.tree.map(lambda x: (tuple(x.shape),
-                                str(x.dtype).replace("torch.", "")), c_t)
-    assert (c_t["l0"]["pos"] == -1).all()
+    assert _shape_dtypes(c_t) == _shape_dtypes(c_r)
+    for i, spec in enumerate(cfg.pattern):
+        if spec.kind == "attn":
+            assert (c_t[f"l{i}"]["pos"] == -1).all()
+        else:
+            assert not c_t[f"l{i}"]["state"].any()
 
 
-@pytest.mark.parametrize("arch", ["mamba2-1.3b", "jamba-1.5-large-398b",
-                                  "mixtral-8x22b", "arctic-480b",
-                                  "hubert-xlarge"])
-def test_unported_layer_kinds_raise(arch):
-    """SSM and MoE layers name the later slice; encoder-only refuses."""
-    cfg = get(arch, reduced=True)
-    with pytest.raises(ValueError, match="later slice|encoder-only"):
-        TT.init_model(cfg, device=CPU)
+def test_init_model_rejects_unknown_layer_kinds():
+    cfg = get("qwen3-4b", reduced=True)
+    for spec in (LayerSpec("conv", "dense"), LayerSpec("attn", "sparse")):
+        with pytest.raises(ValueError, match="unknown"):
+            TT.init_model(dataclasses.replace(cfg, pattern=(spec,)),
+                          device=CPU)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "mixtral-8x22b",
+                                  "arctic-480b"])
+def test_transformer_params_from_carries_ssm_and_moe_leaves(arch):
+    """A bf16 reference tree with SSM and MoE layers: every leaf comes
+    across bit for bit in its own dtype (A_log, D, dt_bias and the router
+    float32), and a MoE key the port does not read raises."""
+    ref_cfg = dataclasses.replace(ref_get(arch, reduced=True),
+                                  dtype="bfloat16")
+    cfg = dataclasses.replace(get(arch, reduced=True), dtype="bfloat16")
+    pnp = jax.tree.map(np.asarray,
+                       RT.init_model(jax.random.PRNGKey(1), ref_cfg))
+    got = transformer_params_from(pnp, cfg, device="cpu")
+    flat_r = jax.tree_util.tree_flatten_with_path(pnp)[0]
+    flat_t = jax.tree_util.tree_flatten_with_path(got)[0]
+    assert [jax.tree_util.keystr(p) for p, _ in flat_t] == \
+        [jax.tree_util.keystr(p) for p, _ in flat_r]
+    for (path, want), (_, t) in zip(flat_r, flat_t):
+        name = jax.tree_util.keystr(path)
+        f32 = any(k in name for k in ("A_log", "'D'", "dt_bias", "router"))
+        assert t.dtype == (torch.float32 if f32 else torch.bfloat16), name
+        np.testing.assert_array_equal(t.float().numpy(),
+                                      want.astype(np.float32))
+    moe = next(f"l{i}" for i, s in enumerate(cfg.pattern) if s.mlp == "moe"
+               ) if cfg.n_experts else None
+    if moe is not None:
+        pnp["layers"][moe]["mlp"]["w_extra"] = pnp["layers"][moe]["mlp"][
+            "w_up"]
+        with pytest.raises(ValueError, match="keys"):
+            transformer_params_from(pnp, cfg, device="cpu")
 
 
 def test_transformer_params_from_checks_the_tree():
@@ -519,6 +558,14 @@ def test_transformer_params_from_checks_the_tree():
                                  if k != "lm_head"}, cfg, device="cpu")
     with pytest.raises(ValueError, match="exit heads"):
         transformer_params_from({**pnp, "exits": {}}, cfg, device="cpu")
+    bad = jax.tree.map(lambda x: x, pnp)
+    bad["layers"]["l0"]["mix"]["wz"] = bad["layers"]["l0"]["mix"]["wq"]
+    with pytest.raises(ValueError, match="keys"):
+        transformer_params_from(bad, cfg, device="cpu")
+    bad = jax.tree.map(lambda x: x, pnp)
+    bad["layers"]["l0"]["norm1"] = bad["layers"]["l0"]["norm1"]["scale"]
+    with pytest.raises(ValueError, match="keys"):
+        transformer_params_from(bad, cfg, device="cpu")
     bf = transformer_params_from(
         jax.tree.map(lambda x: np.asarray(jnp.asarray(x, jnp.bfloat16)),
                      params_r), cfg, device="cpu")

@@ -181,6 +181,54 @@ def test_engine_with_placement_matches_reference(setup, app, alpha, delta):
     assert got.stats.energy_j > 0 and got.stats.blocks_saved > 0
 
 
+def _arch_setup(arch):
+    cfg_r = ref_get(arch, reduced=True)
+    params_r = RT.init_model(jax.random.PRNGKey(0), cfg_r)
+    cfg = get(arch, reduced=True)
+    params = transformer_params_from(jax.tree.map(np.asarray, params_r), cfg,
+                                     device="cpu")
+    return cfg_r, params_r, cfg, params
+
+
+def _median_exit_conf(cfg_r, params_r, batch):
+    """The median confidence of each early exit over one decode step of
+    ``batch`` seeded tokens at position 0 (the reference's gate)."""
+    from repro.kernels.ee_gate.ops import ee_gate as ref_ee_gate
+    toks = np.random.default_rng(3).integers(0, cfg_r.vocab_size,
+                                             (batch, 1)).astype(np.int32)
+    _, _, exits = RT.decode_step(params_r, cfg_r, jax.numpy.asarray(toks),
+                                 RT.init_caches(cfg_r, batch, 8),
+                                 jax.numpy.int32(0))
+    return [float(np.median(np.asarray(ref_ee_gate(exits[f"exit_{p}"])[0])))
+            for p in cfg_r.exit_layer_list]
+
+
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "mixtral-8x22b"])
+def test_engine_on_ssm_and_moe_matches_reference(arch):
+    """Twin engines on the reduced Mamba-2 (SSM states carried across
+    steps and into recycled slots) and Mixtral (MoE, a 16-slot sliding
+    window that wraps): placement, a failure and a recovery mid-serving,
+    and the same tokens, exits and stats after every step."""
+    setup = _arch_setup(arch)
+    thresholds = _median_exit_conf(setup[0], setup[1], 16)
+    ref, got, nw = _placed_twins(setup, thresholds=thresholds, batch_size=3)
+    reqs = _submit(ref, got, 7, 5)
+    victim = ref.placement.placement[-1]
+    assert victim != nw.source_node
+    for step in range(60):
+        if not (any(ref.slots) or ref.queue):
+            break
+        if step in (4, 9):
+            for eng in (ref, got):
+                (eng.fail_node if step == 4 else eng.recover_node)(victim)
+        ref.step()
+        got.step()
+        _assert_twins(ref, got, reqs, f"{arch} step {step}")
+    assert all(g.done for _, g in reqs)
+    assert got.pos > 16 and set(got.stats.exit_histogram) == {0, 1}
+    assert got.stats.replacements >= 2
+
+
 # ---------------------------------------------------------------------------
 # failover, contingency and degradation
 # ---------------------------------------------------------------------------
