@@ -78,12 +78,27 @@ before it and read just after:
                       hubert-xlarge's ``encode`` at full width in bf16;
   [serve_parity]      again for mamba2 (2 periods) and mixtral (1 period)
                       widths in float32: ``forward_train``, ``prefill`` and
-                      ``decode_step`` on CUDA against the CPU path.
+                      ``decode_step`` on CUDA against the CPU path;
+  [branchy]           the paper's DNNs at Table III widths in float32
+                      (B-LeNet, B-AlexNet at 227x227x3, B-ResNet-110):
+                      forward and ``infer`` at B = 256 against the CPU path
+                      (B6 once an exit), ``extract_profile`` through
+                      ``solve_fin`` on the paper scenario, B6 at the exits'
+                      [256, 10] and [4096, 10];
+  [branchy_train]     B-ResNet-110, 20 AdamW steps on synthetic images (the
+                      loss falls); B-LeNet 5 steps against the CPU path;
+  [train]             qwen3-4b at full width and depth (bf16, float32
+                      moments, ``remat="full"``) through ``train()``, 8
+                      steps at B = 4, S = 512;
+  [train_parity]      ``loss_fn``, its gradients and 3 train steps in
+                      float32 on CUDA against the CPU path (qwen3-4b widths
+                      at 2 layers, mamba2 and mixtral at 1 period), and a
+                      checkpoint / resume through ``train()``.
 
 It then times the kernels at their paths' shapes (B7 also at mixtral's
 heads over 4,096 slots), the plain PyTorch programs ``_ssd_scan``,
-``chunked_attention`` and ``_moe_gather`` at their paths' shapes
-([programs]), relaxes 2^20 scenario rows at population size, and prints
+``chunked_attention``, ``_moe_gather`` and ``chunked_cross_entropy``
+(forward plus backward) at their paths' shapes ([programs]), relaxes 2^20 scenario rows at population size, and prints
 the kernels JSON line followed by the final status line.  Every failing phase raises; without a CUDA card, or
 without the repository beside it, it exits non-zero and prints no result.
 
@@ -117,6 +132,7 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+T_START = time.perf_counter()
 
 #: H100 SXM published peaks (NVIDIA data sheet, dense, 700 W): device memory
 #: rate and the non-tensor-core float64 / float32 rates.
@@ -184,6 +200,22 @@ SSM_PROMPT = 4096                 # [serve_ssm]'s prefill, as [serve_moe]'s
 PREFILL_CASES = [("qwen3-4b", 3, 2, 64), ("mamba2-1.3b", None, 2, 300),
                  ("mixtral-8x22b", MOE_PERIODS, 1, 4200)]
 ENCODE_FRAMES = (2, 1024)         # hubert-xlarge encode batch, frames
+# [branchy]: the paper's DNNs at Table III widths, B-ResNet at ResNet-110
+BRANCHY_MODELS = (("b-lenet", {}), ("b-alexnet", {}),
+                  ("b-resnet", {"blocks_per_stage": 18}))
+BRANCHY_BATCH = 256
+BRANCHY_THRESHOLD = 0.9
+BRANCHY_GATE_SHAPES = ((256, 10), (4096, 10))   # B6 at the exits' [B, 10]
+BRANCHY_TRAIN_STEPS = 20
+LENET_PARITY_STEPS = 5
+# [train]: qwen3-4b full width and depth; [train_parity] in float32
+TRAIN_ARCH = "qwen3-4b"
+TRAIN_STEPS = 8
+TRAIN_BATCH = 4
+TRAIN_SEQ = 512
+TRAIN_PARITY = (("qwen3-4b", 2), ("mamba2-1.3b", 1), ("mixtral-8x22b", 1))
+TRAIN_PARITY_BATCH = 2
+TRAIN_PARITY_SEQ = 32
 CARD_SHAPES = [(1, 1, 4, 4), (64, 4, 5, 26), (8, 2, 23, 26), (4, 4, 8, 131)]
 # (case, B, L, N, G+1) of B1's launch plans, each checked to reach what it
 # names: a batch that is no multiple of the group, B = 1, more groups than
@@ -4415,6 +4447,517 @@ def attn_split_sweep(B, H, KV, D, dev, g):
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# The paper's branchy CNNs and the training path
+# ---------------------------------------------------------------------------
+
+def _tf32_on():
+    """Turn the global TF32 flags on and return a function that restores
+    them: the CNN and train paths must not depend on them."""
+    import torch
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+
+    def restore():
+        torch.backends.cudnn.allow_tf32, \
+            torch.backends.cuda.matmul.allow_tf32 = flags
+    return restore
+
+
+def branchy_gate_check(dev) -> float:
+    """B6 at the branchy exits' shapes against its plain version (conf to
+    a relative 1e-5, argmax equal, the same bits on a repeat call)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.ee_gate.ops import ee_gate, gate_plan
+    from repro_torch.kernels._build import sm_count
+    from repro_torch.kernels.ee_gate.ref import ee_gate_ref
+    err = 0.0
+    for B, V in BRANCHY_GATE_SHAPES:
+        x = torch.as_tensor(np.random.default_rng(B).normal(size=(B, V)) * 3,
+                            dtype=torch.float32, device=dev)
+        conf, arg = ee_gate(x)
+        again = ee_gate(x)
+        conf_p, arg_p = ee_gate_ref(x)
+        torch.cuda.synchronize()
+        rel = _rel_err(conf, conf_p)
+        tag = f"B6 {(B, V)} float32 P={gate_plan(B, V, sm_count(dev))}"
+        check(rel <= 1e-5, f"{tag}: conf off by {rel:.3g} relative")
+        check(torch.equal(arg, arg_p), f"{tag}: argmax differs")
+        check(torch.equal(conf, again[0]) and torch.equal(arg, again[1]),
+              f"{tag}: a repeat call gave other bits")
+        err = max(err, max_abs_err(conf, conf_p))
+        ms = _program_ms(lambda: ee_gate(x), 20)
+        plain = _program_ms(lambda: ee_gate_ref(x), 20)
+        lib = _program_ms(lambda: torch.softmax(x, -1).max(-1), 20)
+        nbytes = x.numel() * 4 + B * 8
+        bound = max(nbytes / HBM_BYTES_PER_S,
+                    4 * x.numel() / PEAK_OPS_PER_S["float32"]) * 1e3
+        log("branchy", f"{tag} (rows {V * 4} B apart: the scalar head and "
+            f"tail path): conf within {rel:.3g} relative, argmax equal, the "
+            f"same bits on a repeat call; device ms a call kernel {ms:.4f}, "
+            f"plain {plain:.4f}, library softmax(x).max(-1) {lib:.4f}, "
+            f"bound {bound:.6f} ms by bytes ({nbytes} B)")
+    return err
+
+
+def _branchy_pair(name, kw, seed, dev):
+    """A branchy model on ``dev`` and its copy on the CPU, same weights."""
+    from repro_torch.models.branchy import PAPER_MODELS
+    net = PAPER_MODELS[name](**kw).init(seed=seed, device=dev)
+    cpu = PAPER_MODELS[name](**kw).init(seed=seed, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in net.state_dict().items()})
+    return net, cpu
+
+
+def _branchy_macs(net) -> float:
+    """MACs of one image through every block and every exit head."""
+    pf = net.extract_profile()
+    return sum(pf.block_ops) + sum(e.ops for e in pf.exits)
+
+
+def _same_gate(net, lg, lc, pg, eg, pc, ec, thr, what):
+    """``infer`` on CUDA against the CPU path, on the samples whose
+    decision the forward's rounding cannot move: an exit taken is
+    compared where, at every gate before the last, the confidence from
+    each path's logits lies on the same side of the threshold and more
+    than 1e-6 from it; a prediction where, at the exit taken, both
+    paths' logits have the same argmax and top two probabilities more
+    than 1e-6 apart.  Requires half the samples compared.  Returns
+    (exits compared, predictions compared)."""
+    import torch
+    eb = net.exit_blocks()
+    B = lc[eb[0]].shape[0]
+    clear = torch.ones(B, dtype=torch.bool)
+    sure = []
+    for j, b in enumerate(eb):
+        ps = [torch.softmax(x, -1) for x in (lg[b].cpu(), lc[b])]
+        top = [p.topk(2, -1).values for p in ps]
+        sure.append((ps[0].argmax(-1) == ps[1].argmax(-1))
+                    & ((top[0][:, 0] - top[0][:, 1]) > 1e-6)
+                    & ((top[1][:, 0] - top[1][:, 1]) > 1e-6))
+        if j < len(eb) - 1:
+            d = [t[:, 0] - thr[j] for t in top]
+            clear &= (d[0] * d[1] > 0) & (d[0].abs() > 1e-6) \
+                & (d[1].abs() > 1e-6)
+    check(int(clear.sum()) * 2 >= B, f"{what}: only {int(clear.sum())} of "
+          f"{B} samples clear of the thresholds")
+    check(torch.equal(eg.cpu()[clear], ec[clear]),
+          f"{what}: exits differ from the CPU path")
+    pick = torch.stack(sure, 1).gather(1, ec.long()[:, None])[:, 0] & clear
+    check(torch.equal(pg.cpu()[pick], pc[pick]),
+          f"{what}: predictions differ from the CPU path")
+    return int(clear.sum()), int(pick.sum())
+
+
+def phase_branchy(dev, counters):
+    """The paper's DNNs at Table III widths, float32, seeded weights:
+    B-LeNet, B-AlexNet (227x227x3) and B-ResNet-110.  The forward and
+    ``infer`` at B = 256 on CUDA (the global TF32 flags turned on: the
+    models turn TF32 off for their own work) against the CPU path within
+    1e-4 x max|CPU|; B6 launched once an exit; ``extract_profile`` through
+    ``solve_fin`` on the paper scenario equal on CUDA and the CPU; B6 at
+    the exits' shapes; images/s, ms a batch against the bound by
+    operations at 67 TFLOP/s, device memory high-water."""
+    import numpy as np
+    import torch
+    import repro_torch as T
+    from repro_torch.kernels.ee_gate.ops import ee_gate
+    err = branchy_gate_check(dev)
+    B = BRANCHY_BATCH
+    rows, launches = {}, 0
+    restore = _tf32_on()
+    try:
+        for name, kw in BRANCHY_MODELS:
+            net, cpu = _branchy_pair(name, kw, 11, dev)
+            eb = net.exit_blocks()
+            thr = [BRANCHY_THRESHOLD] * (len(eb) - 1)
+            x_np = np.random.default_rng(5).normal(
+                size=(B,) + net.input_shape).astype(np.float32)
+            x = torch.from_numpy(x_np).to(dev)
+            _reset(counters)
+            torch.cuda.reset_peak_memory_stats()
+            with torch.no_grad():
+                lg, hg = net.apply(x)
+                pg, eg = net.infer(x, thr)
+            torch.cuda.synchronize()
+            n6 = ee_gate.launches
+            peak = torch.cuda.max_memory_allocated()
+            check(n6 == len(eb), f"[branchy] {name}: B6 launched {n6} times "
+                  f"for {len(eb)} exits")
+            launches += n6
+            check(torch.backends.cudnn.allow_tf32,
+                  f"[branchy] {name}: the caller's TF32 flag was not put back")
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                lc, hc = cpu.apply(torch.from_numpy(x_np))
+                pc, ec = cpu.infer(torch.from_numpy(x_np), thr)
+            t_cpu = time.perf_counter() - t0
+            worst = 0.0
+            for b, want in list(lc.items()) + [("features", hc)]:
+                got = (lg[b] if b != "features" else hg).cpu()
+                e = max_abs_err(got, want)
+                scale = float(want.abs().max())
+                check(e <= 1e-4 * scale, f"[branchy] {name} exit {b}: off by "
+                      f"{e:.3g} (> 1e-4 x max|CPU| = {1e-4 * scale:.3g})")
+                worst = max(worst, e / scale)
+            n_cmp, n_pred = _same_gate(net, lg, lc, pg, eg, pc, ec, thr,
+                                       f"[branchy] {name}")
+            used = np.bincount(eg.cpu().numpy(), minlength=len(eb)).tolist()
+            # the Plane-2 profile of the real network through FIN
+            pf = net.extract_profile()
+            nw = T.paper_scenario()
+            alpha = min(e.accuracy for e in pf.exits)
+            found = 0
+            for gamma, delta in ((10, 2e-3), (25, 5e-2)):
+                req = T.AppRequirements(alpha, delta)
+                got = T.solve_fin(nw, pf, req, gamma=gamma, device=dev)
+                want = T.solve_fin(nw, pf, req, gamma=gamma, device="cpu")
+                check(same_solution(got, want), f"[branchy] {name}: "
+                      f"solve_fin on its profile, gamma={gamma}: CUDA differs "
+                      f"from the CPU path")
+                found += got.found
+            macs = _branchy_macs(net)
+            with torch.no_grad():
+                fwd = cuda_ms(lambda: net.apply(x), 5, 1)
+                inf = cuda_ms(lambda: net.infer(x, thr), 5, 1)
+            bound = 2 * macs * B / PEAK_OPS_PER_S["float32"] * 1e3
+            rows[name] = dict(ms=fwd, infer_ms=inf, bound_ms=bound,
+                              images_s=B / (fwd * 1e-3), peak=peak)
+            log("branchy", f"{name} {kw or ''} ({sum(p.numel() for p in net.parameters())} "
+                f"parameters, {macs / 1e9:.4f} GMAC an image, blocks "
+                f"{[int(np.prod(s)) for s in _block_shapes(net)]}): forward "
+                f"and infer at B = {B} on CUDA within {worst:.3g} x max|CPU| "
+                f"of the CPU path (CPU pass {t_cpu:.3f} s); exits taken "
+                f"{used}, {n_cmp} samples clear of the thresholds "
+                f"{thr} compared, {n_pred} predictions; B6 launches {n6}; "
+                f"solve_fin on its profile equal on CUDA and the CPU "
+                f"({found} of 2 found); device ms a batch: forward {fwd:.4f} "
+                f"({B / (fwd * 1e-3):.1f} images/s), infer {inf:.4f}; "
+                f"bound {bound:.4f} ms by operations ({2 * macs * B:.4g} "
+                f"FLOP at 67 TFLOP/s float32), {bound / fwd:.1%} of the "
+                f"bound; max_memory_allocated {peak} B")
+            del net, cpu, lg, hg, x
+            torch.cuda.empty_cache()
+    finally:
+        restore()
+    return rows, launches, err
+
+
+def _block_shapes(net):
+    shape, out = net.input_shape, []
+    for blk in net.blocks:
+        shape = blk.out_shape(shape)
+        out.append(shape)
+    return out
+
+
+def _branchy_train_steps(net, x, y, steps, lr):
+    """``steps`` AdamW steps of the joint loss on one batch; the losses
+    and each step's wall (synchronized)."""
+    import torch
+    from repro_torch.optim import AdamW
+    params = dict(net.named_parameters())
+    opt = AdamW(lr=lr)
+    state = opt.init(params)
+    losses, walls = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        loss, grads = net.value_and_grad(x, y)
+        _, state = opt.update(grads, state, params)
+        losses.append(float(loss))
+        if x.is_cuda:
+            torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return losses, walls
+
+
+def phase_branchy_train(dev):
+    """B-ResNet-110 for 20 AdamW steps of ``BranchyModel.loss`` on
+    ``synthetic_images(0, 256, (32, 32, 3), 10)`` on CUDA (the loss
+    falls); then B-LeNet for 5 steps on CUDA against the CPU path, the
+    loss within a relative 1e-4 a step (the parameters' distance after is
+    logged: AdamW turns a gradient near zero whose sign the two paths
+    round apart into a step of +-lr)."""
+    import numpy as np
+    import torch
+    from repro_torch.data import synthetic_images
+    from repro_torch.models.branchy import b_resnet
+    restore = _tf32_on()
+    try:
+        net = b_resnet(blocks_per_stage=18).init(seed=12, device=dev)
+        x, y = synthetic_images(0, BRANCHY_BATCH, (32, 32, 3), 10)
+        x, y = torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
+        torch.cuda.reset_peak_memory_stats()
+        losses, walls = _branchy_train_steps(net, x, y, BRANCHY_TRAIN_STEPS,
+                                             1e-3)
+        peak = torch.cuda.max_memory_allocated()
+        check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+              f"[branchy_train] B-ResNet-110: the loss did not fall: "
+              f"{losses}")
+        ms = float(np.median(walls[1:])) * 1e3
+        bound = 6 * _branchy_macs(net) * BRANCHY_BATCH \
+            / PEAK_OPS_PER_S["float32"] * 1e3
+        log("branchy_train", f"B-ResNet-110 B = {BRANCHY_BATCH}, "
+            f"{BRANCHY_TRAIN_STEPS} AdamW steps (lr 1e-3): loss "
+            f"{losses[0]:.6g} -> {losses[-1]:.6g} ({[f'{v:.4g}' for v in losses]}); "
+            f"ms a step (host wall, synchronized, median of steps 1-"
+            f"{BRANCHY_TRAIN_STEPS - 1}) {ms:.3f}, first {walls[0] * 1e3:.3f}; "
+            f"{BRANCHY_BATCH / (ms * 1e-3):.1f} images/s; bound {bound:.4f} "
+            f"ms by operations (forward + backward = 3 x forward at 67 "
+            f"TFLOP/s float32), {bound / ms:.1%} of the bound; "
+            f"max_memory_allocated {peak} B")
+        del net, x, y
+        torch.cuda.empty_cache()
+        gpu, cpu = _branchy_pair("b-lenet", {}, 13, dev)
+        xs, ys = synthetic_images(1, BRANCHY_BATCH, (28, 28, 1), 10)
+        xs, ys = torch.from_numpy(xs), torch.from_numpy(ys)
+        lg, _ = _branchy_train_steps(gpu, xs.to(dev), ys.to(dev),
+                                     LENET_PARITY_STEPS, 1e-3)
+        lc, _ = _branchy_train_steps(cpu, xs, ys, LENET_PARITY_STEPS, 1e-3)
+        rel = max(abs(a - b) / abs(b) for a, b in zip(lg, lc))
+        check(rel <= 1e-4, f"[branchy_train] B-LeNet: CUDA losses {lg} vs "
+              f"CPU {lc} (relative {rel:.3g} > 1e-4)")
+        worst = _leafwise([p.detach() for p in gpu.parameters()],
+                          [p.detach() for p in cpu.parameters()], None,
+                          "[branchy_train] B-LeNet")
+        log("branchy_train", f"B-LeNet {LENET_PARITY_STEPS} AdamW steps on "
+            f"CUDA vs the CPU path: losses within {rel:.3g} relative a step "
+            f"({lg[0]:.6f} -> {lg[-1]:.6f}); parameters after within "
+            f"{worst:.3g} x max|CPU| a parameter")
+    finally:
+        restore()
+
+
+def _param_count(cfg) -> int:
+    """Parameters of ``cfg``'s model, from one period's shapes on the meta
+    device (nothing allocated)."""
+    import torch
+    from repro_torch.models import transformer as TT
+    gen = torch.Generator()
+    per = sum(x.numel() for i, s in enumerate(cfg.pattern)
+              for x in TT._tree_leaves(TT._layer_init(gen, cfg, s,
+                                                      torch.float32, "meta")))
+    d, V = cfg.d_model, cfg.padded_vocab
+    return (per * cfg.n_periods + V * d * (1 if cfg.tie_embeddings else 2)
+            + d * (1 + len(cfg.exit_layer_list)))
+
+
+def phase_train(dev):
+    """qwen3-4b at full width and depth (36 layers, bf16, float32 moments,
+    ``remat="full"``) through ``train()`` for 8 steps at B = 4, S = 512 on
+    the k-gram stream: finite losses, the last below the first; ms a step,
+    tokens/s and the memory high-water against 8 N tokens at 989 TFLOP/s.
+    Should the state not fit, the depth (never the width) is cut and
+    logged."""
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.runtime.train_loop import train
+    gc.collect()
+    torch.cuda.empty_cache()
+    restore = _tf32_on()
+    try:
+        for periods in (None, 24, 12):
+            cfg = _arch_cfg(TRAIN_ARCH, periods, remat="full")
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            try:
+                res = train(cfg, n_steps=TRAIN_STEPS, global_batch=TRAIN_BATCH,
+                            seq_len=TRAIN_SEQ, seed=0, log_every=0, device=dev)
+                break
+            except torch.cuda.OutOfMemoryError as e:
+                log("train", f"{cfg.n_layers} layers do not fit "
+                    f"({str(e)[:160]}); cutting depth")
+                gc.collect()
+                torch.cuda.empty_cache()
+        else:
+            raise PhaseFailed("[train] no depth fits")
+    finally:
+        restore()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    losses = res.losses
+    check(len(losses) == TRAIN_STEPS and all(np.isfinite(losses)),
+          f"[train] losses not finite: {losses}")
+    check(losses[-1] < losses[0], f"[train] the loss did not fall: {losses}")
+    N = _param_count(cfg)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    ms = float(np.median(res.step_times[1:])) * 1e3
+    bound = 8 * N * tokens / 989e12 * 1e3
+    state = N * 2 * 2 + N * 4 * 2
+    log("train", f"{TRAIN_ARCH} {cfg.n_layers} layers at full width "
+        f"({N} parameters, bf16, float32 moments, remat={cfg.remat}), "
+        f"{TRAIN_STEPS} steps at B = {TRAIN_BATCH}, S = {TRAIN_SEQ} "
+        f"through train() ({wall:.3f} s with the init): losses "
+        f"{[round(v, 4) for v in losses]}; ms a step (host wall to the "
+        f"loss, median of steps 1-{TRAIN_STEPS - 1}) {ms:.3f}, first "
+        f"{res.step_times[0] * 1e3:.3f}; {tokens / (ms * 1e-3):.1f} "
+        f"tokens/s; bound {bound:.3f} ms (8 N tokens = {8 * N * tokens:.4g} "
+        f"FLOP at 989 TFLOP/s bf16), {bound / ms:.1%} of the bound; "
+        f"max_memory_allocated {peak} B (params + grads + moments "
+        f"{state} B)")
+    return dict(ms=ms, bound_ms=bound, tokens_s=tokens / (ms * 1e-3),
+                peak=peak, ce_calls=1 + len(cfg.exit_layer_list))
+
+
+def _leafwise(a, b, tol, what):
+    """Two trees of float tensors (``a`` on the card, ``b`` on the CPU)
+    leaf by leaf, on the card a piece at a time (a CPU comparison of
+    mixtral's 2.4 G-element expert leaf would hold tens of GB): the worst
+    max|a - b| / max|b|, which must be within ``tol`` unless ``tol`` is
+    None."""
+    import torch
+    from repro_torch.optim.adamw import pieces, tree_leaves
+    worst = 0.0
+    for x, y in zip(tree_leaves(a), tree_leaves(b)):
+        y = y.to(x.device)
+        e = scale = 0.0
+        for px, py in zip(pieces(x), pieces(y)):
+            check(bool(torch.isfinite(px).all() and torch.isfinite(py).all()),
+                  f"{what}: a leaf is not finite")
+            e = max(e, float((px - py).abs().max()))
+            scale = max(scale, float(py.abs().max()))
+        del y
+        check(scale > 0 or e == 0, f"{what}: a leaf is zero on the CPU only")
+        worst = max(worst, e / scale if scale else 0.0)
+    check(tol is None or worst <= tol, f"{what}: a leaf off by {worst:.3g} "
+          f"x max|CPU| (> {tol})")
+    return worst
+
+
+def phase_train_parity(dev):
+    """In float32, on CUDA against the CPU path: ``loss_fn`` and its
+    gradients (1e-4 x max|CPU| a leaf), then 3 ``build_train_step`` steps
+    (loss and gradient norm within 1e-4 relative each step; the
+    parameters' distance after is logged), for qwen3-4b widths at 2
+    layers, mamba2-1.3b and mixtral widths at 1 period.  Then ``train()`` on the reduced qwen3-4b with a
+    checkpoint at step 4 and a resume to step 8 on CUDA, equal to the
+    uninterrupted run's losses within a relative 1e-5, a tolerance for any
+    backward that adds with atomics on the card (the embedding's sums its
+    rows in a fixed order); the count of bit-equal losses is logged."""
+    import gc
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.configs import get
+    from repro_torch.data import LMStreamConfig, SyntheticLMStream
+    from repro_torch.models import transformer as TT
+    from repro_torch.runtime import steps as S
+    from repro_torch.runtime.train_loop import batch_to, train
+    restore = _tf32_on()
+    try:
+        for arch, periods in TRAIN_PARITY:
+            cfg = _arch_cfg(arch, periods, dtype="float32", remat="full")
+            params = TT.init_model(cfg, seed=21, device=dev)
+            cpu = TT.tree_to(params, "cpu")
+            stream = SyntheticLMStream(LMStreamConfig(
+                cfg.vocab_size, TRAIN_PARITY_SEQ, TRAIN_PARITY_BATCH, seed=3))
+            b0 = stream.batch(0)
+            lg, gg = S.value_and_grad(lambda p: TT.loss_fn(
+                p, cfg, batch_to(b0, dev)), params)
+            t0 = time.perf_counter()
+            lc, gc_ = S.value_and_grad(lambda p: TT.loss_fn(
+                p, cfg, batch_to(b0, "cpu")), cpu)
+            t_cpu = time.perf_counter() - t0
+            rel = abs(float(lg) - float(lc)) / abs(float(lc))
+            check(rel <= 1e-5, f"[train_parity] {arch}: loss_fn {float(lg)} "
+                  f"vs CPU {float(lc)}")
+            g_worst = _leafwise(gg, gc_, 1e-4, f"[train_parity] {arch} "
+                                f"gradients")
+            del gg, gc_
+            step = S.build_train_step(cfg)
+            sg = {"params": params, "opt": S.make_optimizer(cfg).init(params)}
+            sc = {"params": cpu, "opt": S.make_optimizer(cfg).init(cpu)}
+            step_rel, t_steps = [], [0.0, 0.0]
+            for i in range(3):
+                t0 = time.perf_counter()
+                sg, mg = step(sg, batch_to(stream.batch(i), dev))
+                float(mg["loss"])
+                t1 = time.perf_counter()
+                sc, mc = step(sc, batch_to(stream.batch(i), "cpu"))
+                t_steps[0] += t1 - t0
+                t_steps[1] += time.perf_counter() - t1
+                for k in ("loss", "grad_norm"):
+                    r = abs(float(mg[k]) - float(mc[k])) / abs(float(mc[k]))
+                    check(r <= 1e-4, f"[train_parity] {arch} step {i}: {k} "
+                          f"{float(mg[k])} vs CPU {float(mc[k])}")
+                    step_rel.append(r)
+            p_worst = _leafwise(sg["params"], sc["params"], None, "")
+            log("train_parity", f"{arch} widths at {cfg.n_layers} layers, "
+                f"f32 ({TT.param_count(params)} parameters, exits "
+                f"{cfg.exit_layer_list}), B = {TRAIN_PARITY_BATCH}, S = "
+                f"{TRAIN_PARITY_SEQ}: loss_fn within {rel:.3g} relative, "
+                f"gradients within {g_worst:.3g} x max|CPU| a leaf (CPU pass "
+                f"{t_cpu:.3f} s); 3 train steps ({t_steps[0]:.3f} s on CUDA, "
+                f"{t_steps[1]:.3f} s on the CPU), losses and gradient norms "
+                f"within {max(step_rel):.3g} relative, parameters after "
+                f"within {p_worst:.3g} x max|CPU| a leaf")
+            del params, cpu, sg, sc, step
+            gc.collect()
+            torch.cuda.empty_cache()
+        cfg = get(TRAIN_ARCH, reduced=True)
+        kw = dict(global_batch=8, seq_len=64, seed=0, log_every=0, device=dev)
+        full = train(cfg, n_steps=8, **kw)
+        d = tempfile.mkdtemp(prefix="train_resume_")
+        try:
+            first = train(cfg, n_steps=4, ckpt_dir=d, ckpt_every=4, **kw)
+            second = train(cfg, n_steps=8, ckpt_dir=d, **kw)
+        finally:
+            shutil.rmtree(d, ignore_errors=True)
+        check(second.resumed_from == 4 and second.steps == 8,
+              f"[train_parity] resume started at {second.resumed_from}")
+        got = first.losses + second.losses
+        rel = max(abs(a - b) / abs(b) for a, b in zip(got, full.losses))
+        check(rel <= 1e-5, f"[train_parity] resumed losses {got} vs "
+              f"uninterrupted {full.losses}")
+        same = sum(a == b for a, b in zip(got, full.losses))
+        log("train_parity", f"reduced {TRAIN_ARCH} (f32) train() 8 steps "
+            f"on CUDA, checkpoint at 4 and a resume to 8: losses within "
+            f"{rel:.3g} relative of the uninterrupted run ({same} of 8 "
+            f"bit-equal; tolerance 1e-5); loss {full.losses[0]:.4f} -> {full.losses[-1]:.4f}")
+    finally:
+        restore()
+
+
+def ce_program_times(dev, calls):
+    """``chunked_cross_entropy`` forward plus backward at [train]'s shape
+    (qwen3-4b: B = 4, S = 512, d = 2,560, V_pad = 153,600, bf16 hiddens
+    and head, chunk 256): device ms a call against the bound of its 6 B S
+    d V FLOP at 989 TFLOP/s (forward 2, backward 4; the recompute of the
+    checkpointed chunk is the implementation's) and of its bytes."""
+    import numpy as np
+    import torch
+    from repro_torch.models.layers import chunked_cross_entropy
+    cfg = _arch_cfg(TRAIN_ARCH)
+    B, Sq, d, V = TRAIN_BATCH, TRAIN_SEQ, cfg.d_model, cfg.padded_vocab
+    gen = torch.Generator(device=dev).manual_seed(0)
+    h = torch.randn((B, Sq, d), generator=gen, device=dev).to(
+        torch.bfloat16).requires_grad_(True)
+    w = (torch.randn((d, V), generator=gen, device=dev) / d ** 0.5).to(
+        torch.bfloat16).requires_grad_(True)
+    labels = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (B, Sq)), device=dev)
+
+    def fwd_bwd():
+        loss = chunked_cross_entropy(h, w, labels, cfg.vocab_size)
+        return torch.autograd.grad(loss, (h, w))
+
+    torch.cuda.reset_peak_memory_stats()
+    ms = cuda_ms(fwd_bwd, 5, 2)
+    peak = torch.cuda.max_memory_allocated()
+    nbytes = 2 * (h.numel() + w.numel()) * 2 + labels.numel() * 8
+    row = _program_row("chunked_cross_entropy (forward + backward)", ms,
+                       calls, nbytes, 6 * B * Sq * d * V, 989e12, None)
+    log("programs", f"chunked_cross_entropy at [B, S, d, V_pad] = "
+        f"{[B, Sq, d, V]}: max_memory_allocated {peak} B (the full logits "
+        f"would be {B * Sq * V * 4} B)")
+    return row
+
+
 TIMES = ("chain", "dense", "kbest", "gate", "attn", "plan", "ingest",
          "serve")
 
@@ -4541,6 +5084,22 @@ def main(argv) -> int:
     check(launches_ssm["ee_gate"] > 0 and launches_moe["ee_gate"] > 0,
           "ee_gate: no launch on [serve_ssm] or [serve_moe]")
     rows.append(moe_row)
+    # the paper's branchy CNNs (B6 at the exits) and the training path
+    walls, t0 = {}, time.perf_counter()
+    _, launches_branchy, _ = phase_branchy(dev, counters)
+    check(launches_branchy > 0, "ee_gate: no launch on [branchy]")
+    walls["branchy"], t0 = time.perf_counter() - t0, time.perf_counter()
+    phase_branchy_train(dev)
+    walls["branchy_train"], t0 = time.perf_counter() - t0, time.perf_counter()
+    train_row = phase_train(dev)
+    walls["train"], t0 = time.perf_counter() - t0, time.perf_counter()
+    phase_train_parity(dev)
+    walls["train_parity"], t0 = time.perf_counter() - t0, time.perf_counter()
+    ce_program_times(dev, train_row["ce_calls"])
+    walls["programs ce"] = time.perf_counter() - t0
+    log("order", f"B6 launches on [branchy]: {launches_branchy}; phase "
+        f"walls (s): " + ", ".join(f"[{k}] {v:.1f}" for k, v in walls.items())
+        + f"; since the start {time.perf_counter() - T_START:.1f}")
     log("order", f"launches on [serve_ssm]: B6 {launches_ssm['ee_gate']}, "
         f"B7 {launches_ssm['decode_attn']}, B1 "
         f"{launches_ssm['banded_minplus_chain']}; on [serve_moe]: B6 "

@@ -6,7 +6,8 @@ or ``Config`` is handed over field by field, so both solve the same
 scenario; nothing here imports that implementation.  Arrays are copied as
 float64, so the port's graphs are built from byte-equal inputs.  A
 transformer's parameter tree (nested mappings of numpy arrays) becomes the
-port's parameters leaf by leaf (``transformer_params_from``).
+port's parameters leaf by leaf (``transformer_params_from``), and a
+branchy CNN's becomes its module state (``branchy_params_from``).
 """
 from __future__ import annotations
 
@@ -171,4 +172,45 @@ def transformer_params_from(params_np: Mapping, cfg, *,
         if n != cfg.n_periods:
             raise ValueError(f"layer stacks hold {n} periods, {cfg.name} "
                              f"has {cfg.n_periods}")
+    return out
+
+
+def _cnn_layer_state(tree: Mapping, prefix: str, device, out: dict) -> None:
+    """One CNN layer's reference parameters into ``out`` under the port's
+    state-dict names: a ``{w, b}`` layer (HWIO convolution weights become
+    OIHW, ``[in, out]`` dense weights ``[out, in]``), a residual block's
+    ``{c1, c2[, proj]}``, or ``{}``."""
+    if "w" not in tree:
+        for k in sorted(tree):
+            _cnn_layer_state(tree[k], f"{prefix}{k}.", device, out)
+        return
+    w = _tensor_from(tree["w"], device)
+    out[prefix + "w"] = (w.permute(3, 2, 0, 1) if w.dim() == 4
+                         else w.t()).contiguous()
+    out[prefix + "b"] = _tensor_from(tree["b"], device)
+
+
+def branchy_params_from(model, tree: Mapping, *,
+                        device: DeviceLike = None) -> dict:
+    """A ``BranchyModel``'s state dict from another implementation's
+    parameter tree (numpy arrays): ``{"blocks": [[layer, ...], ...],
+    "exits": {"<block>": [layer, ...]}}``, a layer ``{"w", "b"}`` (HWIO
+    convolutions, ``[in, out]`` dense), ``{"c1", "c2"[, "proj"]}`` for a
+    residual block or ``{}``.  Load it with ``model.load_state_dict``
+    after ``model.init``, which refuses a key or a shape the model does
+    not have; tensors land on ``device`` (``None``: ``cuda:0``, raising
+    without a card)."""
+    dev = resolve_device(device)
+    blocks, exits = tree["blocks"], tree["exits"]
+    if len(blocks) != len(model.blocks) or \
+            set(exits) != {str(b) for b in model.exit_blocks()}:
+        raise ValueError(f"parameter tree has {len(blocks)} blocks and exits "
+                         f"{sorted(exits)}; {model.name} has "
+                         f"{len(model.blocks)} and {model.exit_blocks()}")
+    out: dict = {}
+    heads = [(f"blocks.{i}.", blk) for i, blk in enumerate(blocks)]
+    heads += [(f"exits.{b}.", exits[b]) for b in exits]
+    for prefix, layers in heads:
+        for j, p in enumerate(layers):
+            _cnn_layer_state(p, f"{prefix}layers.{j}.", dev, out)
     return out

@@ -12,15 +12,18 @@ its output once to bf16, which is the reference's ``einsum(...).astype``;
 where the reference keeps the float32 result (the SwiGLU gate and up
 products, the LM heads' logits) the port asks for a float32 output
 (``matmul_f32``).  ``rmsnorm`` and ``apply_rope`` run in float32 and cast
-back.
+back.  ``cross_entropy`` and ``chunked_cross_entropy`` are the training
+losses; the second never holds the full sequence's logits.
 """
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 F32 = torch.float32
 
@@ -33,6 +36,21 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
 #: ``matmul_f32`` / ``bmm_f32`` upcast the operands instead.
 _MM_OUT_DTYPE = "dtype" in torch.ops.aten.mm.overloads()
 _BMM_OUT_DTYPE = "dtype" in torch.ops.aten.bmm.overloads()
+
+
+@contextlib.contextmanager
+def no_tf32():
+    """Float32 convolutions and matmuls in full float32 inside the block;
+    the caller's TF32 settings come back after it."""
+    cudnn = torch.backends.cudnn.allow_tf32
+    mm = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = cudnn
+        torch.backends.cuda.matmul.allow_tf32 = mm
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -57,8 +75,11 @@ def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         return torch.matmul(x, w)
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
-    if x.is_cuda and _MM_OUT_DTYPE:
-        out = torch.mm(x2, w, out_dtype=F32)
+    if x.is_cuda and _MM_OUT_DTYPE and x.dtype == w.dtype:
+        if _needs_grad(x, w):
+            out = _MatmulF32.apply(x2, w, False)
+        else:
+            out = torch.mm(x2, w, out_dtype=F32)
     else:
         out = torch.mm(x2.to(F32), w.to(F32))
     return out.reshape(*lead, w.shape[-1])
@@ -69,9 +90,42 @@ def bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     b [E, K, N] -> [E, M, N] float32."""
     if a.dtype == F32 and b.dtype == F32:
         return torch.bmm(a, b)
-    if a.is_cuda and _BMM_OUT_DTYPE:
+    if a.is_cuda and _BMM_OUT_DTYPE and a.dtype == b.dtype:
+        if _needs_grad(a, b):
+            return _MatmulF32.apply(a, b, True)
         return torch.bmm(a, b, out_dtype=F32)
     return torch.bmm(a.to(F32), b.to(F32))
+
+
+def _needs_grad(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and (a.requires_grad or b.requires_grad)
+
+
+class _MatmulF32(torch.autograd.Function):
+    """``mm`` / ``bmm`` of two half-precision CUDA operands with a float32
+    output, differentiable (PyTorch defines no derivative for the
+    ``out_dtype`` overloads).  The backward rounds the float32 cotangent to
+    the operands' dtype and runs its two products in that dtype with
+    float32 accumulation, as mixed-precision training does; the reference
+    multiplies the float32 cotangent in float32.  Float32 models never
+    come here."""
+
+    @staticmethod
+    def forward(ctx, a, b, batched: bool):
+        ctx.save_for_backward(a, b)
+        ctx.batched = batched
+        if batched:
+            return torch.bmm(a, b, out_dtype=F32)
+        return torch.mm(a, b, out_dtype=F32)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        g = g.to(a.dtype)
+        mm = torch.bmm if ctx.batched else torch.mm
+        ga = mm(g, b.transpose(-1, -2)) if ctx.needs_input_grad[0] else None
+        gb = mm(a.transpose(-1, -2), g) if ctx.needs_input_grad[1] else None
+        return ga, gb, None
 
 
 # ---------------------------------------------------------------------------
@@ -152,7 +206,10 @@ def embed_init(gen: torch.Generator, vocab_padded: int, d_model: int, dtype,
 
 
 def embed_apply(params: dict, tokens: torch.Tensor) -> torch.Tensor:
-    return params["table"][tokens]
+    # ``F.embedding``, not ``table[tokens]``: the same rows, and its backward
+    # sums each row's gradient in a fixed order, where an indexing's
+    # backward (index_put with accumulate) adds with atomics on the CPU
+    return F.embedding(tokens, params["table"])
 
 
 def lm_head_init(gen: torch.Generator, d_model: int, vocab_padded: int,
@@ -168,3 +225,66 @@ def lm_head_apply(params: dict, x: torch.Tensor, vocab_size: int
     if logits.shape[-1] != vocab_size:
         logits[..., vocab_size:] = -math.inf
     return logits
+
+
+# ---------------------------------------------------------------------------
+# Losses
+# ---------------------------------------------------------------------------
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  z_loss: float = 0.0) -> torch.Tensor:
+    """Mean CE over all positions; logits float32 [..., V], labels int
+    [...]."""
+    lse = torch.logsumexp(
+        torch.where(torch.isfinite(logits), logits, -1e30), dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    loss = (lse - gold).mean()
+    if z_loss:
+        loss = loss + z_loss * (lse ** 2).mean()
+    return loss
+
+
+def _ce_chunk(h: torch.Tensor, head_w: torch.Tensor, labels: torch.Tensor,
+              vocab_size: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(sum of CE over the chunk's labelled positions, their count)."""
+    logits = matmul_f32(h, head_w)
+    V = logits.shape[-1]
+    if V != vocab_size:
+        pad = torch.arange(V, device=logits.device) >= vocab_size
+        logits = logits.masked_fill(pad, -1e30)
+    with torch.no_grad():                       # the reference's stop_gradient
+        m = logits.max(dim=-1).values
+    lse = m + torch.log(torch.exp(logits - m[..., None]).sum(dim=-1))
+    gold = torch.gather(logits, -1, labels.clamp_min(0)[..., None])[..., 0]
+    valid = (labels >= 0).to(F32)
+    return ((lse - gold) * valid).sum(), valid.sum()
+
+
+def chunked_cross_entropy(h: torch.Tensor, head_w: torch.Tensor,
+                          labels: torch.Tensor, vocab_size: int,
+                          *, chunk: int = 256) -> torch.Tensor:
+    """Mean CE without materializing full-sequence logits.
+
+    ``h``: pre-head hidden states [B, S, d]; ``head_w``: [d, V_pad];
+    labels [B, S] (-1: no label).  The sequence is cut into chunks (h
+    padded with zeros and the labels with -1 to a multiple of ``chunk``);
+    each chunk's float32 logits [B, chunk, V_pad] live only inside its
+    body, which runs under ``torch.utils.checkpoint`` (the reference's
+    ``jax.checkpoint`` over a scan) and is recomputed in the backward.
+    The gold logit is gathered, which selects the same float as the
+    reference's one-hot contraction.
+    """
+    B, S, _ = h.shape
+    labels = labels.long()
+    if S % chunk:
+        pad = chunk - S % chunk
+        h = F.pad(h, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad), value=-1)
+    tot = torch.zeros((), dtype=F32, device=h.device)
+    cnt = torch.zeros((), dtype=F32, device=h.device)
+    for hc, lc in zip(h.split(chunk, dim=1), labels.split(chunk, dim=1)):
+        t, c = checkpoint(_ce_chunk, hc, head_w, lc, vocab_size,
+                          use_reentrant=False, preserve_rng_state=False)
+        tot = tot + t
+        cnt = cnt + c
+    return tot / torch.clamp(cnt, min=1.0)

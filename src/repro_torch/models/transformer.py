@@ -18,19 +18,25 @@ Entry points:
   encode(params, cfg, batch)         -> final logits (encoder-only archs)
   prefill(params, cfg, batch, cache_len) -> (logits_last, caches)
   decode_step(params, cfg, tokens, caches, pos) -> (logits, caches, exits)
+  loss_fn(params, cfg, batch)        -> the joint training loss
 
 The reference scans a segment with ``lax.scan``; the port loops over the
-periods, and each period reads views of the stacked parameters and caches.
-The reference's ``_sp_constraint`` (sequence-parallel sharding) and
-``_remat`` (activation checkpointing) are sharding and training-memory
-policies, left out of the forward; they return with the sharding context
-and training (ROADMAP A.6), and so does ``loss_fn``.
+periods, and each period reads views of the stacked parameters and caches
+(the full-sequence forward takes them with one ``unbind`` a stack, see
+``_periods``).  ``_remat`` is the reference's activation checkpointing,
+through ``torch.utils.checkpoint`` around each period (and each layer for
+``remat="layer"``), applied only where a gradient is taken.  The
+reference's ``_sp_constraint`` (sequence-parallel sharding) waits for the
+sharding context.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, List, Tuple
 
 import torch
+from torch.utils.checkpoint import (checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from .._device import DeviceLike, resolve_device
 from ..configs.base import ArchConfig, LayerSpec
@@ -38,8 +44,9 @@ from . import attention as ATT
 from . import moe as MOE
 from . import ssm as SSM
 from .early_exit import exit_head_apply, exit_head_init
-from .layers import (dtype_of, embed_apply, embed_init, lm_head_apply,
-                     lm_head_init, mlp_apply, mlp_init, rmsnorm, rmsnorm_init)
+from .layers import (chunked_cross_entropy, dtype_of, embed_apply,
+                     embed_init, lm_head_apply, lm_head_init, mlp_apply,
+                     mlp_init, rmsnorm, rmsnorm_init, scalar)
 
 
 def _check_spec(cfg: ArchConfig, spec: LayerSpec) -> None:
@@ -171,18 +178,75 @@ def _ffn(cfg: ArchConfig, spec: LayerSpec, p: dict, h: torch.Tensor
     return h + MOE.moe_apply(p["mlp"], cfg, hn)
 
 
+def _periods(stacked: dict) -> List[dict]:
+    """Every period's parameter tree, each leaf taken from its stack by one
+    ``unbind``: the backward of an ``unbind`` writes the stack's gradient
+    once, where a select a period would build a zero tensor of the whole
+    stack for each period."""
+    n = _tree_leaves(stacked)[0].shape[0]
+    parts = _tree_map(lambda x: x.unbind(0), stacked)
+    return [_tree_map(lambda t: t[p], parts) for p in range(n)]
+
+
 def _period_apply(cfg: ArchConfig, pp: dict, h: torch.Tensor,
                   positions: torch.Tensor) -> torch.Tensor:
     for i, spec in enumerate(cfg.pattern):
-        h = _one_layer(cfg, spec, pp[f"l{i}"], h, positions)
+        fn = functools.partial(_one_layer, cfg, spec)
+        if cfg.remat == "layer" and len(cfg.pattern) > 1:
+            # a checkpoint a layer inside the period's: the backward of a
+            # period keeps one layer's intermediates live
+            fn = _checkpointed(fn)
+        h = fn(pp[f"l{i}"], h, positions)
     return h
 
 
-def _run_segment(cfg: ArchConfig, stacked: dict, a: int, b: int,
+def _checkpointed(fn, context_fn=None):
+    """``fn`` under ``torch.utils.checkpoint`` (nothing saved inside but
+    what ``context_fn``'s policy keeps) where a gradient is being taken,
+    ``fn`` itself elsewhere."""
+    kw = {} if context_fn is None else {"context_fn": context_fn}
+
+    def run(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False, **kw)
+    return run
+
+
+def _dot_ops() -> list:
+    """The matmul operators whose outputs ``remat="dots"`` saves (the
+    reference's ``checkpoint_dots``)."""
+    aten = torch.ops.aten
+    ops = [aten.mm.default, aten.bmm.default, aten.addmm.default]
+    for op in (aten.mm, aten.bmm):
+        if "dtype" in op.overloads():
+            ops.append(op.dtype)
+    return ops
+
+
+def _remat(cfg: ArchConfig, fn):
+    """Activation checkpointing of a period body, following ``cfg.remat``:
+    ``none``; ``full`` / ``layer`` (nothing saved inside the period;
+    ``layer`` adds per-layer checkpoints in ``_period_apply``); ``dots``
+    (the matmul outputs saved, the rest recomputed)."""
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat in ("full", "layer"):
+        return _checkpointed(fn)
+    if cfg.remat == "dots":
+        return _checkpointed(fn, functools.partial(
+            create_selective_checkpoint_contexts, _dot_ops()))
+    raise ValueError(f"{cfg.name}: unknown remat policy {cfg.remat!r}")
+
+
+def _run_segment(cfg: ArchConfig, periods: List[dict], a: int, b: int,
                  h: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
-    """Periods [a, b) of the stacked parameters, in order."""
+    """Periods [a, b) of ``_periods(params["layers"])``, in order, each
+    under ``cfg.remat``."""
+    body = _remat(cfg, functools.partial(_period_apply, cfg))
     for p in range(a, b):
-        h = _period_apply(cfg, _period(stacked, p), h, positions)
+        h = body(periods[p], h, positions)
     return h
 
 
@@ -220,9 +284,10 @@ def forward_train(params, cfg: ArchConfig, batch: dict
     h = _embed_inputs(params, cfg, batch)
     positions = _positions(h)
     head = _lm_head_params(params, cfg)
+    periods = _periods(params["layers"])
     out: Dict[str, torch.Tensor] = {}
     for a, b in _segments(cfg):
-        h = _run_segment(cfg, params["layers"], a, b, h, positions)
+        h = _run_segment(cfg, periods, a, b, h, positions)
         if b < cfg.n_periods:
             out[f"exit_{b}"] = exit_head_apply(params["exits"][f"exit_{b}"],
                                                cfg, h, head)
@@ -242,14 +307,44 @@ def forward_hiddens(params, cfg: ArchConfig, batch: dict
     head instead of logits."""
     h = _embed_inputs(params, cfg, batch)
     positions = _positions(h)
+    periods = _periods(params["layers"])
     out: Dict[str, torch.Tensor] = {}
     for a, b in _segments(cfg):
-        h = _run_segment(cfg, params["layers"], a, b, h, positions)
+        h = _run_segment(cfg, periods, a, b, h, positions)
         if b < cfg.n_periods:
             ep = params["exits"][f"exit_{b}"]
             out[f"exit_{b}"] = rmsnorm(ep["norm"], h, cfg.norm_eps)
     out["final"] = rmsnorm(params["final_norm"], h, cfg.norm_eps)
     return out
+
+
+def loss_fn(params, cfg: ArchConfig, batch: dict, *,
+            exit_weight: float = 0.3, ce_chunk: int = 256) -> torch.Tensor:
+    """BranchyNet-style joint loss: CE at the final head plus
+    ``exit_weight`` times each exit's, over their weight sum.  ``batch``
+    is ``forward_hiddens``'s plus "labels" [B, S] (-1: no label).  Uses
+    ``chunked_cross_entropy``, so full-sequence logits never exist."""
+    hiddens = forward_hiddens(params, cfg, batch)
+    labels = batch["labels"]
+    head = _lm_head_params(params, cfg)
+
+    def head_w(name):
+        if name == "final":
+            return head["w"]
+        ep = params["exits"][name]
+        return ep["head"]["w"] if "head" in ep else head["w"]
+
+    total = chunked_cross_entropy(hiddens["final"], head_w("final"), labels,
+                                  cfg.vocab_size, chunk=ce_chunk)
+    wsum = 1.0
+    for name, hh in hiddens.items():
+        if name != "final":
+            total = total + exit_weight * chunked_cross_entropy(
+                hh, head_w(name), labels, cfg.vocab_size, chunk=ce_chunk)
+            wsum += exit_weight
+    # a tensor divisor: a CUDA tensor over a Python scalar is a multiply by
+    # its rounded reciprocal
+    return total / scalar(wsum, total.device)
 
 
 # ---------------------------------------------------------------------------

@@ -14,13 +14,16 @@ Writes go to a temp dir + atomic rename, so a crash mid-save never corrupts
 the latest checkpoint.  ``restore_latest`` resumes from the newest complete
 checkpoint; damaged or partial directories are skipped.
 
-A tree is nested dicts, lists and tuples whose leaves are numpy arrays,
-scalars or torch tensors (saved through ``.detach().cpu()``).  It flattens
-as jax flattens a pytree: dict keys in sorted order, ``None`` leaves
-dropped, and each leaf keyed by the ``/``-joined path of its dict keys and
-sequence indices.  bfloat16 leaves are stored as a ``uint16`` view under the
-dtype string ``"bfloat16"``; :func:`load_arrays` and :func:`restore` return
-that ``uint16`` array (view it as ``torch.bfloat16``).
+A tree is nested dicts, lists, tuples and NamedTuples whose leaves are
+numpy arrays, scalars or torch tensors (saved through ``.detach().cpu()``).
+It flattens as jax flattens a pytree: dict keys in sorted order, a
+NamedTuple's fields in field order, ``None`` leaves dropped, and each leaf
+keyed by the ``/``-joined path of its dict keys, field names and sequence
+indices (an ``AdamWState`` gives ``opt/step``, ``opt/mu/...``,
+``opt/nu/...``, as the reference names it).  bfloat16 leaves are stored
+as a ``uint16`` view under the dtype string ``"bfloat16"``;
+:func:`load_arrays` and :func:`restore` return that ``uint16`` array
+(view it as ``torch.bfloat16``).
 """
 from __future__ import annotations
 
@@ -49,14 +52,22 @@ ARRAYS = "arrays.npz.zst"
 _ZSTD_MAGIC = b"\x28\xb5\x2f\xfd"
 
 
+def _is_namedtuple(x) -> bool:
+    return isinstance(x, tuple) and hasattr(type(x), "_fields")
+
+
 def _leaves(tree, prefix: Tuple[str, ...] = ()):
-    """(path, leaf) pairs in jax's flatten order: sorted dict keys, sequence
-    order, ``None`` dropped."""
+    """(path, leaf) pairs in jax's flatten order: sorted dict keys, a
+    NamedTuple's fields in field order and named by field, sequence order,
+    ``None`` dropped."""
     if tree is None:
         return
     if isinstance(tree, dict):
         for k in sorted(tree):
             yield from _leaves(tree[k], prefix + (str(k),))
+    elif _is_namedtuple(tree):
+        for k in tree._fields:
+            yield from _leaves(getattr(tree, k), prefix + (k,))
     elif isinstance(tree, (list, tuple)):
         for i, v in enumerate(tree):
             yield from _leaves(v, prefix + (str(i),))
@@ -85,11 +96,14 @@ def _flatten(tree) -> List[Tuple[str, np.ndarray, str]]:
 
 def _unflatten(like, leaves):
     """``like``'s structure with its leaves taken in order from ``leaves``
-    (dicts come back in sorted key order, as jax rebuilds them)."""
+    (dicts come back in sorted key order, as jax rebuilds them; a
+    NamedTuple comes back as its own type)."""
     if like is None:
         return None
     if isinstance(like, dict):
         return {k: _unflatten(like[k], leaves) for k in sorted(like)}
+    if _is_namedtuple(like):
+        return type(like)(*(_unflatten(v, leaves) for v in like))
     if isinstance(like, (list, tuple)):
         out = [_unflatten(v, leaves) for v in like]
         return out if isinstance(like, list) else tuple(out)

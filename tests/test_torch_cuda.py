@@ -1083,3 +1083,85 @@ def test_churn_orchestrator_on_card_equals_cpu_path(cuda_device):
     assert runs[1][0]._overlap_used
     assert quant_signature_rows.launches > b2
     assert banded_minplus_chain.launches > b1
+
+
+# ---------------------------------------------------------------------------
+# The branchy CNNs and the training path
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("B,V", [(256, 10), (4096, 10), (133, 10), (7, 9),
+                                 (200, 13)])
+def test_ee_gate_kernel_at_branchy_shapes_on_card(cuda_device, B, V):
+    """B6 at the branchy exits' [B, n_classes]: B above the SM count (one
+    row a block) and rows 40 bytes apart, off the 16-byte grid (the
+    kernel's scalar head and tail)."""
+    assert gate_plan(B, V, sm_count(cuda_device)) >= 1
+    x = torch.as_tensor(np.random.default_rng(B).normal(size=(B, V)) * 3,
+                        dtype=torch.float32, device=cuda_device)
+    n0 = ee_gate.launches
+    conf, arg = ee_gate(x)
+    assert ee_gate.launches == n0 + 1
+    conf_p, arg_p = ee_gate_ref(x)
+    torch.testing.assert_close(conf, conf_p, rtol=1e-5, atol=0)
+    assert torch.equal(arg, arg_p)
+
+
+@pytest.mark.parametrize("name,kw", [("b-lenet", {}),
+                                     ("b-resnet", {"blocks_per_stage": 2}),
+                                     ("b-alexnet", {})])
+def test_branchy_forward_and_infer_on_card_equal_cpu_path(cuda_device, name,
+                                                          kw):
+    """The CNN forward on CUDA within 1e-4 x max|CPU| of the CPU path with
+    the caller's TF32 flags turned ON (the model turns them off for its
+    own convolutions and matmuls and puts them back), and ``infer``
+    launching B6 once an exit."""
+    from repro_torch.models.branchy import PAPER_MODELS
+    net = PAPER_MODELS[name](**kw).init(seed=3, device=cuda_device)
+    cpu = PAPER_MODELS[name](**kw).init(seed=3, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in net.state_dict().items()})
+    x = torch.from_numpy(np.random.default_rng(0).normal(
+        size=(8,) + net.input_shape).astype(np.float32))
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with torch.no_grad():
+            lg, _ = net.apply(x.to(cuda_device))
+            lc, _ = cpu.apply(x)
+            assert torch.backends.cudnn.allow_tf32
+            for b in lc:
+                tol = 1e-4 * float(lc[b].abs().max())
+                torch.testing.assert_close(lg[b].cpu(), lc[b], rtol=0,
+                                           atol=tol)
+            n0 = ee_gate.launches
+            pg, eg = net.infer(x.to(cuda_device), [0.5] * 3)
+            assert ee_gate.launches - n0 == len(net.exit_blocks())
+            pc, ec = cpu.infer(x, [0.5] * 3)
+    finally:
+        torch.backends.cudnn.allow_tf32, \
+            torch.backends.cuda.matmul.allow_tf32 = flags
+    assert torch.equal(eg.cpu(), ec) and torch.equal(pg.cpu(), pc)
+
+
+def test_train_step_on_card_equals_cpu_path(cuda_device):
+    """Three train steps of the reduced qwen3-4b in float32 on CUDA within
+    a relative 1e-4 of the CPU path."""
+    from repro_torch.runtime import steps as S
+    from repro_torch.runtime.train_loop import batch_to
+    from repro_torch.data import LMStreamConfig, SyntheticLMStream
+    cfg = get("qwen3-4b", reduced=True)
+    sg = S.init_train_state(cfg, seed=1, device=cuda_device)
+    sc = S.init_train_state(cfg, seed=1, device="cpu")
+    for a, b in zip(S.tree_leaves(sg["params"]), S.tree_leaves(sc["params"])):
+        b.copy_(a.cpu())
+    step = S.build_train_step(cfg)
+    stream = SyntheticLMStream(LMStreamConfig(cfg.vocab_size, 32, 4))
+    for i in range(3):
+        sg, mg = step(sg, batch_to(stream.batch(i), cuda_device))
+        sc, mc = step(sc, batch_to(stream.batch(i), "cpu"))
+        assert float(mg["loss"]) == pytest.approx(float(mc["loss"]),
+                                                  rel=1e-4)
+    for a, b in zip(S.tree_leaves(sg["params"]), S.tree_leaves(sc["params"])):
+        torch.testing.assert_close(a.cpu(), b, rtol=0,
+                                   atol=1e-4 * float(b.abs().max()) + 1e-7)

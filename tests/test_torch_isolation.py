@@ -51,7 +51,10 @@ def _port_files():
                 "core/multiapp.py", "core/online.py", "core/faults.py",
                 "runtime/straggler.py", "runtime/checkpoint.py",
                 "runtime/elastic.py", "sharding/population.py",
-                "models/ssm.py", "models/moe.py", "runtime/steps.py"):
+                "models/ssm.py", "models/moe.py", "runtime/steps.py",
+                "models/cnn_layers.py", "models/branchy.py",
+                "data/synthetic.py", "optim/adamw.py",
+                "runtime/train_loop.py", "launch/train.py"):
         assert PORT / mod in files, mod
     return files
 
@@ -81,7 +84,10 @@ def test_import_in_fresh_interpreter_loads_no_jax_and_builds_nothing():
             "repro_torch.kernels.decode_attn.ops, "
             "repro_torch.runtime.serve_engine, repro_torch.launch.serve, "
             "repro_torch.models.ssm, repro_torch.models.moe, "
-            "repro_torch.runtime.steps\n"
+            "repro_torch.runtime.steps, repro_torch.models.cnn_layers, "
+            "repro_torch.models.branchy, repro_torch.data.synthetic, "
+            "repro_torch.optim.adamw, repro_torch.runtime.train_loop, "
+            "repro_torch.launch.train\n"
             "from repro_torch.kernels import _build\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
@@ -182,6 +188,42 @@ def test_transformer_params_from_defaults_to_cuda_and_raises_without_it():
         transformer_params_from(params_np, cfg)
     params = transformer_params_from(params_np, cfg, device="cpu")
     assert params["embed"]["table"].device == torch.device("cpu")
+
+
+def test_branchy_and_training_entry_points_default_to_cuda():
+    """The branchy models' ``init``, ``branchy_params_from``,
+    ``init_train_state``, ``train`` and ``launch/train.py`` run on
+    ``cuda:0`` unless told otherwise, and raise where there is no card."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: device=None resolves to it")
+    from repro_torch.configs import get
+    from repro_torch.convert import branchy_params_from
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models.branchy import b_lenet
+    from repro_torch.runtime.steps import init_train_state
+    from repro_torch.runtime.train_loop import train
+    cfg = get("qwen3-4b", reduced=True)
+    net = b_lenet().init(device="cpu")
+
+    def layer(l):       # the reference's layout: HWIO / [in, out]
+        if getattr(l, "w", None) is None:
+            return {}
+        w = l.w.detach()
+        w = w.permute(2, 3, 1, 0) if w.dim() == 4 else w.t()
+        return {"w": w.numpy(), "b": l.b.detach().numpy()}
+
+    tree = {"blocks": [[layer(l) for l in blk.layers] for blk in net.blocks],
+            "exits": {k: [layer(l) for l in h.layers]
+                      for k, h in net.exits.items()}}
+    for call in (lambda: b_lenet().init(),
+                 lambda: branchy_params_from(net, tree),
+                 lambda: init_train_state(cfg),
+                 lambda: train(cfg, n_steps=1, global_batch=2, seq_len=4),
+                 lambda: launch_train.main(["--arch", "qwen3-4b",
+                                            "--steps", "1"])):
+        with pytest.raises(RuntimeError, match="cuda"):
+            call()
+    net.load_state_dict(branchy_params_from(net, tree, device="cpu"))
 
 
 def _numpy_tree(tree):
