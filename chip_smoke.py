@@ -93,7 +93,20 @@ before it and read just after:
   [train_parity]      ``loss_fn``, its gradients and 3 train steps in
                       float32 on CUDA against the CPU path (qwen3-4b widths
                       at 2 layers, mamba2 and mixtral at 1 period), and a
-                      checkpoint / resume through ``train()``.
+                      checkpoint / resume through ``train()``;
+  [dryrun]            ``launch.dryrun.run_cell`` for every cell of
+                      ``all_cells()`` on both production meshes, baseline
+                      and optimized (meta tensors only: the card's
+                      ``memory_allocated`` does not move), and
+                      ``launch.report.roofline_table`` over them;
+  [examples]          the four examples of ``examples_torch/`` on the card
+                      (``train_lm`` 40 steps; its loss falls).
+
+[serve], [serve_ssm], [serve_moe] and [train] also hold ``params_shapes``,
+``cache_shape_dtypes`` and ``train_state_shapes`` (meta trees) to the trees
+they build on the card, and print the port's analytic roofline of the
+path's own step (``launch.analytic`` + ``launch.roofline``) beside its
+measured time, with both parameter counts.
 
 It then times the kernels at their paths' shapes (B7 also at mixtral's
 heads over 4,096 slots), the plain PyTorch programs ``_ssd_scan``,
@@ -3495,12 +3508,15 @@ def _serve_path(tag, cfg, dev, counters, probe=64, programs=()):
     import torch
     from repro_torch.models import transformer as TT
     from repro_torch.runtime.serve_engine import serve_with_churn
+    from repro_torch.runtime.steps import params_shapes
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = TT.init_model(cfg, seed=0, device=dev)
     torch.cuda.synchronize()
     t_init = time.perf_counter() - t0
     n_params = TT.param_count(params)
+    n_leaves = _same_tree(_tree_specs(params), params_shapes(cfg),
+                          f"{tag}: params_shapes")
     layer_b, head_b, step_b = _weight_bytes(params, cfg)
     log(tag, f"{cfg.name}: {cfg.n_layers} layers {list(cfg.pattern)[:2]}... "
         f"d_model {cfg.d_model} heads {cfg.n_heads}/{cfg.n_kv_heads} head_dim "
@@ -3523,6 +3539,11 @@ def _serve_path(tag, cfg, dev, counters, probe=64, programs=()):
     t0 = time.perf_counter()
     eng = _serve_engine(cfg, params, dev, thresholds)
     t_build = time.perf_counter() - t0
+    n_cache = _same_tree(_tree_specs(eng.caches), TT.cache_shape_dtypes(
+        cfg, SERVE_BATCH, SERVE_CACHE), f"{tag}: cache_shape_dtypes")
+    log(tag, f"params_shapes == the drawn parameters ({n_leaves} leaves) "
+        f"and cache_shape_dtypes == the engine's caches ({n_cache} "
+        f"leaves), in path, shape and dtype")
     state_b = _state_bytes(eng.caches)
     step_b += 2 * state_b
     reqs = [eng.submit([1 + i % 7] + list(range(2, SERVE_PROMPT + 1)),
@@ -3579,6 +3600,8 @@ def _serve_path(tag, cfg, dev, counters, probe=64, programs=()):
         f"{state_b} B) / 3.35 TB/s = {bound_ms:.4f} ms, "
         f"{SERVE_BATCH / bound_ms * 1e3:.1f} tokens/s at B = {SERVE_BATCH}; "
         f"the step takes {ms_step / bound_ms:.2f}x the bound")
+    log(tag, _analytic_line(cfg, SERVE_BATCH, SERVE_CACHE, "decode",
+                            ms_step, n_params))
     log(tag, f"churn: {len(reports)} ticks, victim node {victim}, "
         f"reports {reports}; {wall_churn:.3f} s with {st.steps - steps_run} "
         f"more steps")
@@ -3595,7 +3618,7 @@ def _serve_path(tag, cfg, dev, counters, probe=64, programs=()):
     del eng
     return params, cfg, launches, dict(ms_step=ms_step, tok_s=tok_s,
                                        bound_ms=bound_ms, hiwater=hiwater,
-                                       **prof)
+                                       n_params=n_params, **prof)
 
 
 def profile_serve(eng, dev, steps=6, tag="serve_profile"):
@@ -3792,6 +3815,8 @@ def phase_serve_ssm(dev, counters):
         f"{SSM_PROMPT / t_pre:.1f} tokens/s, device memory high-water "
         f"{hi_pre} B; _ssd_scan calls {ssd.calls}; one decode step after "
         f"it finite")
+    log("serve_ssm", "prefill: " + _analytic_line(
+        cfg, 1, SSM_PROMPT, "prefill", t_pre * 1e3, out["n_params"]))
     out.update(prefill_s=t_pre, ssd_calls=ssd.calls)
     del params, caches
     torch.cuda.empty_cache()
@@ -3862,6 +3887,8 @@ def phase_serve_moe(dev, counters):
             f"{hi_pre} B; ring slots hold positions {MOE_PROMPT - T}.."
             f"{MOE_PROMPT - 1}; chunked_attention calls {n_attn_prog}, "
             f"_moe_gather calls {progs['moe_gather'].calls - g0}")
+        log("serve_moe", "prefill: " + _analytic_line(
+            cfg, 1, MOE_PROMPT, "prefill", t_pre * 1e3, out["n_params"]))
         log("serve_moe", f"{MOE_DECODE} decode steps after it at B = 1 "
             f"(B7 over {T} slots, window {cfg.sliding_window}): ms/step "
             f"{[round(w * 1e3, 3) for w in walls]}; launches "
@@ -4732,17 +4759,76 @@ def phase_branchy_train(dev):
 
 
 def _param_count(cfg) -> int:
-    """Parameters of ``cfg``'s model, from one period's shapes on the meta
-    device (nothing allocated)."""
-    import torch
+    """Parameters of the tree ``init_model`` builds for ``cfg``, counted on
+    its meta twin ``params_shapes`` (nothing allocated).  This counts the
+    real tree: ``launch.flops.param_count`` is the reference's formula,
+    which leaves out the q / k norms (2 head_dim a layer) and the SSM conv
+    bias (d_inner + 2N a layer), so for qwen3-4b it gives 4,066,045,440
+    against this 4,066,051,200.  [train]'s bound stays on this count."""
     from repro_torch.models import transformer as TT
-    gen = torch.Generator()
-    per = sum(x.numel() for i, s in enumerate(cfg.pattern)
-              for x in TT._tree_leaves(TT._layer_init(gen, cfg, s,
-                                                      torch.float32, "meta")))
-    d, V = cfg.d_model, cfg.padded_vocab
-    return (per * cfg.n_periods + V * d * (1 if cfg.tie_embeddings else 2)
-            + d * (1 + len(cfg.exit_layer_list)))
+    from repro_torch.runtime.steps import params_shapes
+    return TT.param_count(params_shapes(cfg))
+
+
+def _tree_specs(tree, prefix=()):
+    """{path: (shape, dtype, device type)} of a tree of dicts and
+    NamedTuples of tensors."""
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_tree_specs(v, prefix + (str(k),)))
+        return out
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        out = {}
+        for k in tree._fields:
+            out.update(_tree_specs(getattr(tree, k), prefix + (k,)))
+        return out
+    return {"/".join(prefix): (tuple(tree.shape), tree.dtype,
+                               tree.device.type)}
+
+
+def _same_tree(a, meta, what):
+    """The meta tree of a shapes function (``params_shapes``,
+    ``cache_shape_dtypes``, ``train_state_shapes``) equals the tree built
+    on the card (``a``, its ``_tree_specs``) leaf for leaf, in path, shape
+    and dtype; the number of leaves."""
+    b = _tree_specs(meta)
+    check(sorted(a) == sorted(b), f"{what}: paths differ: "
+          f"{sorted(set(a) ^ set(b))[:6]}")
+    for path, (shape, dtype, device) in a.items():
+        check(b[path][:2] == (shape, dtype), f"{what}: {path} is "
+              f"{shape} {dtype} on the card, {b[path][:2]} on meta")
+        check(b[path][2] == "meta" and device == "cuda",
+              f"{what}: {path} on {device} / {b[path][2]}")
+    return len(a)
+
+
+def _analytic_line(cfg, B, S, kind, ms, tree_params):
+    """The port's analytic cost and roofline (``launch.analytic`` +
+    ``launch.roofline.analyze`` with the H100 table) of one ``kind`` step
+    of ``cfg`` at (B, S) on one card, beside the measured ``ms``, with
+    ``model_flops`` and both parameter counts.  Printed, never held
+    against the hand bounds: the two methods count different things."""
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.launch.analytic import analytic_cost
+    from repro_torch.launch.flops import param_count
+    from repro_torch.launch.mesh import HW
+    from repro_torch.launch.roofline import analyze, model_flops
+    shape = ShapeSpec(f"{kind}_{B}x{S}", S, B, kind)
+    acost = analytic_cost(cfg, shape, 1, {})
+    rl = analyze(cfg.name, shape.name, "1card", 1, {}, None, "",
+                 model_flops(cfg, shape), HW, analytic=acost)
+    bound = max(rl.t_compute, rl.t_memory) * 1e3
+    return (f"analytic roofline of one {kind} step at B = {B}, S = {S} on "
+            f"one card (launch.analytic, H100 989 TFLOP/s, 3.35 TB/s): "
+            f"{rl.flops_per_chip:.6g} FLOP, {rl.bytes_per_chip:.6g} B, "
+            f"t_compute {rl.t_compute * 1e3:.4f} ms, t_memory "
+            f"{rl.t_memory * 1e3:.4f} ms, bottleneck {rl.bottleneck}; "
+            f"model_flops {rl.model_flops_total:.6g} (MODEL/analytic "
+            f"{rl.useful_flops_ratio:.3f}); measured {ms:.3f} ms = "
+            f"{ms / bound:.2f}x the analytic bound; parameters: "
+            f"launch.flops.param_count {param_count(cfg)}, the built tree "
+            f"{tree_params}")
 
 
 def phase_train(dev):
@@ -4755,10 +4841,21 @@ def phase_train(dev):
     import gc
     import numpy as np
     import torch
+    from repro_torch.runtime import train_loop
+    from repro_torch.runtime.steps import train_state_shapes
     from repro_torch.runtime.train_loop import train
     gc.collect()
     torch.cuda.empty_cache()
     restore = _tf32_on()
+    built = {}
+    make_state = train_loop.init_train_state
+
+    def recorded(cfg_, **kw):          # the state train() builds, as shapes
+        state = make_state(cfg_, **kw)
+        built["state"] = _tree_specs(state)
+        return state
+
+    train_loop.init_train_state = recorded
     try:
         for periods in (None, 24, 12):
             cfg = _arch_cfg(TRAIN_ARCH, periods, remat="full")
@@ -4776,9 +4873,12 @@ def phase_train(dev):
         else:
             raise PhaseFailed("[train] no depth fits")
     finally:
+        train_loop.init_train_state = make_state
         restore()
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
+    n_state = _same_tree(built["state"], train_state_shapes(cfg),
+                         "[train] train_state_shapes")
     losses = res.losses
     check(len(losses) == TRAIN_STEPS and all(np.isfinite(losses)),
           f"[train] losses not finite: {losses}")
@@ -4799,6 +4899,10 @@ def phase_train(dev):
         f"FLOP at 989 TFLOP/s bf16), {bound / ms:.1%} of the bound; "
         f"max_memory_allocated {peak} B (params + grads + moments "
         f"{state} B)")
+    log("train", f"train_state_shapes == the state train() built "
+        f"({n_state} leaves: parameters, AdamW moments, step), in path, "
+        f"shape and dtype")
+    log("train", _analytic_line(cfg, TRAIN_BATCH, TRAIN_SEQ, "train", ms, N))
     return dict(ms=ms, bound_ms=bound, tokens_s=tokens / (ms * 1e-3),
                 peak=peak, ce_calls=1 + len(cfg.exit_layer_list))
 
@@ -4958,6 +5062,122 @@ def ce_program_times(dev, calls):
     return row
 
 
+# ---------------------------------------------------------------------------
+# The dry run and the examples
+# ---------------------------------------------------------------------------
+
+def _build_tmp(prefix):
+    import tempfile
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    return Path(tempfile.mkdtemp(prefix=prefix, dir=build))
+
+
+def phase_dryrun():
+    """Every cell of ``all_cells()`` through ``launch.dryrun.run_cell`` on
+    both production meshes, baseline and optimized, into a temporary
+    directory under ``build/``: nothing lands on the card
+    (``torch.cuda.memory_allocated()`` is the same before and after); then
+    ``launch.report.roofline_table`` over the cells of each mesh."""
+    import shutil
+    import torch
+    from repro_torch.configs import all_cells
+    from repro_torch.launch import dryrun, report
+    out = _build_tmp("dryrun_")
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    mix = {}
+    try:
+        n = 0
+        for multi_pod in (False, True):
+            for optimized in (False, True):
+                for arch, shape in all_cells():
+                    r = dryrun.run_cell(arch, shape, multi_pod,
+                                        optimized=optimized,
+                                        tag="opt" if optimized else "",
+                                        out_dir=out)
+                    check(r["flops_per_chip"] > 0 and r["bytes_per_chip"] > 0
+                          and r["memory_per_chip_gb"] > 0
+                          and all(math.isfinite(r[k]) for k in (
+                              "t_compute", "t_memory", "t_collective")),
+                          f"[dryrun] {arch} {shape}: {r}")
+                    mix[r["bottleneck"]] = mix.get(r["bottleneck"], 0) + 1
+                    n += 1
+        wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        mem1 = torch.cuda.memory_allocated()
+        check(mem1 == mem0, f"[dryrun] memory_allocated {mem0} -> {mem1}")
+        check(n == 4 * len(all_cells()), f"[dryrun] {n} cells")
+        for mesh in ("pod16x16", "pod2x16x16"):
+            cells = report.load_cells(mesh, directory=out)
+            check(len(cells) == 2 * len(all_cells()),
+                  f"[dryrun] {len(cells)} cells on {mesh}")
+            log("dryrun", f"roofline table on {mesh} ({len(cells)} cells, "
+                f"base and opt; mem/chip counts the step's arguments "
+                f"only):\n" + report.roofline_table(cells))
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    log("dryrun", f"{n} cells ({len(all_cells())} cells x 2 meshes x base / "
+        f"optimized) in {wall:.3f} s, nothing compiled; "
+        f"memory_allocated {mem0} B before and after; bottleneck mix {mix}")
+    return wall
+
+
+EXAMPLE_RUNS = (("quickstart", []), ("multiapp_placement", []),
+                ("serve_split", []),
+                ("train_lm", ["--steps", "40", "--batch", "8", "--seq",
+                              "128"]))
+
+
+def phase_examples():
+    """The four examples of ``examples_torch/`` on ``cuda:0`` (their
+    default), each through its ``main``, which must return 0 (the exit
+    code of ``python examples_torch/<name>.py``); ``train_lm`` trains the
+    55.6M-parameter qwen3 config for 40 steps with checkpoints in a
+    temporary directory under ``build/``, and its loss must fall."""
+    import contextlib
+    import importlib.util
+    import io
+    import re
+    import shutil
+    ckpt = _build_tmp("train_lm_")
+    walls = {}
+    try:
+        for name, argv in EXAMPLE_RUNS:
+            if name == "train_lm":
+                argv = argv + ["--ckpt", str(ckpt)]
+            spec = importlib.util.spec_from_file_location(
+                f"example_{name}", ROOT / "examples_torch" / f"{name}.py")
+            mod = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(mod)
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            try:
+                with contextlib.redirect_stdout(buf):
+                    rc = mod.main(argv)
+            except SystemExit as e:
+                raise PhaseFailed(f"[examples] {name} exited: {e}\n"
+                                  f"{buf.getvalue()}")
+            walls[name] = time.perf_counter() - t0
+            text = buf.getvalue()
+            check(rc == 0, f"[examples] {name} returned {rc}:\n{text}")
+            log("examples", f"{' '.join([name, *argv])}: exit 0 in "
+                f"{walls[name]:.3f} s; its output:\n{text.rstrip()}")
+            if name == "train_lm":
+                m = re.search(r"loss: ([\d.]+) -> ([\d.]+)", text)
+                check(m is not None and float(m.group(2))
+                      < float(m.group(1)),
+                      f"[examples] train_lm's loss did not fall:\n{text}")
+            if name == "serve_split":
+                check("FIN placement:" in text and "new placement:" in text,
+                      f"[examples] serve_split did not re-place:\n{text}")
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    log("examples", f"walls (s): {walls}")
+    return walls
+
+
 TIMES = ("chain", "dense", "kbest", "gate", "attn", "plan", "ingest",
          "serve")
 
@@ -5096,7 +5316,13 @@ def main(argv) -> int:
     phase_train_parity(dev)
     walls["train_parity"], t0 = time.perf_counter() - t0, time.perf_counter()
     ce_program_times(dev, train_row["ce_calls"])
-    walls["programs ce"] = time.perf_counter() - t0
+    walls["programs ce"], t0 = time.perf_counter() - t0, time.perf_counter()
+    # the rest of the package: the dry run (sizing, specs, roofline,
+    # report) and the four examples
+    phase_dryrun()
+    walls["dryrun"], t0 = time.perf_counter() - t0, time.perf_counter()
+    phase_examples()
+    walls["examples"] = time.perf_counter() - t0
     log("order", f"B6 launches on [branchy]: {launches_branchy}; phase "
         f"walls (s): " + ", ".join(f"[{k}] {v:.1f}" for k, v in walls.items())
         + f"; since the start {time.perf_counter() - T_START:.1f}")

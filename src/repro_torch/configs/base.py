@@ -4,8 +4,10 @@ A copy of the reference's ``configs/base.py`` (the port imports nothing of
 the JAX package).  One ``ArchConfig`` fully describes an architecture:
 topology (attention / SSM / MoE layer pattern), dimensions, modality
 frontend stubs, early-exit placement (the paper's technique) and the
-runtime knobs.  ``reduced()`` derives the CPU-test variant of the same
-family.  The sharding knobs are kept as data: the port reads none of them.
+runtime and sharding knobs (``sharding/specs.py`` and the analytic cost
+model ``launch/analytic.py`` read the latter).  ``reduced()`` derives the
+CPU-test variant of the same family.  ``SHAPES`` are the input shapes of
+the dry run's cells.
 """
 from __future__ import annotations
 
@@ -147,3 +149,23 @@ class ArchConfig:
         )
         small.update(overrides)
         return dataclasses.replace(self, **small)
+
+
+# ---------------------------------------------------------------------------
+# Input shapes assigned to the LM-family architectures (seq_len, global_batch)
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str            # "train" | "prefill" | "decode"
+
+
+SHAPES = {
+    "train_4k": ShapeSpec("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524_288, 1, "decode"),
+}

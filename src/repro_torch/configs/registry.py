@@ -2,17 +2,18 @@
 
 A copy of the builders of the reference's ``configs/registry.py``, each
 with its public-literature source tag.  ``get(name)`` returns the full
-config, ``get(name, reduced=True)`` the CPU-test variant.  The reference's
-TPU sharding overrides (``optimized=``) and its dry-run cell lists are not
-copied: the port reads no sharding knob.  The serving slice builds the
-attention / dense-MLP architectures; ``models.transformer`` refuses the
-SSM and MoE layers of the others.
+config, ``get(name, reduced=True)`` the CPU-test variant and
+``get(name, optimized=True)`` the config with ``OPTIMIZED_OVERRIDES``
+(the sharding and runtime knobs that ``sharding/specs.py`` and
+``launch/analytic.py`` read).  ``runnable_cells`` / ``all_cells`` /
+``skipped_cells`` are the dry run's (arch x shape) cells.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import List
 
-from .base import ArchConfig, LayerSpec
+from .base import SHAPES, ArchConfig, LayerSpec
 
 A = LayerSpec("attn", "dense")
 
@@ -116,6 +117,25 @@ def _internvl2() -> ArchConfig:
         frontend="vision", n_patches=1024)
 
 
+#: Sharding / runtime overrides of the reference's performance study, as
+#: data: the base configs stay paper-faithful (Megatron TP x DP) and
+#: ``get(name, optimized=True)`` applies these.
+OPTIMIZED_OVERRIDES = {
+    # small dense models: pure DP / ZeRO-3 over the whole mesh
+    "qwen3-4b": dict(parallelism_mode="pure_dp"),
+    "internvl2-2b": dict(parallelism_mode="pure_dp"),
+    "mamba2-1.3b": dict(parallelism_mode="pure_dp"),
+    "hubert-xlarge": dict(parallelism_mode="pure_dp"),
+    # mid / large dense: TP with sequence parallelism
+    "phi3-medium-14b": dict(seq_parallel=True),
+    "minitron-8b": dict(seq_parallel=True),
+    "granite-34b": dict(seq_parallel=True, kv_cache_dtype="int8"),
+    "mixtral-8x22b": dict(seq_parallel=True),
+    "arctic-480b": dict(seq_parallel=True),
+    # hybrid: also shard the SSD heads over the model axis
+    "jamba-1.5-large-398b": dict(seq_parallel=True, ssm_head_shard=True),
+}
+
 _BUILDERS = {
     "jamba-1.5-large-398b": _jamba,
     "phi3-medium-14b": _phi3,
@@ -132,11 +152,50 @@ _BUILDERS = {
 ARCH_NAMES: List[str] = list(_BUILDERS)
 
 
-def get(name: str, *, reduced: bool = False) -> ArchConfig:
-    """The published configuration of ``name``, or its reduced CPU-test
-    variant."""
+def get(name: str, *, reduced: bool = False,
+        optimized: bool = False) -> ArchConfig:
+    """The published configuration of ``name`` (with ``OPTIMIZED_OVERRIDES``
+    when ``optimized``), or its reduced CPU-test variant."""
     if name not in _BUILDERS:
         raise ValueError(f"unknown architecture {name!r}; known: "
                          f"{ARCH_NAMES}")
     cfg = _BUILDERS[name]()
+    if optimized:
+        cfg = dataclasses.replace(cfg, **OPTIMIZED_OVERRIDES.get(name, {}))
     return cfg.reduced() if reduced else cfg
+
+
+def sub_quadratic(cfg: ArchConfig) -> bool:
+    """Eligibility for long_500k: SSM/hybrid, or bounded-window attention."""
+    kinds = {s.kind for s in cfg.pattern}
+    if "ssm" in kinds:
+        return True        # SSM, or hybrid: attention KV is 1/8 of layers
+    return cfg.sliding_window > 0
+
+
+def runnable_cells(arch: str) -> List[str]:
+    """The (arch x shape) cells that are well-defined for this arch."""
+    cfg = get(arch)
+    cells = ["train_4k", "prefill_32k"]
+    if cfg.has_decoder:
+        cells.append("decode_32k")
+        if sub_quadratic(cfg):
+            cells.append("long_500k")
+    return cells
+
+
+def all_cells() -> List[tuple]:
+    return [(a, s) for a in ARCH_NAMES for s in runnable_cells(a)]
+
+
+def skipped_cells() -> List[tuple]:
+    out = []
+    for a in ARCH_NAMES:
+        run = set(runnable_cells(a))
+        for s in SHAPES:
+            if s not in run:
+                reason = ("encoder-only (no autoregressive step)"
+                          if not get(a).has_decoder
+                          else "pure full attention (no sub-quadratic path)")
+                out.append((a, s, reason))
+    return out

@@ -13,6 +13,7 @@ A copy of the reference's calibration (``repro/core/scenarios.py``):
 
 ``ChurnEvent`` / ``churn_trace`` are the reference's online-regime trace
 generator, copied (numpy, seeded): the same seed gives the same events.
+``TABLE_VI_CONFIGS`` are the paper's Table VI example configurations.
 """
 from __future__ import annotations
 
@@ -190,3 +191,13 @@ def churn_trace(n_users: int, n_ticks: int, *, seed: int = 0,
                               for node in nodes)
         trace.append(events)
     return trace
+
+
+#: Table VI example configurations (block counts per tier) for Fig. 4.
+#: Config-1: all on mobile; Config-2: [l1,e1,l2 | l3,e2,l4,l5,e3 | -];
+#: Config-3: [l1,e1,l2 | l3,e2,l4 | l5,e3].
+TABLE_VI_CONFIGS = {
+    "config-1": [0, 0, 0, 0, 0],
+    "config-2": [0, 0, 1, 1, 1],
+    "config-3": [0, 0, 1, 1, 2],
+}

@@ -246,3 +246,12 @@ def attn_decode_step(params, cfg: ArchConfig, x: torch.Tensor, cache: dict,
     out = decode_attention(q, k_read, v_read, cache["pos"], pos,
                            window=cfg.sliding_window)
     return out_proj(out, params["wo"]), cache
+
+
+def attn_flops_per_token(cfg: ArchConfig, kv_len: int) -> float:
+    """Projections + scores + AV per token (decode roofline helper)."""
+    d, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    eff = kv_len if cfg.sliding_window == 0 else min(kv_len, cfg.sliding_window)
+    proj = 2 * d * hd * (2 * KV + 2 * H)
+    scores = 2 * H * hd * eff * 2
+    return proj + scores

@@ -195,6 +195,10 @@ def mlp_apply(params: dict, x: torch.Tensor) -> torch.Tensor:
     return torch.matmul(h, params["w_down"])
 
 
+def mlp_flops(d_model: int, d_ff: int) -> float:
+    return 3 * 2 * d_model * d_ff  # per token
+
+
 # ---------------------------------------------------------------------------
 # Embedding / LM head
 # ---------------------------------------------------------------------------

@@ -20,7 +20,7 @@ reduction rounded once, as the reference's activation-dtype einsum.
 
 The reference's ``_head_constraint`` (a sharding constraint on the head
 axis) is a no-op without a sharding context and is left out; it returns
-with the sharding context (ROADMAP A.6).
+with sharded execution (ROADMAP A.6), which reads ``sharding/context.py``.
 """
 from __future__ import annotations
 

@@ -26,8 +26,8 @@ periods, and each period reads views of the stacked parameters and caches
 ``_periods``).  ``_remat`` is the reference's activation checkpointing,
 through ``torch.utils.checkpoint`` around each period (and each layer for
 ``remat="layer"``), applied only where a gradient is taken.  The
-reference's ``_sp_constraint`` (sequence-parallel sharding) waits for the
-sharding context.
+reference's ``_sp_constraint`` (sequence-parallel sharding) waits for
+sharded execution (ROADMAP A.6), which reads ``sharding/context.py``.
 """
 from __future__ import annotations
 
@@ -99,9 +99,12 @@ def _layer_init(gen, cfg: ArchConfig, spec: LayerSpec, dtype, device) -> dict:
 def init_model(cfg: ArchConfig, *, seed: int = 0,
                device: DeviceLike = None) -> dict:
     """Random weights drawn from a seeded ``torch.Generator`` on ``device``
-    (default ``cuda:0``), in the reference's tree and layouts."""
+    (default ``cuda:0``), in the reference's tree and layouts.  On the
+    ``meta`` device nothing is drawn or allocated: the tree holds the
+    shapes and dtypes only (``runtime.steps.params_shapes``)."""
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = torch.Generator(device=dev if dev.type != "meta" else "cpu")
+    gen.manual_seed(seed)
     dtype = dtype_of(cfg.dtype)
     params = {"embed": embed_init(gen, cfg.padded_vocab, cfg.d_model, dtype,
                                   dev)}
@@ -116,6 +119,8 @@ def init_model(cfg: ArchConfig, *, seed: int = 0,
                 lambda x: x.new_empty((n,) + tuple(x.shape)), period)
         _tree_set(params["layers"], period, p)
         del period
+        if dev.type == "meta":
+            break       # shapes only: the other periods would draw nothing
     params["final_norm"] = rmsnorm_init(cfg.d_model, dtype, dev)
     params["exits"] = {}
     if not cfg.tie_embeddings:
@@ -373,6 +378,11 @@ def init_caches(cfg: ArchConfig, batch: int, seq_len: int, *,
         out[f"l{i}"] = _tree_map(
             lambda x: x.expand(cfg.n_periods, *x.shape).clone(), one)
     return out
+
+
+def cache_shape_dtypes(cfg: ArchConfig, batch: int, seq_len: int) -> dict:
+    """``init_caches``'s tree on the ``meta`` device (for the dry run)."""
+    return init_caches(cfg, batch, seq_len, device="meta")
 
 
 # ---------------------------------------------------------------------------

@@ -12,13 +12,16 @@ Port of ``repro/runtime/steps.py``:
                                caches)
 
 The reference jits these; the port calls the eager functions (a
-CUDA-graph decode step is queued on its own, ROADMAP A.5).  The train
+CUDA-graph decode step is queued on its own, ROADMAP B.3).  The train
 step takes the gradient of ``loss_fn`` with ``torch.autograd.grad``
 (TF32 off, so float32 models compute in float32), clips it to a global
 norm and applies AdamW in place: the state it returns holds the tensors
-it was given, updated.  ``train_state_shapes``, ``params_shapes``,
-``batch_specs``, ``input_specs`` and ``step_for`` are the dry run's
-contract and wait for the shape cells (ROADMAP A.6).
+it was given, updated.
+
+``input_specs(cfg, shape)`` is the dry run's contract: every input of the
+cell's step (``step_for``) as a tensor on the ``meta`` device, whose
+``.shape`` and ``.dtype`` read as a ``ShapeDtypeStruct``'s do.  Nothing is
+drawn and nothing is allocated, even for the 480B-parameter arctic.
 """
 from __future__ import annotations
 
@@ -27,9 +30,9 @@ from typing import Dict, Tuple
 import torch
 
 from .._device import DeviceLike
-from ..configs.base import ArchConfig
+from ..configs.base import ArchConfig, ShapeSpec
 from ..models import transformer as T
-from ..models.layers import no_tf32
+from ..models.layers import dtype_of, no_tf32
 from ..optim import AdamW, clip_by_global_norm
 from ..optim.adamw import tree_leaves
 
@@ -92,6 +95,12 @@ def init_train_state(cfg: ArchConfig, *, seed: int = 0,
     return {"params": params, "opt": make_optimizer(cfg).init(params)}
 
 
+def train_state_shapes(cfg: ArchConfig) -> dict:
+    """The train state of ``init_train_state`` on the ``meta`` device: the
+    AdamW state of ``make_optimizer(cfg)`` over meta parameters."""
+    return init_train_state(cfg, device="meta")
+
+
 # ---------------------------------------------------------------------------
 # Serve
 # ---------------------------------------------------------------------------
@@ -112,3 +121,70 @@ def build_prefill_step(cfg: ArchConfig, cache_len: int):
     def prefill_step(params, batch):
         return T.prefill(params, cfg, batch, cache_len=cache_len)
     return prefill_step
+
+
+def params_shapes(cfg: ArchConfig) -> dict:
+    """``init_model``'s tree on the ``meta`` device (nothing drawn)."""
+    return T.init_model(cfg, device="meta")
+
+
+# ---------------------------------------------------------------------------
+# input_specs: meta tensors per (arch x shape) cell
+# ---------------------------------------------------------------------------
+
+def _spec(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def batch_specs(cfg: ArchConfig, B: int, S: int) -> Dict[str, torch.Tensor]:
+    dt = dtype_of(cfg.dtype)
+    specs: Dict[str, torch.Tensor] = {}
+    if cfg.frontend == "audio":
+        specs["frames"] = _spec((B, S, cfg.d_model), dt)
+    else:
+        specs["tokens"] = _spec((B, S), torch.int32)
+        if cfg.frontend == "vision":
+            specs["patch_embeds"] = _spec((B, cfg.n_patches, cfg.d_model),
+                                          dt)
+    specs["labels"] = _spec((B, S), torch.int32)
+    return specs
+
+
+def input_specs(cfg: ArchConfig, shape: ShapeSpec) -> dict:
+    """All step inputs as meta tensors, keyed by step argument."""
+    B, S = shape.global_batch, shape.seq_len
+    if shape.kind == "train":
+        return {"state": train_state_shapes(cfg),
+                "batch": batch_specs(cfg, B, S)}
+    if shape.kind == "prefill":
+        b = batch_specs(cfg, B, S)
+        b.pop("labels")
+        return {"params": params_shapes(cfg), "batch": b}
+    if shape.kind == "decode":
+        if not cfg.has_decoder:
+            raise ValueError(f"{cfg.name} is encoder-only: no decode cell")
+        return {
+            "params": params_shapes(cfg),
+            "caches": T.cache_shape_dtypes(cfg, B, S),
+            "tokens": _spec((B, 1), torch.int32),
+            "pos": _spec((), torch.int32),
+        }
+    raise ValueError(shape.kind)
+
+
+def step_for(cfg: ArchConfig, shape: ShapeSpec):
+    """(callable, ordered argnames) for the cell's step function."""
+    if shape.kind == "train":
+        return build_train_step(cfg), ("state", "batch")
+    if shape.kind == "prefill":
+        if not cfg.has_decoder:
+            return build_encode_step(cfg), ("params", "batch")
+
+        def prefill_logits(params, batch):
+            # prefill as the pure forward (the cache write-back variant is
+            # the runtime engine's; the shapes are the same)
+            return T.forward_train(params, cfg, batch)["final"][:, -1]
+        return prefill_logits, ("params", "batch")
+    if shape.kind == "decode":
+        return build_serve_step(cfg), ("params", "caches", "tokens", "pos")
+    raise ValueError(shape.kind)

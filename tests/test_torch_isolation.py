@@ -1,14 +1,16 @@
 """The PyTorch port stands alone and never falls back to the CPU.
 
-* No module of ``src/repro_torch`` and not ``chip_smoke.py`` imports
-  ``jax`` or the JAX package ``repro`` (an AST scan of every import).
+* No module of ``src/repro_torch``, no example of ``examples_torch/`` and
+  not ``chip_smoke.py`` imports ``jax`` or the JAX package ``repro`` (an
+  AST scan of every import).
 * Importing ``repro_torch`` in a fresh interpreter leaves ``jax`` out of
   ``sys.modules``.
 * ``device=None`` means ``cuda:0`` and raises where CUDA is absent, for
   the solvers, the population cohort, the cohort and plan builders of the
   churn orchestrator, the multi-app solvers, the serving engine and its
   launcher, the users mesh and its relaxer, and the plans that
-  ``fin_failover`` re-solves.
+  ``fin_failover`` re-solves, and the four examples of
+  ``examples_torch/`` without ``--device``.
 * No stub is left: no module of the port raises ``NotImplementedError``
   for a part of the reference still to be ported.
 * ``chip_smoke.py`` exits non-zero, printing no result, without a card.
@@ -44,9 +46,17 @@ def _imported_modules(path: Path):
             yield str(node.args[0].value)
 
 
+EXAMPLES = ROOT / "examples_torch"
+EXAMPLE_NAMES = ("quickstart", "multiapp_placement", "serve_split",
+                 "train_lm")
+
+
 def _port_files():
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = (sorted(PORT.rglob("*.py")) + sorted(EXAMPLES.glob("*.py"))
+             + [ROOT / "chip_smoke.py"])
     assert len(files) > 10
+    for name in EXAMPLE_NAMES:
+        assert EXAMPLES / f"{name}.py" in files, name
     for mod in ("core/capacity.py", "core/contingency.py",
                 "core/multiapp.py", "core/online.py", "core/faults.py",
                 "runtime/straggler.py", "runtime/checkpoint.py",
@@ -54,7 +64,10 @@ def _port_files():
                 "models/ssm.py", "models/moe.py", "runtime/steps.py",
                 "models/cnn_layers.py", "models/branchy.py",
                 "data/synthetic.py", "optim/adamw.py",
-                "runtime/train_loop.py", "launch/train.py"):
+                "runtime/train_loop.py", "launch/train.py",
+                "launch/flops.py", "launch/analytic.py", "launch/mesh.py",
+                "launch/roofline.py", "launch/dryrun.py", "launch/report.py",
+                "sharding/specs.py", "sharding/context.py"):
         assert PORT / mod in files, mod
     return files
 
@@ -87,7 +100,11 @@ def test_import_in_fresh_interpreter_loads_no_jax_and_builds_nothing():
             "repro_torch.runtime.steps, repro_torch.models.cnn_layers, "
             "repro_torch.models.branchy, repro_torch.data.synthetic, "
             "repro_torch.optim.adamw, repro_torch.runtime.train_loop, "
-            "repro_torch.launch.train\n"
+            "repro_torch.launch.train, repro_torch.launch.flops, "
+            "repro_torch.launch.analytic, repro_torch.launch.mesh, "
+            "repro_torch.launch.roofline, repro_torch.launch.dryrun, "
+            "repro_torch.launch.report, repro_torch.sharding.specs, "
+            "repro_torch.sharding.context\n"
             "from repro_torch.kernels import _build\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
@@ -282,3 +299,37 @@ def test_no_unported_stubs_remain():
             if "NotImplementedError" in text and tag in text:
                 offenders.append(f"{path.relative_to(ROOT)}: {tag}")
     assert not offenders, offenders
+
+
+def test_examples_default_to_cuda_and_raise_without_it():
+    """Each example of ``examples_torch/`` runs on ``cuda:0`` unless told
+    ``--device``, raising where there is no card; none falls back to the
+    CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: device=None resolves to it")
+    import importlib.util
+    for name in EXAMPLE_NAMES:
+        spec = importlib.util.spec_from_file_location(
+            f"iso_ex_{name}", EXAMPLES / f"{name}.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        argv = ["--small", "--steps", "1"] if name == "train_lm" else []
+        with pytest.raises(RuntimeError, match="cuda"):
+            mod.main(argv)
+
+
+def test_dry_run_touches_no_device_and_writes_under_build():
+    """The dry run sizes on ``meta`` only; its default output is under
+    ``build/`` (ignored by git), never the reference's directory."""
+    from repro_torch.launch import dryrun, report
+    from repro_torch.launch.mesh import device_mesh, make_test_mesh
+    from repro_torch.runtime.steps import input_specs
+    from repro_torch.configs import SHAPES, get
+    assert dryrun.OUT_DIR == ROOT / "build" / "dryrun"
+    assert report.DRYRUN_DIR == dryrun.OUT_DIR
+    specs = input_specs(get("arctic-480b"), SHAPES["train_4k"])
+    leaves = [specs["state"]["opt"].step, specs["batch"]["tokens"],
+              specs["state"]["params"]["embed"]["table"]]
+    assert all(x.device.type == "meta" for x in leaves)
+    with pytest.raises(RuntimeError, match="process group"):
+        device_mesh(make_test_mesh(), "cuda")

@@ -1,5 +1,14 @@
 """The port's public surface against the reference's.
 
+* Package-wide: for every module of ``src/repro/``, each public top-level
+  name (a function, class or constant it defines; a package's
+  ``__all__``) exists in the port's twin module, the module of the same
+  path under ``src/repro_torch/``.  The twins of the three Pallas modules
+  are their wrappers' ``ops.py`` (with the CUDA sources in ``csrc/``).
+  ``MAPPED`` lists the reference's backend-suffixed names, each against
+  the port function that stands for it, and every target exists;
+  ``QUEUED`` lists the names still to come, each with its reason, and
+  each is still absent from the port.
 * ``repro_torch.core.__all__`` holds every name of ``repro.core.__all__``:
   no module of the reference's core is still to be ported
   (``QUEUED_MODULES`` and ``QUEUED_NAMES`` are empty).
@@ -9,8 +18,11 @@
   ``latency`` attributes on the paper scenario).  Everything runs on the
   CPU.
 """
+import ast
 import dataclasses
+import importlib
 import inspect
+import pathlib
 import re
 
 import numpy as np
@@ -28,6 +40,145 @@ from repro_torch.convert import network_from, profile_from
 
 QUEUED_MODULES = ()
 QUEUED_NAMES = set()
+
+SRC = pathlib.Path(__file__).resolve().parents[1] / "src"
+REF_MODULES = sorted(p.relative_to(SRC / "repro").as_posix()
+                     for p in (SRC / "repro").rglob("*.py"))
+
+#: reference modules whose twin has another path: a Pallas kernel's twin
+#: is its wrapper module, which launches the CUDA kernel of ``csrc/``
+TWIN_MODULES = {
+    "kernels/minplus/minplus.py": "kernels/minplus/ops.py",
+    "kernels/ee_gate/ee_gate.py": "kernels/ee_gate/ops.py",
+    "kernels/decode_attn/decode_attn.py": "kernels/decode_attn/ops.py",
+}
+
+#: the reference's names for one function on several backends (numpy,
+#: jnp, Pallas), each against the port's one function that dispatches on
+#: the device (a CUDA tensor launches the kernel, a CPU tensor runs its
+#: plain version); "module:name" in the port, or a CUDA source that
+#: stands for the name
+MAPPED = {
+    # the reference's numpy / jnp / Pallas engines of the DP
+    "core/bellman_ford.py:bellman_ford_np": "core.bellman_ford:bellman_ford",
+    "core/bellman_ford.py:minplus_vecmat_np":
+        "core.bellman_ford:minplus_vecmat",
+    "core/bellman_ford.py:minplus_vecmat_jnp":
+        "core.bellman_ford:minplus_vecmat",
+    "core/bellman_ford.py:minplus_matmat_jnp":
+        "kernels.minplus.ops:minplus_matmat",
+    "core/bellman_ford.py:layered_relax_jnp": "core.bellman_ford:layered_relax",
+    "core/bellman_ford.py:batched_banded_relax_kbest_pallas":
+        "core.bellman_ford:batched_banded_relax_kbest",
+    # the jitted ingest (B2)
+    "kernels/ee_gate/population.py:quant_signature_jnp":
+        "kernels.ee_gate.population:quant_signature",
+    "kernels/minplus/ref.py:minplus_matmat_ref":
+        "kernels.minplus.ops:minplus_matmat",
+    # the Pallas kernels: B5, B4, B3, B1, B1u, B6, B7
+    "kernels/minplus/minplus.py:minplus_pallas":
+        "kernels.minplus.ops:minplus_vecmat",
+    "kernels/minplus/minplus.py:minplus_argmin_pallas":
+        "kernels.minplus.ops:minplus_vecmat_argmin",
+    "kernels/minplus/minplus.py:banded_minplus_chain_kbest_pallas":
+        "kernels.minplus.ops:banded_minplus_chain_kbest",
+    "kernels/minplus/minplus.py:banded_minplus_chain_pallas":
+        "kernels.minplus.ops:banded_minplus_chain",
+    "kernels/minplus/minplus.py:banded_minplus_pallas":
+        "kernels.minplus.ops:banded_minplus_argmin",
+    "kernels/ee_gate/ee_gate.py:ee_gate_pallas": "kernels.ee_gate.ops:ee_gate",
+    "kernels/decode_attn/decode_attn.py:decode_attn_pallas":
+        "kernels.decode_attn.ops:decode_attn",
+    # the Pallas kernels' sentinels: the plain versions' constants, and the
+    # dense CUDA kernel, which takes +inf where the TPU kernel takes BIG
+    "kernels/ee_gate/ee_gate.py:NEG": "kernels.ee_gate.ref:NEG",
+    "kernels/decode_attn/decode_attn.py:NEG":
+        "kernels.decode_attn.ref:KERNEL_NEG",
+    "kernels/minplus/minplus.py:BIG":
+        "kernels/minplus/csrc/minplus_dense.cu",
+}
+
+#: names still to come, with the reason: the model hooks of sharded
+#: execution (the next slice) stay absent rather than no-ops
+QUEUED = {
+    "models/transformer.py:_sp_constraint":
+        "sequence-parallel activation constraint: sharded execution",
+    "models/ssm.py:_head_constraint":
+        "SSD head sharding constraint: sharded execution",
+}
+
+
+def _public_names(path: pathlib.Path) -> set:
+    """A package's ``__all__``; a module's top-level functions, classes
+    and assigned names that do not start with an underscore."""
+    tree = ast.parse(path.read_text())
+    names = set()
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            names.add(node.name)
+        elif isinstance(node, ast.Assign):
+            for t in node.targets:
+                if isinstance(t, ast.Name):
+                    if t.id == "__all__" and path.name == "__init__.py":
+                        return set(ast.literal_eval(node.value))
+                    names.add(t.id)
+        elif isinstance(node, ast.AnnAssign) and isinstance(node.target,
+                                                            ast.Name):
+            names.add(node.target.id)
+    if path.name == "__init__.py":
+        return set()
+    return {n for n in names if not n.startswith("_")}
+
+
+def _port_module(rel: str):
+    twin = TWIN_MODULES.get(rel, rel)
+    dotted = twin[:-len(".py")].replace("/", ".")
+    if dotted.endswith("__init__"):
+        dotted = dotted[:-len(".__init__")]
+    return importlib.import_module(
+        "repro_torch" + ("." + dotted if dotted else ""))
+
+
+@pytest.mark.parametrize("rel", REF_MODULES)
+def test_every_public_name_has_its_twin(rel):
+    names = _public_names(SRC / "repro" / rel)
+    mod = _port_module(rel)
+    missing = {n for n in names if not hasattr(mod, n)
+               and f"{rel}:{n}" not in MAPPED}
+    assert not missing, (rel, sorted(missing))
+
+
+@pytest.mark.parametrize("key", sorted(MAPPED))
+def test_mapped_names_have_their_targets(key):
+    rel, name = key.split(":")
+    assert name in _public_names(SRC / "repro" / rel), key
+    assert not hasattr(_port_module(rel), name)
+    target = MAPPED[key]
+    if target.endswith(".cu"):
+        src = (SRC / "repro_torch" / target).read_text()
+        assert name in src, (key, target)
+        return
+    mod, attr = target.split(":")
+    obj = getattr(importlib.import_module(f"repro_torch.{mod}"), attr)
+    assert callable(obj) or isinstance(obj, float), key
+
+
+@pytest.mark.parametrize("key", sorted(QUEUED))
+def test_queued_names_are_the_sharded_execution_hooks(key):
+    rel, name = key.split(":")
+    ref = importlib.import_module(
+        "repro." + rel[:-len(".py")].replace("/", "."))
+    assert callable(getattr(ref, name))
+    assert not hasattr(_port_module(rel), name), key
+    assert "sharded execution" in QUEUED[key]
+
+
+def test_every_reference_module_has_a_twin_file():
+    port = SRC / "repro_torch"
+    for rel in REF_MODULES:
+        assert (port / TWIN_MODULES.get(rel, rel)).exists(), rel
+    for rel, twin in TWIN_MODULES.items():
+        assert any((port / twin).parent.joinpath("csrc").glob("*.cu")), rel
 
 
 def _home(name: str) -> str:
