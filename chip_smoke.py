@@ -322,6 +322,26 @@ RESUME_CRASH = 3
 #: cohort's widths; [elastic]: [failover]'s 64 h2 users as Plans
 MULTIHOST_ROWS = 20_000
 ELASTIC_PLANS = 64
+#: [sharded]: the model's steps over DTensors on a ("data", "model") =
+#: (1, SHARDED_WORLD) DeviceMesh, this script started once a rank with
+#: ``--sharded-rank r SHARDED_WORLD port``.  Two gloo ranks on the one card
+#: would be the tensor-parallel run, but DTensor's collectives are the
+#: functional ones, and ``_c10d_functional.all_gather_into_tensor`` then
+#: ``wait_tensor`` over gloo on CUDA tensors ends both ranks with SIGSEGV
+#: on the card's torch (2.11.0+cu128; gloo's own all_reduce / all_gather /
+#: reduce_scatter on CUDA tensors and the functional all-gather on CPU
+#: tensors work), and NCCL refuses two ranks on one card.  So the phase
+#: runs one process over a (1, 1) NCCL mesh: every tensor a DTensor, every
+#: collective over a mesh dimension of one.
+SHARDED_WORLD = 1
+SHARDED_BACKEND = "nccl"
+#: decode: qwen3-4b at full width and depth, B = 4, a 256-slot cache, a
+#: 16-token prefill, 8 steps; train: 2 periods, seq_parallel, B = 2, S = 128
+SHARDED_BATCH, SHARDED_CACHE, SHARDED_PROMPT, SHARDED_STEPS = 4, 256, 16, 8
+SHARDED_TRAIN_PERIODS, SHARDED_TRAIN_B, SHARDED_TRAIN_S = 2, 2, 128
+#: the CPU test's bf16 tolerance (tests/test_torch_sharded.py, the
+#: reference's rtol on the loss)
+SHARDED_RTOL = 5e-3
 PLAN_USERS = 128
 PLAN_TICKS = 8
 FRONTIER_USERS = 16
@@ -566,13 +586,19 @@ def phase_profile(grid, dev, wall_s, n_best=1):
             f"{e.self_device_time_total / 1e3:.3f} ms over {e.count} calls")
 
 
-def phase_environment():
-    import torch
-    from repro_torch.kernels._build import load_library
+def card_line() -> str:
+    """The card's name and power limit, as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` gives them."""
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60)
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    return smi.stdout.strip().splitlines()[0]
+
+
+def phase_environment():
+    import torch
+    from repro_torch.kernels._build import load_library
+    print(card_line(), flush=True)
     from repro_torch.models import layers
     log("env", f"python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)} "
@@ -3060,6 +3086,277 @@ def phase_multihost():
     return {"B1": b1, "B2": 0, "B3": 0}
 
 
+def _sharded_param_bound(w, mu, opt, rtol):
+    """tests/test_torch_sharded.py's bound on an updated parameter, at
+    ``rtol``, plus one bf16 ulp of its value."""
+    g = mu.double() / (1 - opt.b1)
+    amp = opt.eps / (g.abs() + opt.eps) ** 2
+    return (2 ** -7 * w.double().abs() + rtol * float(w.abs().max())
+            + opt.lr * amp * rtol * float(g.abs().max()))
+
+
+def _sharded_b7_row(cfg, world, dev):
+    """B7 at the shape one rank hands it in [sharded]'s decode: device ms
+    (CUDA-graph replays) against its plain version and
+    ``scaled_dot_product_attention``, and the byte bound."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attn.ops import decode_attn
+    from repro_torch.kernels.decode_attn.ref import decode_attn_ref
+    B, T, D = SHARDED_BATCH, SHARDED_CACHE, cfg.head_dim_
+    H, KV = cfg.n_heads // world, max(1, cfg.n_kv_heads // world)
+    g = torch.Generator(device=dev).manual_seed(9)
+    q = torch.randn(B, H, D, generator=g, device=dev).to(torch.bfloat16)
+    k, v = (torch.randn(B, T, KV, D, generator=g, device=dev)
+            .to(torch.bfloat16) for _ in range(2))
+    cpos = torch.arange(T, dtype=torch.int32, device=dev)
+    pos = T - 1
+    saved = decode_attn.launches
+    kern = lambda: decode_attn(q, k, v, cpos, pos)
+    err = max_abs_err(kern().float(),
+                      decode_attn_ref(q, k, v, cpos, pos).float())
+    ms = graph_ms(kern, 20) or cuda_ms(kern, 50, 5)
+    plain_fn = lambda: decode_attn_ref(q, k, v, cpos, pos)
+    plain = graph_ms(plain_fn, 5) or cuda_ms(plain_fn, 5, 1)
+    qs = q[:, :, None].contiguous()
+    ks, vs = (t.transpose(1, 2) for t in (k, v))
+    mask = ((cpos >= 0) & (cpos <= pos))[None, None, None, :]
+    lib_fn = lambda: F.scaled_dot_product_attention(
+        qs, ks, vs, attn_mask=mask, enable_gqa=True)
+    lib = graph_ms(lib_fn, 20) or cuda_ms(lib_fn, 50, 5)
+    decode_attn.launches = saved          # the comparison's launches
+    nbytes = q.numel() * 2 * 2 + (k.numel() + v.numel()) * 2 + T * 4
+    ops = 4 * B * H * T * D
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS_PER_S["float32"]
+    return dict(name="decode_attn@sharded", route="cuda",
+                source=ATTN_SOURCE,
+                replaces="src/repro/kernels/decode_attn/decode_attn.py:72",
+                launches=None, max_abs_err=err, ms=ms, plain_ms=plain,
+                bound_ms=max(t_b, t_o) * 1e3,
+                bound_by="bytes" if t_b >= t_o else "operations",
+                library_ms=lib, shape=[B, H, KV, D, T])
+
+
+def sharded_rank(rank, world, port):
+    """One rank of [sharded] (``chip_smoke.py --sharded-rank``): qwen3-4b
+    decode at full width and depth, then a 2-period ``seq_parallel`` train
+    step, each over DTensors placed by ``launch.dryrun.place_inputs`` and
+    run under ``activation_sharding``, against the unsharded step on the
+    same card.  Prints one ``[sharded] rank r: {json}`` line."""
+    import copy
+    import dataclasses
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import SHAPES
+    from repro_torch.kernels.decode_attn.ops import decode_attn
+    from repro_torch.launch.dryrun import place_inputs
+    from repro_torch.launch.mesh import MeshDesc, device_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.runtime.steps import (build_serve_step,
+                                           build_train_step,
+                                           init_train_state, make_optimizer)
+    from repro_torch.sharding.context import activation_sharding
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    dist.init_process_group(SHARDED_BACKEND,
+                            init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=world)
+    full = lambda x: x.full_tensor() if hasattr(x, "full_tensor") else x
+    out = {}
+    try:
+        dm = device_mesh(MeshDesc(("data", "model"), (1, world)), "cuda")
+        # --- decode: full width and depth, the baseline (tp) config
+        cfg = _arch_cfg(SERVE_ARCH)
+        B, P = SHARDED_BATCH, SHARDED_PROMPT
+        params = T.init_model(cfg, seed=0, device=dev)
+        g = torch.Generator(device=dev).manual_seed(7)
+        prompt = torch.randint(0, cfg.vocab_size, (B, P), generator=g,
+                               device=dev, dtype=torch.int32)
+        toks = torch.randint(0, cfg.vocab_size, (SHARDED_STEPS, B, 1),
+                             generator=g, device=dev, dtype=torch.int32)
+        step = build_serve_step(cfg)
+        shape = dataclasses.replace(SHAPES["decode_32k"], global_batch=B,
+                                    seq_len=SHARDED_CACHE)
+        with torch.no_grad():
+            _, caches = T.prefill(params, cfg, {"tokens": prompt},
+                                  cache_len=SHARDED_CACHE)
+            placed = place_inputs(cfg, shape, {
+                "params": params, "caches": copy.deepcopy(caches),
+                "tokens": toks[0], "pos": P}, dm)
+            want, t_plain = [], []
+            for i in range(SHARDED_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                lg, caches, ex = step(params, caches, toks[i], P + i)
+                torch.cuda.synchronize()
+                t_plain.append(time.perf_counter() - t0)
+                want.append((lg.float(), {k: v.float() for k, v in
+                                          ex.items()}))
+            decode_attn.launches = 0
+            err, t_shard = 0.0, []
+            for i in range(SHARDED_STEPS):
+                tok = place_inputs(cfg, shape, {"tokens": toks[i]},
+                                   dm)["tokens"]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with activation_sharding(dm):
+                    lg2, _, ex2 = step(placed["params"], placed["caches"],
+                                       tok, P + i)
+                torch.cuda.synchronize()
+                t_shard.append(time.perf_counter() - t0)
+                w_lg, w_ex = want[i]
+                scale = float(w_lg[torch.isfinite(w_lg)].abs().max())
+                e = max_abs_err(full(lg2).float(), w_lg) / scale
+                for k in w_ex:
+                    e = max(e, max_abs_err(full(ex2[k]).float(), w_ex[k])
+                            / scale)
+                err = max(err, e)
+            launches = decode_attn.launches
+            cache_err = max(
+                max_abs_err(full(a).float(), b.float())
+                / max(float(b.float().abs().max()), 1e-30)
+                for a, b in zip(tree_leaves(placed["caches"]),
+                                tree_leaves(caches)))
+        n_attn = cfg.n_periods * sum(s.kind == "attn" for s in cfg.pattern)
+        check(launches == SHARDED_STEPS * n_attn,
+              f"rank {rank}: B7 launched {launches} times in the sharded "
+              f"decode, not {SHARDED_STEPS} x {n_attn}")
+        check(err <= 2 ** -6, f"rank {rank}: sharded logits off by {err:.3g}"
+              f" of max |logit| (bf16 tolerance 2^-6)")
+        check(cache_err <= 2 ** -6, f"rank {rank}: caches off by "
+              f"{cache_err:.3g}")
+        out.update(decode=dict(
+            layers=cfg.n_layers, err=err, cache_err=cache_err,
+            launches=launches, plain_ms=[t * 1e3 for t in t_plain],
+            sharded_ms=[t * 1e3 for t in t_shard]))
+        row = _sharded_b7_row(cfg, dm.size(1), dev)
+        del params, placed, caches, want
+        torch.cuda.empty_cache()
+        # --- train: full width, 2 periods, seq_parallel, bf16
+        cfg_t = _arch_cfg(TRAIN_ARCH, SHARDED_TRAIN_PERIODS,
+                          seq_parallel=True)
+        Bt, St = SHARDED_TRAIN_B, SHARDED_TRAIN_S
+        shape_t = dataclasses.replace(SHAPES["train_4k"], global_batch=Bt,
+                                      seq_len=St)
+        state = init_train_state(cfg_t, seed=0, device=dev)
+        batch = {k: torch.randint(0, cfg_t.vocab_size, (Bt, St),
+                                  generator=g, device=dev, dtype=torch.int32)
+                 for k in ("tokens", "labels")}
+        placed = place_inputs(cfg_t, shape_t, {
+            "state": copy.deepcopy(state), "batch": batch}, dm)
+        tstep = build_train_step(cfg_t)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        new, m = tstep(state, batch)
+        torch.cuda.synchronize()
+        t_train_plain = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        with activation_sharding(dm):
+            new2, m2 = tstep(placed["state"], placed["batch"])
+        torch.cuda.synchronize()
+        t_train_shard = time.perf_counter() - t0
+        loss, loss2 = float(m["loss"]), float(full(m2["loss"]))
+        gn, gn2 = float(m["grad_norm"]), float(full(m2["grad_norm"]))
+        check(abs(loss2 - loss) <= SHARDED_RTOL * abs(loss),
+              f"rank {rank}: sharded loss {loss2} vs {loss}")
+        check(abs(gn2 - gn) <= SHARDED_RTOL * abs(gn),
+              f"rank {rank}: sharded grad norm {gn2} vs {gn}")
+        opt = make_optimizer(cfg_t)
+        worst, n_leaves = 0.0, 0
+        for (path, w), mu, got in zip(_paths_of(new["params"]),
+                                      tree_leaves(new["opt"].mu),
+                                      tree_leaves(new2["params"])):
+            bound = _sharded_param_bound(w, mu, opt, SHARDED_RTOL)
+            e = (full(got).double() - w.double()).abs()
+            check(bool((e <= bound).all()), f"rank {rank}: {path} beyond "
+                  f"the bound by {float((e - bound).max()):.3g}")
+            worst = max(worst, float(e.max()))
+            n_leaves += 1
+        out.update(train=dict(
+            layers=cfg_t.n_layers, loss=loss, loss_sharded=loss2,
+            grad_norm=gn, grad_norm_sharded=gn2, worst_param_err=worst,
+            leaves=n_leaves, plain_ms=t_train_plain * 1e3,
+            sharded_ms=t_train_shard * 1e3))
+        out["b7"] = row
+        print(f"[sharded] rank {rank}: {json.dumps(out)}", flush=True)
+    finally:
+        dist.destroy_process_group()
+
+
+def _paths_of(tree, prefix=""):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree)
+                for x in _paths_of(tree[k], f"{prefix}/{k}")]
+    return [(prefix, tree)]
+
+
+def phase_sharded():
+    """[sharded]: this script started once a rank of the (1,
+    SHARDED_WORLD) mesh (``--sharded-rank r world port``); every rank must
+    exit 0 and report its checks.  Returns B7's kernels-line row with the
+    ranks' launches in the sharded decode."""
+    import socket
+    t_phase = time.perf_counter()
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                               "--sharded-rank", str(r), str(SHARDED_WORLD),
+                               str(port)],
+                              cwd=ROOT, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(SHARDED_WORLD)]
+    outs = []
+    try:
+        for p in procs:
+            out, _ = p.communicate(timeout=600)
+            outs.append((p.returncode, out))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    res = []
+    for r, (rc, out) in enumerate(outs):
+        tail = "\n".join(out.splitlines()[-25:])
+        check(rc == 0, f"[sharded] rank {r} exited {rc}:\n{tail}")
+        line = [ln for ln in out.splitlines()
+                if ln.startswith(f"[sharded] rank {r}: ")]
+        check(len(line) == 1, f"[sharded] rank {r} printed no result")
+        res.append(json.loads(line[0].split(": ", 1)[1]))
+    d, t, row = res[0]["decode"], res[0]["train"], res[0]["b7"]
+    med = lambda xs: sorted(xs[1:])[len(xs[1:]) // 2]
+    log("sharded", f"{SHARDED_WORLD} rank(s), {SHARDED_BACKEND}, mesh "
+        f"(data, model) = (1, {SHARDED_WORLD}); decode qwen3-4b "
+        f"{d['layers']} layers bf16, B = {SHARDED_BATCH}, cache "
+        f"{SHARDED_CACHE}, {SHARDED_STEPS} steps after a {SHARDED_PROMPT}-"
+        f"token prefill: logits and exits within {d['err']:.3g} of max "
+        f"|logit| of the unsharded step, caches within {d['cache_err']:.3g};"
+        f" ms a step (host wall, median of steps 2-{SHARDED_STEPS}) "
+        f"unsharded {med(d['plain_ms']):.3f}, sharded "
+        f"{med(d['sharded_ms']):.3f} (first {d['plain_ms'][0]:.3f} / "
+        f"{d['sharded_ms'][0]:.3f}); B7 launches "
+        f"{sum(x['decode']['launches'] for x in res)}")
+    log("sharded", f"train qwen3-4b {t['layers']} layers, seq_parallel, "
+        f"B = {SHARDED_TRAIN_B}, S = {SHARDED_TRAIN_S}, bf16: loss "
+        f"{t['loss']:.6f} / {t['loss_sharded']:.6f}, grad norm "
+        f"{t['grad_norm']:.6f} / {t['grad_norm_sharded']:.6f}, "
+        f"{t['leaves']} parameters within the bound (largest |diff| "
+        f"{t['worst_param_err']:.3g}); one step (host wall, the first) "
+        f"unsharded {t['plain_ms']:.3f} ms, sharded {t['sharded_ms']:.3f} "
+        f"ms")
+    log("sharded", f"B7 at a rank's shape {row.pop('shape')}: "
+        f"{row['ms']:.4f} ms (CUDA graph), plain {row['plain_ms']:.4f}, "
+        f"sdpa {row['library_ms']:.4f}, bound {row['bound_ms']:.6f} by "
+        f"{row['bound_by']}; the phase took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    row["launches"] = sum(x["decode"]["launches"] for x in res)
+    return row
+
+
 def _elastic_plans(where):
     import numpy as np
     import repro_torch as T
@@ -5228,6 +5525,9 @@ def main(argv) -> int:
     if argv[:1] == ["--multihost-rank"] and len(argv) == 4:
         multihost_rank(int(argv[1]), int(argv[2]), argv[3])
         return 0
+    if argv[:1] == ["--sharded-rank"] and len(argv) == 4:
+        sharded_rank(int(argv[1]), int(argv[2]), argv[3])
+        return 0
     if argv and (argv[0] != "--times" or not set(argv[1:]) <= set(TIMES)):
         print(f"usage: python3 chip_smoke.py [--times [{'] ['.join(TIMES)}]]"
               f"; got {argv}", file=sys.stderr)
@@ -5322,7 +5622,13 @@ def main(argv) -> int:
     phase_dryrun()
     walls["dryrun"], t0 = time.perf_counter() - t0, time.perf_counter()
     phase_examples()
-    walls["examples"] = time.perf_counter() - t0
+    walls["examples"], t0 = time.perf_counter() - t0, time.perf_counter()
+    # sharded execution over a DeviceMesh: B7 on each rank's heads
+    torch.cuda.empty_cache()
+    sharded_row = phase_sharded()
+    walls["sharded"] = time.perf_counter() - t0
+    check(sharded_row["launches"] > 0, "decode_attn: no launch on [sharded]")
+    rows.append(sharded_row)
     log("order", f"B6 launches on [branchy]: {launches_branchy}; phase "
         f"walls (s): " + ", ".join(f"[{k}] {v:.1f}" for k, v in walls.items())
         + f"; since the start {time.perf_counter() - T_START:.1f}")
@@ -5348,6 +5654,8 @@ def main(argv) -> int:
         f"{launches_pop['banded_minplus_chain']}; B1 / B2 / B3 launches on "
         + ", ".join(f"[{k}] {v['B1']} / {v['B2']} / {v['B3']}"
                     for k, v in paths.items()))
+    # again beside the numbers: a reader of the output's tail sees the card
+    print(card_line(), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

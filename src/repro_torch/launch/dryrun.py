@@ -39,8 +39,8 @@ from typing import NamedTuple, Optional, Sequence
 from ..configs import SHAPES, all_cells, get
 from ..runtime.steps import input_specs, step_for
 from ..sharding.specs import (_dp_if_divisible, _spec, batch_shardings,
-                              caches_shardings, params_shardings,
-                              scalar_sharding, shard_count)
+                              caches_shardings, distribute_tree,
+                              params_shardings, scalar_sharding, shard_count)
 from .analytic import analytic_cost
 from .mesh import HW, make_production_mesh
 from .roofline import analyze, model_flops
@@ -83,6 +83,21 @@ def shardings_for(cfg, mesh, shape, specs):
             _dp_if_divisible(mesh, specs["tokens"].shape[0]), None)
     if "pos" in specs:
         out["pos"] = scalar_sharding(mesh)
+    return out
+
+
+def place_inputs(cfg, shape, args: dict, device_mesh) -> dict:
+    """A step's arguments (``args``, keyed by argument name as
+    ``input_specs(cfg, shape)``) placed on ``device_mesh`` by their specs
+    (``shardings_for``): every tensor becomes a DTensor, and the decode
+    position ``pos`` stays a Python int.  The port's ``jit(step,
+    in_shardings=...)``: call the step on the result under
+    ``activation_sharding(device_mesh)``."""
+    tensors = {k: v for k, v in args.items() if k != "pos"}
+    out = distribute_tree(tensors, shardings_for(cfg, device_mesh, shape,
+                                                 tensors), device_mesh)
+    if "pos" in args:
+        out["pos"] = args["pos"]
     return out
 
 

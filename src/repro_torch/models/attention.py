@@ -25,11 +25,14 @@ from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import Replicate, Shard
 
 from ..configs.base import ArchConfig
 from ..kernels.decode_attn.ops import decode_attn
-from .layers import (F32, apply_rope, dense_init, rmsnorm, rmsnorm_init,
-                     scalar)
+from ..sharding.dtensor import (is_dtensor, local_offsets, replicated,
+                                write_slot)
+from .layers import (F32, apply_rope, dense_init, linear, rmsnorm,
+                     rmsnorm_init, scalar)
 
 NEG_INF = -1e30
 
@@ -55,7 +58,7 @@ def attn_init(gen: torch.Generator, cfg: ArchConfig, dtype, device) -> dict:
 def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``einsum("bsd,dhk->bshk")`` in x's dtype (float32 accumulation)."""
     d, h, k = w.shape
-    return torch.matmul(x, w.reshape(d, h * k)).unflatten(-1, (h, k))
+    return linear(x, w.reshape(d, h * k)).unflatten(-1, (h, k))
 
 
 def _project_qkv(params, cfg: ArchConfig, x: torch.Tensor,
@@ -74,8 +77,7 @@ def _project_qkv(params, cfg: ArchConfig, x: torch.Tensor,
 def out_proj(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
     """``einsum("bshk,hkd->bsd")`` in out's dtype (float32 accumulation)."""
     H, hd, d = wo.shape
-    return torch.matmul(out.reshape(*out.shape[:-2], H * hd),
-                        wo.reshape(H * hd, d))
+    return linear(out.reshape(*out.shape[:-2], H * hd), wo.reshape(H * hd, d))
 
 
 # ---------------------------------------------------------------------------
@@ -105,6 +107,9 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     O(Sq * chunk) live scores.  Sk is padded to a multiple of ``chunk``
     with key position -10**9, which the mask drops.  GQA groups the heads
     as [B, Sq, KV, G, D]."""
+    if is_dtensor(q):
+        return _chunked_attention_local(q, k, v, q_pos, k_pos, causal=causal,
+                                        window=window, chunk=chunk)
     B, Sq, H, D = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     if H % KV:
@@ -137,6 +142,35 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         m = m_new
     out = acc / l.clamp_min(1e-30)[..., None]
     return out.reshape(B, Sq, H, D).to(q.dtype)
+
+
+def _chunked_attention_local(q, k, v, q_pos, k_pos, *, causal: bool,
+                             window: int, chunk: int):
+    """``chunked_attention`` over DTensors, on each rank's shard through
+    ``local_map``: batch and KV-head shards are local (a query head reads
+    only its group's KV head), the sequences are gathered, and where the
+    KV heads are replicated the query heads are too."""
+    from torch.distributed.tensor.experimental import local_map
+    k, v, q_pos, k_pos = (replicated(t, q) for t in (k, v, q_pos, k_pos))
+    place = []
+    for pq, pk in zip(q.placements, k.placements):
+        if pk.is_shard(0) or (pq.is_shard(0) and not pk.is_shard(2)):
+            place.append(Shard(0))
+        elif pk.is_shard(2):
+            place.append(Shard(2))
+        else:
+            place.append(Replicate())
+    place = tuple(place)
+    whole = tuple(Replicate() for _ in place)
+
+    def local(ql, kl, vl, qp, kp):
+        return chunked_attention(ql, kl, vl, qp, kp, causal=causal,
+                                 window=window, chunk=chunk)
+
+    return local_map(local, out_placements=(place,),
+                     in_placements=(place, place, place, whole, whole),
+                     device_mesh=q.device_mesh,
+                     redistribute_inputs=True)(q, k, v, q_pos, k_pos)
 
 
 def attn_apply(params, cfg: ArchConfig, x: torch.Tensor,
@@ -209,10 +243,78 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
 
     q: [B, 1, H, D]; caches: [B, T, KV, D]; cache_pos: [T] absolute
     positions of each slot (-1 = empty); pos: the current position.  Kernel
-    B7 on CUDA, its plain version on the CPU.
+    B7 on CUDA, its plain version on the CPU; on DTensors B7 runs on each
+    rank's heads (``_decode_attention_local``).
     """
+    if is_dtensor(q):
+        return _decode_attention_local(q, k_cache, v_cache, cache_pos, pos,
+                                       window=window)
     return decode_attn(q[:, 0].contiguous(), k_cache, v_cache, cache_pos,
                        pos, window=window)[:, None]
+
+
+def kv_heads_read(h0: int, Hl: int, H: int, KV: int, kv0: int,
+                  KVl: int) -> Tuple[int, int]:
+    """The global KV heads [lo, hi) that query heads [h0, h0 + Hl) of H
+    read (GQA, G = H / KV a KV head), checked against what the rank holds
+    (KV heads [kv0, kv0 + KVl)) and against B7's grouping, which gives
+    local query head j the KV head j // (Hl / (hi - lo)) of the slice:
+    right for whole groups, or for heads of one KV head.  Raises
+    ``ValueError`` otherwise (B7 is never handed a shard it would pair
+    wrongly)."""
+    G = H // KV
+    lo, hi = h0 // G, (h0 + Hl - 1) // G + 1
+    whole = h0 % G == 0 and Hl % G == 0
+    if not (kv0 <= lo and hi <= kv0 + KVl and (whole or hi - lo == 1)):
+        raise ValueError(
+            f"decode attention: query heads [{h0}, {h0 + Hl}) of {H} "
+            f"(G = {G}) do not read whole KV heads of the rank's "
+            f"[{kv0}, {kv0 + KVl}) of {KV}")
+    return lo, hi
+
+
+def _decode_attention_local(q, k_cache, v_cache, cache_pos, pos: int, *,
+                            window: int):
+    """``decode_attention`` over DTensors: B7 (or its plain version) on
+    each rank's shard, through ``local_map``.
+
+    The cache keeps its batch and KV-head shards; a cache sharded along
+    the sequence is all-gathered first (B7 has no split-softmax output to
+    combine across ranks).  q is brought to the cache's batch shard, and
+    keeps a head shard where the KV heads are replicated (GQA with fewer
+    KV heads than the model axis): each rank then hands B7 the KV heads
+    its query heads read, by global index."""
+    from torch.distributed.tensor.experimental import local_map
+    k_cache, v_cache, cache_pos = (replicated(t, q) for t in
+                                   (k_cache, v_cache, cache_pos))
+    kp = tuple(Replicate() if p.is_shard(1) else p
+               for p in k_cache.placements)
+    qp = []
+    for pq, pk in zip(q.placements, kp):
+        if pk.is_shard(0):
+            qp.append(Shard(0))
+        elif pk.is_shard(2) or (pq.is_shard(2) and pk.is_replicate()):
+            qp.append(Shard(2))
+        else:
+            qp.append(Replicate())
+    qp = tuple(qp)
+    whole = tuple(Replicate() for _ in qp)
+    H, KV = q.shape[2], k_cache.shape[2]
+    h0, kv0 = local_offsets(q, qp)[2], local_offsets(k_cache, kp)[2]
+
+    def local(ql, kl, vl, pl):
+        lo, hi = kv_heads_read(h0, ql.shape[2], H, KV, kv0, kl.shape[2])
+        if kl.shape[2] != hi - lo:
+            kl = kl[:, :, lo - kv0:hi - kv0]
+            vl = vl[:, :, lo - kv0:hi - kv0]
+        return decode_attn(ql[:, 0].contiguous(), kl.contiguous(),
+                           vl.contiguous(), pl, pos, window=window)[:, None]
+
+    return local_map(local, out_placements=(qp,),
+                     in_placements=(qp, kp, kp, whole),
+                     device_mesh=q.device_mesh,
+                     redistribute_inputs=True)(q, k_cache, v_cache,
+                                               cache_pos)
 
 
 def attn_decode_step(params, cfg: ArchConfig, x: torch.Tensor, cache: dict,
@@ -222,27 +324,28 @@ def attn_decode_step(params, cfg: ArchConfig, x: torch.Tensor, cache: dict,
 
     Returns (out [B, 1, d], cache), the cache updated in place: slot
     ``pos % T`` takes the new K/V (a ring buffer under a sliding window);
-    an int8 cache quantizes the new K/V and dequantizes on read.
+    an int8 cache quantizes the new K/V and dequantizes on read.  On a
+    DTensor cache the rank holding the slot writes it (``write_slot``).
     """
-    positions = torch.full((x.shape[0], 1), pos, dtype=torch.int32,
-                           device=x.device)
+    positions = replicated(torch.full((x.shape[0], 1), pos,
+                                      dtype=torch.int32, device=x.device), x)
     q, k, v = _project_qkv(params, cfg, x, positions)
     T = cache["k"].shape[1]
     slot = pos % T
     if "k_scale" in cache:
         kq, ks = _quantize_kv(k)
         vq, vs = _quantize_kv(v)
-        cache["k"][:, slot] = kq[:, 0]
-        cache["v"][:, slot] = vq[:, 0]
-        cache["k_scale"][:, slot] = ks[:, 0]
-        cache["v_scale"][:, slot] = vs[:, 0]
+        write_slot(cache["k"], 1, slot, kq[:, 0])
+        write_slot(cache["v"], 1, slot, vq[:, 0])
+        write_slot(cache["k_scale"], 1, slot, ks[:, 0])
+        write_slot(cache["v_scale"], 1, slot, vs[:, 0])
         k_read = _dequantize_kv(cache["k"], cache["k_scale"], x.dtype)
         v_read = _dequantize_kv(cache["v"], cache["v_scale"], x.dtype)
     else:
-        cache["k"][:, slot] = k[:, 0]
-        cache["v"][:, slot] = v[:, 0]
+        write_slot(cache["k"], 1, slot, k[:, 0])
+        write_slot(cache["v"], 1, slot, v[:, 0])
         k_read, v_read = cache["k"], cache["v"]
-    cache["pos"][slot] = pos
+    write_slot(cache["pos"], 0, slot, pos)
     out = decode_attention(q, k_read, v_read, cache["pos"], pos,
                            window=cfg.sliding_window)
     return out_proj(out, params["wo"]), cache

@@ -25,6 +25,12 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from torch.distributed.tensor import Replicate
+
+from ..sharding.dtensor import (is_dtensor, local_offsets, product_local,
+                                replicated, settle, shard_local,
+                                sharded_only_on)
+
 F32 = torch.float32
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
@@ -65,29 +71,56 @@ def dense_init(gen: torch.Generator, shape, fan_in: int, dtype,
     return x.div_(math.sqrt(fan_in)).to(dtype)
 
 
+def linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` over the last axis of ``x`` (w [K, N]) in x's dtype; on
+    DTensors the product of the local shards (``product_local``), so no
+    placement of x's leading axes has to survive a flatten."""
+    if is_dtensor(x) or is_dtensor(w):
+        return product_local(torch.matmul, x, w)
+    return torch.matmul(x, w)
+
+
 def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x @ w`` over the last axis of ``x`` with a float32 result: the
     reference's ``einsum(..., preferred_element_type=float32)``.  A
     half-precision CUDA product asks cuBLAS for a float32 output where this
     torch offers it, else both operands are upcast (the same numbers: a
-    bf16 value is exact in float32)."""
+    bf16 value is exact in float32).  On DTensors the same product runs on
+    the local shards (``sharding.dtensor.product_local``): DTensor has no
+    rule for the ``out_dtype`` overload."""
+    if is_dtensor(x) or is_dtensor(w):
+        return product_local(_matmul_f32, x, w)
+    return _matmul_f32(x, w)
+
+
+def _matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if x.dtype == F32 and w.dtype == F32:
         return torch.matmul(x, w)
     lead = x.shape[:-1]
-    x2 = x.reshape(-1, x.shape[-1])
-    if x.is_cuda and _MM_OUT_DTYPE and x.dtype == w.dtype:
-        if _needs_grad(x, w):
-            out = _MatmulF32.apply(x2, w, False)
-        else:
-            out = torch.mm(x2, w, out_dtype=F32)
-    else:
-        out = torch.mm(x2.to(F32), w.to(F32))
+    out = _mm_f32(x.reshape(-1, x.shape[-1]), w)
     return out.reshape(*lead, w.shape[-1])
+
+
+def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``matmul_f32`` of a [M, K] and b [K, N] plain tensors."""
+    if a.dtype == F32 and b.dtype == F32:
+        return torch.mm(a, b)
+    if a.is_cuda and _MM_OUT_DTYPE and a.dtype == b.dtype:
+        if _needs_grad(a, b):
+            return _MatmulF32.apply(a, b, False)
+        return torch.mm(a, b, out_dtype=F32)
+    return torch.mm(a.to(F32), b.to(F32))
 
 
 def bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``torch.bmm`` with a float32 result, as ``matmul_f32``: a [E, M, K],
     b [E, K, N] -> [E, M, N] float32."""
+    if is_dtensor(a) or is_dtensor(b):
+        return product_local(_bmm_f32, a, b, batched=True)
+    return _bmm_f32(a, b)
+
+
+def _bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if a.dtype == F32 and b.dtype == F32:
         return torch.bmm(a, b)
     if a.is_cuda and _BMM_OUT_DTYPE and a.dtype == b.dtype:
@@ -166,7 +199,7 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
                ) -> torch.Tensor:
     """x: [..., S, H, D]; positions: [..., S] integer."""
     d = x.shape[-1]
-    freqs = rope_freqs(d, theta, x.device)                    # [D/2]
+    freqs = replicated(rope_freqs(d, theta, x.device), positions)  # [D/2]
     angles = positions[..., None].to(F32) * freqs             # [..., S, D/2]
     cos = torch.cos(angles)[..., None, :]                     # [..., S, 1, D/2]
     sin = torch.sin(angles)[..., None, :]
@@ -192,7 +225,7 @@ def mlp_apply(params: dict, x: torch.Tensor) -> torch.Tensor:
     g = matmul_f32(x, params["w_gate"])
     u = matmul_f32(x, params["w_up"])
     h = (F.silu(g) * u).to(x.dtype)
-    return torch.matmul(h, params["w_down"])
+    return linear(h, params["w_down"])
 
 
 def mlp_flops(d_model: int, d_ff: int) -> float:
@@ -213,7 +246,18 @@ def embed_apply(params: dict, tokens: torch.Tensor) -> torch.Tensor:
     # ``F.embedding``, not ``table[tokens]``: the same rows, and its backward
     # sums each row's gradient in a fixed order, where an indexing's
     # backward (index_put with accumulate) adds with atomics on the CPU
-    return F.embedding(tokens, params["table"])
+    if not is_dtensor(tokens):
+        return F.embedding(tokens, params["table"])
+    # on DTensors: every rank looks up all the tokens in its rows of a
+    # vocab-parallel table, the shares are summed, and the rows are cut to
+    # the tokens' batch shard again (DTensor's own rule fails on a
+    # batch-sharded index into a vocab-sharded table)
+    placements = tokens.placements
+    whole = tokens.redistribute(tokens.device_mesh,
+                                [Replicate()] * len(placements))
+    h = settle(F.embedding(whole, params["table"]))
+    return h.redistribute(h.device_mesh, [
+        p if p.is_shard(0) else q for p, q in zip(placements, h.placements)])
 
 
 def lm_head_init(gen: torch.Generator, d_model: int, vocab_padded: int,
@@ -226,7 +270,12 @@ def lm_head_apply(params: dict, x: torch.Tensor, vocab_size: int
                   ) -> torch.Tensor:
     """Float32 logits with the padded-vocab tail set to -inf."""
     logits = matmul_f32(x, params["w"])
-    if logits.shape[-1] != vocab_size:
+    V = logits.shape[-1]
+    if V != vocab_size and is_dtensor(logits):
+        # a vocab-parallel head: every rank masks its own columns
+        pad = torch.arange(V, device=logits.device) >= vocab_size
+        return logits.masked_fill(replicated(pad, logits), -math.inf)
+    if V != vocab_size:
         logits[..., vocab_size:] = -math.inf
     return logits
 
@@ -255,13 +304,42 @@ def _ce_chunk(h: torch.Tensor, head_w: torch.Tensor, labels: torch.Tensor,
     V = logits.shape[-1]
     if V != vocab_size:
         pad = torch.arange(V, device=logits.device) >= vocab_size
-        logits = logits.masked_fill(pad, -1e30)
+        logits = logits.masked_fill(replicated(pad, logits), -1e30)
     with torch.no_grad():                       # the reference's stop_gradient
         m = logits.max(dim=-1).values
     lse = m + torch.log(torch.exp(logits - m[..., None]).sum(dim=-1))
-    gold = torch.gather(logits, -1, labels.clamp_min(0)[..., None])[..., 0]
+    gold = _gold(logits, labels.clamp_min(0))
     valid = (labels >= 0).to(F32)
     return ((lse - gold) * valid).sum(), valid.sum()
+
+
+def _gold(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """``logits[..., labels]``.  On DTensors each rank gathers from its
+    own vocabulary columns (a label outside them gives 0) and the shares
+    are summed (as are a partial sum's)."""
+    if not is_dtensor(logits):
+        return torch.gather(logits, -1, labels[..., None])[..., 0]
+    from torch.distributed.tensor import Partial
+    from torch.distributed.tensor.experimental import local_map
+    last = logits.dim() - 1
+    lo = local_offsets(logits)[last]
+    split = [p.is_shard(last) or p.is_partial() for p in logits.placements]
+    out = tuple(Partial() if s else p
+                for s, p in zip(split, logits.placements))
+    lab = tuple(Replicate() if s else p
+                for s, p in zip(split, logits.placements))
+
+    def local(lg, lb):
+        mine = (lb >= lo) & (lb < lo + lg.shape[-1])
+        idx = torch.where(mine, lb - lo, torch.zeros_like(lb))
+        g = torch.gather(lg, -1, idx[..., None])[..., 0]
+        return torch.where(mine, g, torch.zeros_like(g))
+
+    return settle(local_map(local, out_placements=(out,),
+                            in_placements=(logits.placements, lab),
+                            in_grad_placements=(logits.placements, lab),
+                            device_mesh=logits.device_mesh,
+                            redistribute_inputs=True)(logits, labels))
 
 
 def chunked_cross_entropy(h: torch.Tensor, head_w: torch.Tensor,
@@ -278,12 +356,14 @@ def chunked_cross_entropy(h: torch.Tensor, head_w: torch.Tensor,
     The gold logit is gathered, which selects the same float as the
     reference's one-hot contraction.
     """
+    # a sequence-parallel h is gathered first: the chunks cut the sequence
+    h, labels = (sharded_only_on(t, 0) for t in (h, labels))
     B, S, _ = h.shape
     labels = labels.long()
     if S % chunk:
         pad = chunk - S % chunk
-        h = F.pad(h, (0, 0, 0, pad))
-        labels = F.pad(labels, (0, pad), value=-1)
+        h = shard_local(F.pad, h, (0, 0, 0, pad))
+        labels = shard_local(F.pad, labels, (0, pad), "constant", -1)
     tot = torch.zeros((), dtype=F32, device=h.device)
     cnt = torch.zeros((), dtype=F32, device=h.device)
     for hc, lc in zip(h.split(chunk, dim=1), labels.split(chunk, dim=1)):

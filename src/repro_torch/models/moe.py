@@ -29,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
+from ..sharding.dtensor import replicated
 from .layers import F32, bmm_f32, dense_init, matmul_f32, mlp_apply, mlp_init
 
 
@@ -89,13 +90,13 @@ def _moe_gather(params, cfg: ArchConfig, xg: torch.Tensor) -> torch.Tensor:
     probs, gate_vals, expert_ids = _route(params, cfg, xg)
 
     # per-(token, expert) renormalized gate, 0 where not selected: [G, t, E]
-    gate_te = torch.zeros((G, t, E), dtype=F32, device=xg.device)
-    gate_te.scatter_(-1, expert_ids, gate_vals)
+    gate_te = replicated(torch.zeros((G, t, E), dtype=F32, device=xg.device),
+                         xg).scatter(-1, expert_ids, gate_vals)
 
     # each expert takes its top-C tokens by gate weight within the group
     top_w, top_idx = _topk(gate_te.transpose(1, 2), min(C, t))  # [G,E,C]
     valid = top_w > 0.0
-    groups = torch.arange(G, device=xg.device)[:, None, None]
+    groups = replicated(torch.arange(G, device=xg.device), xg)[:, None, None]
     xe = xg[groups, top_idx]                                    # [G,E,C,d]
     xe = xe * valid[..., None].to(xg.dtype)
     ye = _experts(params, xe) * (top_w * valid)[..., None]      # f32
@@ -105,10 +106,10 @@ def _moe_gather(params, cfg: ArchConfig, xg: torch.Tensor) -> torch.Tensor:
     # most top_k = 2 nonzero contributions (one an expert that kept it; the
     # rest are exact zeros) and a + b == b + a.  With top_k > 2 the order
     # of the adds would change the float32 sum.
-    y = torch.zeros((G, t, d), dtype=F32, device=xg.device)
+    y = replicated(torch.zeros((G, t, d), dtype=F32, device=xg.device), xg)
     Ck = top_idx.shape[-1]
-    y.scatter_add_(1, top_idx.reshape(G, E * Ck, 1).expand(G, E * Ck, d),
-                   ye.reshape(G, E * Ck, d))
+    y = y.scatter_add(1, top_idx.reshape(G, E * Ck, 1).expand(G, E * Ck, d),
+                      ye.reshape(G, E * Ck, d))
     return y.to(xg.dtype)
 
 
@@ -123,7 +124,7 @@ def _moe_einsum(params, cfg: ArchConfig, xg: torch.Tensor) -> torch.Tensor:
     flat = sel.reshape(G, t * k, E)
     pos = (torch.cumsum(flat, dim=1) * flat - 1.0).reshape(G, t, k, E)
     keep = (pos >= 0) & (pos < C)
-    slots = torch.arange(C, dtype=F32, device=xg.device)
+    slots = replicated(torch.arange(C, dtype=F32, device=xg.device), xg)
     pos_oh = (pos[..., None] == slots).to(F32) * keep[..., None]
     dispatch = torch.einsum("gtke,gtkec->gtec", sel, pos_oh)    # [G,t,E,C]
     combine = torch.einsum("gtec,gtke->gtec", dispatch,

@@ -18,9 +18,11 @@ reference's order (i = 0 .. w-1); the decode conv is one float32
 reduction rounded once, as the reference's activation-dtype einsum.
 ``softplus`` is ``logaddexp(x, 0)``, as ``jax.nn.softplus``.
 
-The reference's ``_head_constraint`` (a sharding constraint on the head
-axis) is a no-op without a sharding context and is left out; it returns
-with sharded execution (ROADMAP A.6), which reads ``sharding/context.py``.
+``_head_constraint`` is the reference's sharding constraint on the head
+axis, on the initial state and on ``xh`` / ``dt`` of the full-sequence
+mixer: over DTensors under ``activation_sharding(device_mesh)`` it
+redistributes them; on plain tensors, or without a context, it does
+nothing.
 """
 from __future__ import annotations
 
@@ -30,7 +32,9 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
-from .layers import F32, dense_init, rmsnorm, rmsnorm_init
+from ..sharding.context import current
+from ..sharding.dtensor import constrain, replicated
+from .layers import F32, dense_init, linear, rmsnorm, rmsnorm_init
 
 
 def ssm_dims(cfg: ArchConfig) -> Tuple[int, int, int, int]:
@@ -41,6 +45,33 @@ def ssm_dims(cfg: ArchConfig) -> Tuple[int, int, int, int]:
         raise ValueError(f"{cfg.name}: d_inner {d_inner} is not a multiple "
                          f"of ssm_head_dim {P}")
     return d_inner, d_inner // P, P, cfg.ssm_state
+
+
+def _head_spec(cfg: ArchConfig, shape: Tuple[int, ...], head_axis: int):
+    """The spec ``_head_constraint`` puts on a tensor of ``shape`` under
+    the current context, or None (left as it is)."""
+    if not cfg.ssm_head_shard:
+        return None
+    ctx = current()
+    if ctx is None or not ctx.model_axis:
+        return None
+    if shape[head_axis] % ctx.model_size:
+        return None
+    spec = [None] * len(shape)
+    spec[0] = ctx.dp_axes
+    spec[head_axis] = ctx.model_axis
+    return tuple(spec)
+
+
+def _head_constraint(cfg: ArchConfig, x: torch.Tensor, head_axis: int
+                     ) -> torch.Tensor:
+    """Tensor parallelism for the SSD's inner dims: the head axis sharded
+    on "model" (and the batch on the data axes) when
+    ``cfg.ssm_head_shard``; else every rank would run the whole
+    d_inner-wide scan.  A DTensor is redistributed onto the context's
+    mesh; without a context, or on a plain tensor, ``x`` is returned."""
+    spec = _head_spec(cfg, tuple(x.shape), head_axis)
+    return x if spec is None else constrain(x, spec)
 
 
 def ssm_init(gen: torch.Generator, cfg: ArchConfig, dtype, device) -> dict:
@@ -103,10 +134,11 @@ def _ssd_scan(cfg: ArchConfig, xh: torch.Tensor, Bm: torch.Tensor,
         Bm, Cm = (F.pad(t, (0, 0, 0, pad)) for t in (Bm, Cm))
         dt, a_log = (F.pad(t, (0, 0, 0, pad)) for t in (dt, a_log))
         S += pad
-    causal = torch.tril(torch.ones((Q, Q), dtype=torch.bool,
-                                   device=xh.device))
+    causal = replicated(torch.tril(torch.ones((Q, Q), dtype=torch.bool,
+                                              device=xh.device)), xh)
     zero = torch.zeros((), dtype=F32, device=xh.device)
-    state = torch.zeros((Bsz, H, P, N), dtype=F32, device=xh.device)
+    state = _head_constraint(cfg, replicated(torch.zeros(
+        (Bsz, H, P, N), dtype=F32, device=xh.device), xh), 1)
     ys = []
     for c0 in range(0, S, Q):
         x = xh[:, c0:c0 + Q]
@@ -141,19 +173,20 @@ def ssm_apply_with_state(params, cfg: ArchConfig, x: torch.Tensor
     di, H, P, N = ssm_dims(cfg)
     w = cfg.ssm_conv_width
     B, S_in = x.shape[:2]
-    zxbcdt = torch.matmul(x, params["in_proj"])
+    zxbcdt = linear(x, params["in_proj"])
     z, conv_in, dt_raw = _split_proj(cfg, zxbcdt)
     conv_out = _causal_conv(params["conv_w"], params["conv_b"], conv_in)
     xs, Bm, Cm = torch.split(conv_out, [di, N, N], dim=-1)
-    xh = xs.reshape(B, S_in, H, P)
-    dt = softplus(dt_raw.to(F32) + params["dt_bias"])
+    xh = _head_constraint(cfg, xs.reshape(B, S_in, H, P), 2)
+    dt = _head_constraint(cfg, softplus(dt_raw.to(F32) + params["dt_bias"]),
+                          2)
     a_log = -torch.exp(params["A_log"])[None, None, :] * dt    # log a_t
     y, final_state = _ssd_scan(cfg, xh, Bm, Cm, dt, a_log)
     y = y + xh * params["D"][None, None, :, None].to(x.dtype)
     y = y.reshape(B, S_in, di)
     y = rmsnorm(params["norm"], y * F.silu(z.to(F32)).to(x.dtype),
                 cfg.norm_eps)
-    out = torch.matmul(y, params["out_proj"])
+    out = linear(y, params["out_proj"])
     # conv cache: the last w-1 *pre-conv* channel inputs
     if S_in >= w - 1:
         tail = conv_in[:, S_in - (w - 1):, :]
@@ -192,7 +225,7 @@ def ssm_decode_step(params, cfg: ArchConfig, x: torch.Tensor, cache: dict
     place."""
     di, H, P, N = ssm_dims(cfg)
     B = x.shape[0]
-    zxbcdt = torch.matmul(x, params["in_proj"])
+    zxbcdt = linear(x, params["in_proj"])
     z, conv_in, dt_raw = _split_proj(cfg, zxbcdt)
     # causal conv over [cached w-1 inputs, current]
     hist = torch.cat([cache["conv"], conv_in], dim=1)          # [B,w,C]
@@ -211,7 +244,7 @@ def ssm_decode_step(params, cfg: ArchConfig, x: torch.Tensor, cache: dict
     y = y.reshape(B, 1, di).to(x.dtype)
     y = rmsnorm(params["norm"], y * F.silu(z.to(F32)).to(x.dtype),
                 cfg.norm_eps)
-    out = torch.matmul(y, params["out_proj"])
+    out = linear(y, params["out_proj"])
     cache["state"].copy_(state)
     cache["conv"].copy_(hist[:, 1:])
     return out, cache

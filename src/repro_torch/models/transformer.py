@@ -25,9 +25,14 @@ periods, and each period reads views of the stacked parameters and caches
 (the full-sequence forward takes them with one ``unbind`` a stack, see
 ``_periods``).  ``_remat`` is the reference's activation checkpointing,
 through ``torch.utils.checkpoint`` around each period (and each layer for
-``remat="layer"``), applied only where a gradient is taken.  The
-reference's ``_sp_constraint`` (sequence-parallel sharding) waits for
-sharded execution (ROADMAP A.6), which reads ``sharding/context.py``.
+``remat="layer"``), applied only where a gradient is taken; the recompute
+runs under the sharding context that the forward saw.
+
+Every entry point also runs over DTensors placed by
+``sharding/specs.py`` (``launch.dryrun.place_inputs``) under
+``activation_sharding(device_mesh)``: ``_sp_constraint``, the reference's
+sequence-parallel (or pure-DP batch) constraint at layer boundaries,
+redistributes the hidden states there.  On plain tensors it does nothing.
 """
 from __future__ import annotations
 
@@ -40,6 +45,8 @@ from torch.utils.checkpoint import (checkpoint,
 
 from .._device import DeviceLike, resolve_device
 from ..configs.base import ArchConfig, LayerSpec
+from ..sharding.context import captured, current, entered
+from ..sharding.dtensor import constrain, replicated
 from . import attention as ATT
 from . import moe as MOE
 from . import ssm as SSM
@@ -162,13 +169,49 @@ def _period(tree, p: int):
     return _tree_map(lambda x: x[p], tree)
 
 
+def _sp_spec(cfg: ArchConfig, shape: Tuple[int, ...]):
+    """The spec ``_sp_constraint`` puts on hidden states of ``shape``
+    under the current context, or None (left as they are)."""
+    ctx = current()
+    if ctx is None or len(shape) != 3:
+        return None
+    if cfg.parallelism_mode == "pure_dp":
+        # ZeRO pitfall (the reference's): without an explicit batch
+        # constraint the sharded weights stay in place and the batch is
+        # replicated instead
+        axes = ctx.dp_axes + ((ctx.model_axis,) if ctx.model_axis else ())
+        n = ctx.dp_size * max(1, ctx.model_size)
+        if not axes or shape[0] % n:
+            return None
+        return (axes, None, None)
+    if not cfg.seq_parallel:
+        return None
+    if not ctx.model_axis or shape[1] % ctx.model_size:
+        return None
+    return (ctx.dp_axes, ctx.model_axis, None)
+
+
+def _sp_constraint(cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
+    """Sequence parallelism: hidden states sharded on (batch = dp, seq =
+    model) at layer boundaries (Megatron-SP: the tensor-parallel
+    all-reduces become all-gather + reduce-scatter pairs, and the resident
+    activations shrink by the model-axis size); under ``pure_dp`` the batch
+    over every axis.  A DTensor is redistributed onto the context's mesh;
+    without a context, or on a plain tensor, ``h`` is returned."""
+    spec = _sp_spec(cfg, tuple(h.shape))
+    return h if spec is None else constrain(h, spec)
+
+
 def _one_layer(cfg: ArchConfig, spec: LayerSpec, p: dict, h: torch.Tensor,
                positions: torch.Tensor) -> torch.Tensor:
+    h = _sp_constraint(cfg, h)
     hn = rmsnorm(p["norm1"], h, cfg.norm_eps)
     if spec.kind == "attn":
         h = h + ATT.attn_apply(p["mix"], cfg, hn, positions)
     else:
         h = h + SSM.ssm_apply(p["mix"], cfg, hn)
+    if spec.mlp != "none":
+        h = _sp_constraint(cfg, h)
     return _ffn(cfg, spec, p, h)
 
 
@@ -202,19 +245,26 @@ def _period_apply(cfg: ArchConfig, pp: dict, h: torch.Tensor,
             # period keeps one layer's intermediates live
             fn = _checkpointed(fn)
         h = fn(pp[f"l{i}"], h, positions)
-    return h
+    return _sp_constraint(cfg, h)
 
 
 def _checkpointed(fn, context_fn=None):
     """``fn`` under ``torch.utils.checkpoint`` (nothing saved inside but
     what ``context_fn``'s policy keeps) where a gradient is being taken,
-    ``fn`` itself elsewhere."""
+    ``fn`` itself elsewhere.  The sharding context of the caller is taken
+    now and entered around every run of ``fn``: the recompute may run on
+    autograd's device thread, where the caller's context is not set."""
     kw = {} if context_fn is None else {"context_fn": context_fn}
+    state = captured()
+
+    def in_context(*args):
+        with entered(state):
+            return fn(*args)
 
     def run(*args):
         if not torch.is_grad_enabled():
             return fn(*args)
-        return checkpoint(fn, *args, use_reentrant=False,
+        return checkpoint(in_context, *args, use_reentrant=False,
                           preserve_rng_state=False, **kw)
     return run
 
@@ -272,8 +322,8 @@ def _embed_inputs(params, cfg: ArchConfig, batch: dict) -> torch.Tensor:
 
 def _positions(h: torch.Tensor) -> torch.Tensor:
     B, S = h.shape[:2]
-    return torch.arange(S, dtype=torch.int32,
-                        device=h.device).expand(B, S)
+    return replicated(torch.arange(S, dtype=torch.int32, device=h.device),
+                      h).expand(B, S)
 
 
 # ---------------------------------------------------------------------------

@@ -29,6 +29,7 @@ from dataclasses import dataclass
 from typing import Callable, Iterator, NamedTuple, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate
 
 F32 = torch.float32
 #: elements of the largest piece a leaf is updated in, by device type: few
@@ -77,6 +78,26 @@ def pieces(t: torch.Tensor) -> Iterator[torch.Tensor]:
         yield t[i:i + rows]
 
 
+def _local(x):
+    """A DTensor's local shard; any other value itself."""
+    return x.to_local() if isinstance(x, DTensor) else x
+
+
+def _sum_over_ranks(v: torch.Tensor, like) -> torch.Tensor:
+    """``v``, this rank's share of a sum over the elements of ``like``,
+    summed over the mesh when ``like`` is a DTensor (a shard adds every
+    rank's share, a replica counts once)."""
+    if not isinstance(like, DTensor):
+        return v
+    if any(p.is_partial() for p in like.placements):
+        raise ValueError("a partial DTensor has no sum of squares of its "
+                         "own: redistribute it first")
+    placements = [Partial() if p.is_shard() else Replicate()
+                  for p in like.placements]
+    return DTensor.from_local(v, like.device_mesh, placements,
+                              run_check=False).full_tensor()
+
+
 def _const(value: float, like: torch.Tensor) -> torch.Tensor:
     return torch.full((), value, dtype=F32, device=like.device)
 
@@ -112,9 +133,9 @@ class AdamW:
         """One AdamW step; ``params`` and the moments are updated in place
         and returned with the new step."""
         step = state.step + 1
-        s = step.to(F32)
+        s = _local(step).to(F32)
         lr = (_const(self.lr, s) if self.schedule is None
-              else self.lr * self.schedule(step))
+              else self.lr * self.schedule(_local(step)))
         b1, b2 = self.b1, self.b2
         bc1 = 1.0 - b1 ** s
         bc2 = 1.0 - b2 ** s
@@ -132,6 +153,9 @@ class AdamW:
             v.copy_(v_new)
 
         def leaf(g, m, v, p):
+            if isinstance(p, DTensor) and g.placements != p.placements:
+                g = g.redistribute(p.device_mesh, p.placements)
+            g, m, v, p = (_local(x) for x in (g, m, v, p))
             for pg, pm, pv, pp in zip(pieces(g), pieces(m), pieces(v),
                                       pieces(p)):
                 upd(pg, pm, pv, pp)
@@ -145,8 +169,9 @@ def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum of the leaves' squared sums, in flatten order."""
     total = 0
     for x in tree_leaves(tree):
-        total = total + sum(torch.sum(torch.square(p.to(F32)))
-                            for p in pieces(x))
+        total = total + _sum_over_ranks(
+            sum(torch.sum(torch.square(p.to(F32)))
+                for p in pieces(_local(x))), x)
     return torch.sqrt(total)
 
 
@@ -160,7 +185,7 @@ def clip_by_global_norm(tree, max_norm: float, *, inplace: bool = False):
 
     def clip(x):
         out = x if inplace else torch.empty_like(x)
-        for px, po in zip(pieces(x), pieces(out)):
+        for px, po in zip(pieces(_local(x)), pieces(_local(out))):
             po.copy_(px.to(F32) * scale)
         return out
 

@@ -35,6 +35,7 @@ from ..models import transformer as T
 from ..models.layers import dtype_of, no_tf32
 from ..optim import AdamW, clip_by_global_norm
 from ..optim.adamw import tree_leaves
+from ..sharding.dtensor import is_dtensor
 
 
 # ---------------------------------------------------------------------------
@@ -57,7 +58,8 @@ def value_and_grad(loss, params, *args, **kw
                    ) -> Tuple[torch.Tensor, Dict]:
     """(``loss(params, ...)``, its gradient as a tree like ``params``),
     with TF32 off; a parameter the loss does not read gets zeros, as
-    ``jax.grad`` gives."""
+    ``jax.grad`` gives.  A DTensor parameter's gradient comes in its
+    placements (a data-parallel partial sum is reduced here)."""
     leaves = tree_leaves(params)
     for x in leaves:
         x.requires_grad_(True)
@@ -69,6 +71,9 @@ def value_and_grad(loss, params, *args, **kw
     finally:
         for x in leaves:
             x.requires_grad_(False)
+    grads = [g.redistribute(x.device_mesh, x.placements)
+             if is_dtensor(x) and g.placements != x.placements else g
+             for x, g in zip(leaves, grads)]
     return value.detach(), _unflatten_like(params, iter(grads))
 
 

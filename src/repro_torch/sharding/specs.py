@@ -25,8 +25,9 @@ Baseline policy (paper-faithful Megatron-style TP + DP):
 Every rule keys off parameter path names (``"layers/l0/mix/wq"``), which
 the port's dict trees share with the reference's.  ``to_placements`` turns
 a spec into ``Shard`` / ``Replicate`` placements over a ``DeviceMesh`` and
-``distribute_tree`` places a whole tree; executing a sharded step over
-them is the next slice's.
+``distribute_tree`` places a whole tree; ``launch.dryrun.place_inputs``
+places a step's arguments with them, and the step runs over the DTensors
+under ``sharding.context.activation_sharding``.
 """
 from __future__ import annotations
 
