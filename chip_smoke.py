@@ -4,9 +4,13 @@ Run from the repository root:  python3 chip_smoke.py
 
 It builds every hand-written kernel of ``src/repro_torch`` (the banded
 (min,+) argmin chain B1 and k-slot chain B3, the dense (min,+) products B5
-and B4, the exit gate B6, the flash-decode attention B7 and the population
-tick's fused ingest B2; one ``nvcc`` per source, all in parallel), holds
-each against its plain PyTorch version on the card, checks graph
+and B4, the exit gate B6, the flash-decode attention B7, the population
+tick's fused ingest B2, the flash-prefill attention B8 and the SSD chunked
+scan B9; one ``nvcc`` per source, all in parallel), holds each against
+its plain PyTorch version on the card ([kernels_prefill] for B8 and B9:
+float32 and bf16, every head grouping and width of the registry, causal,
+windowed and bidirectional masks, ragged keys, -1 slots, masked leading
+tiles, dead rows; ragged chunks of 8, 13 and 256 rows), checks graph
 construction and the solver on CUDA against the port's CPU path, and
 drives each path of the port with the kernels' launch counters reset just
 before it and read just after:
@@ -66,16 +70,19 @@ before it and read just after:
   [serve_parity]      qwen3-4b widths at 3 layers in float32: the engine and
                       ``decode_step`` on CUDA against the port's CPU path;
   [serve_ssm]         [serve]'s engine run on mamba2-1.3b at full width and
-                      depth in bf16 (48 SSM layers: B6 and B1, no B7);
+                      depth in bf16 (48 SSM layers: B6 and B1, no B7), then
+                      a 4,096-token ``prefill`` (B9 once a layer);
   [serve_moe]         the same on mixtral-8x22b at full width cut to 4 of
                       its 56 periods (B7 at G = 6, D = 128), then a
                       4,608-token ``prefill`` into its 4,096-slot window
-                      (the ring slots wrap) and 8 decode steps at B = 1;
+                      (the ring slots wrap; B8 once a layer) and 8 decode
+                      steps at B = 1;
   [prefill]           teacher forcing on the card in float32 (prefill of
                       S - 1 tokens plus a decode step equals
                       ``forward_train``): qwen3-4b at 3 layers, mamba2-1.3b
                       whole, mixtral at 4 periods past its window; and
-                      hubert-xlarge's ``encode`` at full width in bf16;
+                      hubert-xlarge's ``encode`` at full width in bf16 (B8
+                      once a layer);
   [serve_parity]      again for mamba2 (2 periods) and mixtral (1 period)
                       widths in float32: ``forward_train``, ``prefill`` and
                       ``decode_step`` on CUDA against the CPU path;
@@ -109,14 +116,19 @@ path's own step (``launch.analytic`` + ``launch.roofline``) beside its
 measured time, with both parameter counts.
 
 It then times the kernels at their paths' shapes (B7 also at mixtral's
-heads over 4,096 slots), the plain PyTorch programs ``_ssd_scan``,
-``chunked_attention``, ``_moe_gather`` and ``chunked_cross_entropy``
-(forward plus backward) at their paths' shapes ([programs]), relaxes 2^20 scenario rows at population size, and prints
-the kernels JSON line followed by the final status line.  Every failing phase raises; without a CUDA card, or
+heads over 4,096 slots; B8 and B9 at their prefills' shapes beside their
+plain versions and, for B8, scaled_dot_product_attention), the plain
+PyTorch programs ``_moe_gather`` and ``chunked_cross_entropy`` (forward
+plus backward) at their paths' shapes ([programs]), relaxes 2^20 scenario
+rows at population size, and prints the kernels JSON line (B1-B9)
+followed by the final status line.  The launch counters of B8 and B9 are
+reset before [serve_moe]'s and [serve_ssm]'s prefills, [prefill]'s cases,
+hubert's timed ``encode``, [train_parity] and [sharded]'s sharded train
+step, and printed after each.  Every failing phase raises; without a CUDA card, or
 without the repository beside it, it exits non-zero and prints no result.
 
   python3 chip_smoke.py --times [chain] [dense] [kbest] [gate] [attn] [plan]
-                                [ingest]
+                                [ingest] [serve] [prefill]
 
 builds the kernels and runs only the timings (no checks, no result line):
 B1 at the main path's largest launch (20,480 rows) in float64 and float32
@@ -127,9 +139,11 @@ B3 at the k-best path's largest launch in float64 and float32, at K = 32
 and gamma = 10, and at the largest [frontier] launch, B6 at [4, 153,600] in float32 and bf16 on seeded logits, B7, and the
 [plan] wall (768 plans, 9 ticks, CUDA and the CPU path), B2 at 1e6 rows
 for h4 and h6 (and on the [pop_tick] rows with the packs before and after
-the reprices, by graph replays, single launches and torch.profiler); all
-of them
-without a name, else the named ones.  The kernels are timed as CUDA-graph
+the reprices, by graph replays, single launches and torch.profiler),
+[serve]'s engine run, B8 at [serve_moe]'s prefill and hubert's encode
+shapes and B9 at [serve_ssm]'s prefill shape beside their plain versions
+and the library call ([prefill]); all of them without a name, else the
+named ones.  The kernels are timed as CUDA-graph
 replays beside CUDA-event means.  The timings use only the kernels' public
 wrappers, so a copy of this script run from an older checkout times that
 checkout's kernels: run two in turns in one call to compare two designs on
@@ -158,6 +172,8 @@ DENSE_SOURCE = "src/repro_torch/kernels/minplus/csrc/minplus_dense.cu"
 GATE_SOURCE = "src/repro_torch/kernels/ee_gate/csrc/ee_gate.cu"
 ATTN_SOURCE = "src/repro_torch/kernels/decode_attn/csrc/decode_attn.cu"
 INGEST_SOURCE = "src/repro_torch/kernels/ee_gate/csrc/quant_signature.cu"
+PREFILL_SOURCE = "src/repro_torch/kernels/prefill_attn/csrc/prefill_attn.cu"
+SSD_SOURCE = "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu"
 # (B, V) of the exit-gate checks; the qwen3-4b padded vocab has a -inf tail
 # of 153,600 - 151,936 = 1,664 columns
 GATE_SHAPES = [(1, 128), (5, 5000), (4, 153600), (16, 50304),
@@ -193,6 +209,29 @@ ATTN_MOE_CASES = [((4, 48, 8, 128, 4096), 0, "tail"),
                   ((4, 48, 8, 128, 4097), 4096, "full")]
 # cache lengths of the B7 timings: the serving shape and two long caches
 ATTN_TIME_T = (256, 8192, 32768)
+# (B, Sq, Sk, H, KV, D, causal, window, mask, chunk) of the flash-prefill
+# checks (B8, prefill_inputs): the reduced configs' heads (D = 16, G = 2);
+# hubert's (G = 1, D = 80), bidirectional; qwen-like G = 4 at D = 64 with
+# -1 key slots and a ragged Sk; mixtral's (G = 6, D = 128) windowed;
+# granite's MQA (G = 48); leading key tiles masked for every row by a
+# short window; dead rows beside live ones; every row dead; and
+# [serve_moe]'s prefill shape (4,608 tokens, window 4,096)
+PREFILL_CHECK_CASES = [(2, 24, 24, 4, 2, 16, True, 0, "full", 32),
+                       (1, 100, 100, 16, 16, 80, False, 0, "full", 32),
+                       (1, 257, 257, 32, 8, 64, True, 0, "slots", 64),
+                       (1, 600, 600, 48, 8, 128, True, 256, "full", 128),
+                       (1, 333, 333, 48, 1, 128, True, 0, "full", 1024),
+                       (2, 70, 200, 8, 2, 64, True, 16, "lead", 64),
+                       (1, 90, 97, 12, 2, 80, True, 0, "dead", 32),
+                       (1, 40, 129, 6, 1, 16, False, 0, "empty", 16),
+                       (1, 4608, 4608, 48, 8, 128, True, 4096, "full", 1024)]
+# (B, S, H, P, N, chunk) of the SSD scan checks (B9, ssd_inputs): the
+# reduced configs' Q = 8, P = N = 16; Q = 13 with a ragged S; mamba2's
+# P = 64, N = 128 at Q = 256 with a short last chunk, and below one chunk
+# (Q = S); [serve_ssm]'s prefill shape
+SSD_CHECK_CASES = [(2, 24, 4, 16, 16, 8), (2, 37, 4, 16, 16, 13),
+                   (1, 600, 8, 64, 128, 256), (1, 100, 3, 64, 128, 256),
+                   (1, 4096, 64, 64, 128, 256)]
 SERVE_ARCH = "qwen3-4b"
 SERVE_BATCH = 4
 SERVE_CACHE = 256
@@ -3149,6 +3188,7 @@ def sharded_rank(rank, world, port):
     import torch.distributed as dist
     from repro_torch.configs import SHAPES
     from repro_torch.kernels.decode_attn.ops import decode_attn
+    from repro_torch.kernels.prefill_attn.ops import prefill_attn
     from repro_torch.launch.dryrun import place_inputs
     from repro_torch.launch.mesh import MeshDesc, device_mesh
     from repro_torch.models import transformer as T
@@ -3253,11 +3293,15 @@ def sharded_rank(rank, world, port):
         new, m = tstep(state, batch)
         torch.cuda.synchronize()
         t_train_plain = time.perf_counter() - t0
+        prefill_attn.launches = 0
         t0 = time.perf_counter()
         with activation_sharding(dm):
             new2, m2 = tstep(placed["state"], placed["batch"])
         torch.cuda.synchronize()
         t_train_shard = time.perf_counter() - t0
+        b8 = prefill_attn.launches
+        check(b8 > 0, f"rank {rank}: B8 not launched in the sharded train "
+              f"step")
         loss, loss2 = float(m["loss"]), float(full(m2["loss"]))
         gn, gn2 = float(m["grad_norm"]), float(full(m2["grad_norm"]))
         check(abs(loss2 - loss) <= SHARDED_RTOL * abs(loss),
@@ -3279,7 +3323,7 @@ def sharded_rank(rank, world, port):
             layers=cfg_t.n_layers, loss=loss, loss_sharded=loss2,
             grad_norm=gn, grad_norm_sharded=gn2, worst_param_err=worst,
             leaves=n_leaves, plain_ms=t_train_plain * 1e3,
-            sharded_ms=t_train_shard * 1e3))
+            sharded_ms=t_train_shard * 1e3, b8_launches=b8))
         out["b7"] = row
         print(f"[sharded] rank {rank}: {json.dumps(out)}", flush=True)
     finally:
@@ -3347,7 +3391,8 @@ def phase_sharded():
         f"{t['leaves']} parameters within the bound (largest |diff| "
         f"{t['worst_param_err']:.3g}); one step (host wall, the first) "
         f"unsharded {t['plain_ms']:.3f} ms, sharded {t['sharded_ms']:.3f} "
-        f"ms")
+        f"ms; B8 launches on the ranks' shards in the sharded step (counter"
+        f" reset before it) {sum(x['train']['b8_launches'] for x in res)}")
     log("sharded", f"B7 at a rank's shape {row.pop('shape')}: "
         f"{row['ms']:.4f} ms (CUDA graph), plain {row['plain_ms']:.4f}, "
         f"sdpa {row['library_ms']:.4f}, bound {row['bound_ms']:.6f} by "
@@ -3725,6 +3770,155 @@ def attn_inputs(B, H, KV, D, T, dtype, dev, mask, seed):
     return q, k, v, cpos, pos
 
 
+def prefill_inputs(B, Sq, Sk, H, KV, D, mask, dtype, dev, seed):
+    """Seeded B8 inputs: q / k / v and int32 positions.  mask "full": the
+    queries at the last Sq key positions; "slots": a tenth of the key
+    slots at -1; "lead": queries far past a short window, so the first key
+    tiles are masked for every row; "dead": the keys start 40 positions
+    past the first query (causal: the first rows have no live key);
+    "empty": every key slot at -1 (every row dead)."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.as_tensor(rng.normal(size=s), dtype=torch.float32,
+                               device=dev).to(dtype)
+               for s in ((B, Sq, H, D), (B, Sk, KV, D), (B, Sk, KV, D)))
+    k_pos = np.arange(Sk)
+    q_pos = np.arange(Sk - Sq, Sk)
+    if mask == "slots":
+        k_pos[rng.choice(Sk, Sk // 10, replace=False)] = -1
+    elif mask == "dead":
+        k_pos = k_pos + 40
+        q_pos = np.arange(Sq)
+    elif mask == "empty":
+        k_pos[:] = -1
+    qp, kp = (torch.as_tensor(p, dtype=torch.int32, device=dev)
+              for p in (q_pos, k_pos))
+    return q, k, v, qp, kp
+
+
+def ssd_inputs(B, S, H, P, N, dtype, dev, seed):
+    """Seeded B9 inputs: x, B and C in ``dtype``, dt in [0.01, 0.5] and
+    log a = -dt * U(0.01, 1) in float32, as the mixer gives them."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    f = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)
+    xh, Bm, Cm = (f(rng.normal(size=s)).to(dtype)
+                  for s in ((B, S, H, P), (B, S, N), (B, S, N)))
+    dt = f(rng.uniform(0.01, 0.5, (B, S, H)))
+    a_log = -f(rng.uniform(0.01, 1.0, (B, S, H))) * dt
+    return xh, Bm, Cm, dt, a_log
+
+
+def ssd_within(y, st, y_p, st_p):
+    """B9 against its plain version: y and the final state within 1e-4 of
+    their largest |value| in float32 (the sums run in another order and
+    the log decays are cumulated by a parallel scan; every decay is an
+    exp of the same difference), bf16 y within 2^-7 of its largest |value|
+    (each side rounds a float32 sum once, half a bf16 ulp = 2^-9 of a
+    value, and the sums differ below that).  Returns (ok, y error, state
+    error, the tolerance as text)."""
+    import torch
+    ty = (1e-4 if y.dtype == torch.float32 else 2.0 ** -7) * float(
+        y_p.float().abs().max())
+    ts = 1e-4 * float(st_p.abs().max())
+    ey = float((y.float() - y_p.float()).abs().max())
+    es = float((st - st_p).abs().max())
+    return ey <= ty and es <= ts, ey, es, (
+        f"y atol {'1e-4' if y.dtype == torch.float32 else '2^-7'} max|y| = "
+        f"{ty:.3g}, state atol 1e-4 max|state| = {ts:.3g}")
+
+
+def phase_kernels_prefill(dev):
+    """[kernels_prefill]: B8 and B9 against their plain versions on the
+    card, float32 and bf16, with the same bits on a repeat call.
+
+    B8 at PREFILL_CHECK_CASES within ``attn_within``'s tolerance, B7's:
+    float32 rtol = atol = 2e-5 (the kernel sums the scores and the online
+    softmax in another order and in tiles of 32 keys, not chunks), bf16
+    2^-6 of the largest |output| (two bf16 ulps of it: the kernel rounds
+    the probabilities of a 64-key tile to bf16, the plain version those of
+    a chunk, at other scales); a windowed case must fail the check with
+    the window ignored, and a dead row must equal the plain version's sum
+    of v over the padded chunk count.  B9 at SSD_CHECK_CASES within
+    ``ssd_within``.  Returns each kernel's largest abs error."""
+    import torch
+    from repro_torch.kernels.prefill_attn.ops import prefill_attn
+    from repro_torch.kernels.prefill_attn.ref import prefill_attn_ref
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+    err = {"prefill_attn": 0.0, "ssd_scan": 0.0}
+    n8, n9 = prefill_attn.launches, ssd_scan.launches
+    t_phase = time.perf_counter()
+    for case in PREFILL_CHECK_CASES:
+        B, Sq, Sk, H, KV, D, causal, window, mask, chunk = case
+        kw = dict(causal=causal, window=window, chunk=chunk)
+        for dtype in (torch.float32, torch.bfloat16):
+            args = prefill_inputs(B, Sq, Sk, H, KV, D, mask, dtype, dev,
+                                  Sq + Sk + H + D)
+            got = prefill_attn(*args, **kw)
+            again = prefill_attn(*args, **kw)
+            want = prefill_attn_ref(*args, **kw)
+            torch.cuda.synchronize()
+            e = max_abs_err(got.float(), want.float())
+            ok, tol = attn_within(got, want)
+            tag = (f"B8 (B, Sq, Sk, H, KV, D) {(B, Sq, Sk, H, KV, D)} "
+                   f"{dtype} causal={causal} window={window} mask={mask} "
+                   f"chunk={chunk}")
+            check(got.dtype == dtype and ok, f"{tag}: off by {e:.3g} ({tol})")
+            check(torch.equal(got, again), f"{tag}: a repeat call gave "
+                  f"other bits")
+            notes = []
+            if window and Sk > window:
+                blind = prefill_attn_ref(*args, causal=causal, window=0,
+                                         chunk=chunk)
+                check(not attn_within(blind, want)[0], f"{tag}: the check "
+                      f"passes an output that ignores the window")
+                notes.append("an output that ignores the window fails it")
+            if mask in ("dead", "empty"):
+                n_pad = -(-Sk // chunk) * chunk
+                dead = args[2].float().sum(1)[:, None] / n_pad  # [B,1,KV,D]
+                G = H // KV
+                d = dead.repeat_interleave(G, dim=2)[:, 0]
+                e0 = max_abs_err(got[:, 0].float(), d)
+                check(e0 <= 2.0 ** -6 * float(d.abs().max()) + 1e-6,
+                      f"{tag}: a dead row is not sum(v) / {n_pad} "
+                      f"(off by {e0:.3g})")
+                notes.append(f"dead rows = sum(v) / {n_pad} within {e0:.3g}")
+            err["prefill_attn"] = max(err["prefill_attn"], e)
+            log("kernels_prefill", f"{tag}: max_abs_err {e:.3g} within "
+                f"{tol}; a repeat call gives the same bits"
+                + "".join(f"; {n}" for n in notes))
+            del args, got, again, want
+    for B, S, H, P, N, chunk in SSD_CHECK_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            args = ssd_inputs(B, S, H, P, N, dtype, dev, S + H + P + N)
+            y, st = ssd_scan(*args, chunk=chunk)
+            y2, st2 = ssd_scan(*args, chunk=chunk)
+            y_p, st_p = ssd_scan_ref(*args, chunk=chunk)
+            torch.cuda.synchronize()
+            ok, ey, es, tol = ssd_within(y, st, y_p, st_p)
+            tag = (f"B9 (B, S, H, P, N) {(B, S, H, P, N)} chunk {chunk} "
+                   f"(Q = {min(chunk, S)}, {-(-S // min(chunk, S))} chunks, "
+                   f"last {S - (-(-S // min(chunk, S)) - 1) * min(chunk, S)}"
+                   f" rows) x {dtype}")
+            check(y.dtype == dtype and ok, f"{tag}: y off by {ey:.3g}, state"
+                  f" by {es:.3g} ({tol})")
+            check(torch.equal(y, y2) and torch.equal(st, st2),
+                  f"{tag}: a repeat call gave other bits")
+            err["ssd_scan"] = max(err["ssd_scan"], ey, es)
+            log("kernels_prefill", f"{tag}: y max_abs_err {ey:.3g}, state "
+                f"{es:.3g}, within {tol}; a repeat call gives the same bits")
+            del args, y, st, y2, st2, y_p, st_p
+    # the comparisons' launches are not a path's
+    prefill_attn.launches, ssd_scan.launches = n8, n9
+    torch.cuda.empty_cache()
+    log("kernels_prefill", f"the phase took {time.perf_counter() - t_phase:.1f}"
+        f" s")
+    return err
+
+
 def _serve_cfg(**overrides):
     import dataclasses
     from repro_torch.configs import get
@@ -4043,9 +4237,9 @@ def _arch_cfg(arch, periods=None, **overrides):
 
 
 class CallCounter:
-    """Counts the calls of a module function (a plain PyTorch program of
-    the path: ``_ssd_scan``, ``chunked_attention``, ``_moe_gather``) while
-    installed; the module's own callers look the name up at call time."""
+    """Counts the calls of a module function (the path's plain PyTorch
+    program ``_moe_gather``) while installed; the module's own callers
+    look the name up at call time."""
 
     def __init__(self, module, name):
         self.module, self.name = module, name
@@ -4064,10 +4258,8 @@ class CallCounter:
 
 
 def _program_counters():
-    from repro_torch.models import attention, moe, ssm
-    return {"ssd_scan": CallCounter(ssm, "_ssd_scan"),
-            "chunked_attention": CallCounter(attention, "chunked_attention"),
-            "moe_gather": CallCounter(moe, "_moe_gather")}
+    from repro_torch.models import moe
+    return {"moe_gather": CallCounter(moe, "_moe_gather")}
 
 
 def phase_serve_ssm(dev, counters):
@@ -4085,24 +4277,24 @@ def phase_serve_ssm(dev, counters):
           "attention-free model")
     toks = torch.as_tensor(np.random.default_rng(13).integers(
         0, cfg.vocab_size, (1, SSM_PROMPT + 1)), device=dev)
-    with _program_counters()["ssd_scan"] as ssd:
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        logits, caches = TT.prefill(params, cfg,
-                                    {"tokens": toks[:, :SSM_PROMPT]},
-                                    cache_len=SSM_PROMPT + 1)
-        torch.cuda.synchronize()
-        t_pre = time.perf_counter() - t0
+    _reset(counters)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    logits, caches = TT.prefill(params, cfg, {"tokens": toks[:, :SSM_PROMPT]},
+                                cache_len=SSM_PROMPT + 1)
+    torch.cuda.synchronize()
+    t_pre = time.perf_counter() - t0
+    pre = {c.__name__: c.launches for c in counters}
     hi_pre = torch.cuda.max_memory_allocated()
+    check(pre["ssd_scan"] == cfg.n_layers, f"serve_ssm: B9 launched "
+          f"{pre['ssd_scan']} times in a prefill of {cfg.n_layers} SSM "
+          f"layers")
     check(tuple(logits.shape) == (1, cfg.padded_vocab)
           and bool(torch.isfinite(logits[:, :cfg.vocab_size]).all()),
           "serve_ssm: prefill logits not finite or of the wrong shape")
     check(all(bool(torch.isfinite(c["state"]).all())
               for c in caches.values()), "serve_ssm: a prefill state is "
           "not finite")
-    check(ssd.calls == cfg.n_layers, f"serve_ssm: {ssd.calls} _ssd_scan "
-          f"calls in a prefill of {cfg.n_layers} SSM layers")
     lg, caches, _ = TT.decode_step(params, cfg, toks[:, SSM_PROMPT:],
                                    caches, SSM_PROMPT)
     check(bool(torch.isfinite(lg[:, :cfg.vocab_size]).all()),
@@ -4110,11 +4302,11 @@ def phase_serve_ssm(dev, counters):
     log("serve_ssm", f"prefill of {SSM_PROMPT} tokens (B = 1, bf16): "
         f"{t_pre:.3f} s wall (host clock, ending in synchronize), "
         f"{SSM_PROMPT / t_pre:.1f} tokens/s, device memory high-water "
-        f"{hi_pre} B; _ssd_scan calls {ssd.calls}; one decode step after "
-        f"it finite")
+        f"{hi_pre} B; launches in the prefill (counters reset before it) "
+        f"{pre}; one decode step after it finite")
     log("serve_ssm", "prefill: " + _analytic_line(
         cfg, 1, SSM_PROMPT, "prefill", t_pre * 1e3, out["n_params"]))
-    out.update(prefill_s=t_pre, ssd_calls=ssd.calls)
+    out.update(prefill_s=t_pre, prefill_launches=pre)
     del params, caches
     torch.cuda.empty_cache()
     return launches, out
@@ -4130,10 +4322,9 @@ def phase_serve_moe(dev, counters):
     from repro_torch.models import transformer as TT
     cfg = _arch_cfg(MOE_ARCH, MOE_PERIODS)
     progs = _program_counters()
-    with progs["moe_gather"], progs["chunked_attention"]:
+    with progs["moe_gather"]:
         params, cfg, launches, out = _serve_path(
-            "serve_moe", cfg, dev, counters,
-            programs=(progs["moe_gather"], progs["chunked_attention"]))
+            "serve_moe", cfg, dev, counters, programs=(progs["moe_gather"],))
         log("serve_moe", f"depth cut: {MOE_PERIODS} of {MOE_ARCH}'s 56 "
             f"periods; _moe_gather calls on the engine run (its profiled "
             f"window included) "
@@ -4151,7 +4342,11 @@ def phase_serve_moe(dev, counters):
                                     cache_len=cfg.sliding_window)
         torch.cuda.synchronize()
         t_pre = time.perf_counter() - t0
+        pre = {c.__name__: c.launches for c in counters}
         hi_pre = torch.cuda.max_memory_allocated()
+        check(pre["prefill_attn"] == _attn_layers(cfg), f"serve_moe: B8 "
+              f"launched {pre['prefill_attn']} times in a prefill of "
+              f"{_attn_layers(cfg)} attention layers")
         T = cfg.sliding_window
         want_pos = torch.full((T,), -1, dtype=torch.int32)
         live = torch.arange(MOE_PROMPT - T, MOE_PROMPT, dtype=torch.int32)
@@ -4177,13 +4372,13 @@ def phase_serve_moe(dev, counters):
         check(dec_launches["decode_attn"] == _attn_layers(cfg) * MOE_DECODE,
               f"serve_moe: B7 launched {dec_launches['decode_attn']} times "
               f"in {MOE_DECODE} decode steps")
-        n_attn_prog = progs["chunked_attention"].calls
         log("serve_moe", f"prefill of {MOE_PROMPT} tokens (B = 1, cache_len "
             f"{T}): {t_pre:.3f} s wall (host clock, ending in synchronize), "
             f"{MOE_PROMPT / t_pre:.1f} tokens/s, device memory high-water "
             f"{hi_pre} B; ring slots hold positions {MOE_PROMPT - T}.."
-            f"{MOE_PROMPT - 1}; chunked_attention calls {n_attn_prog}, "
-            f"_moe_gather calls {progs['moe_gather'].calls - g0}")
+            f"{MOE_PROMPT - 1}; _moe_gather calls "
+            f"{progs['moe_gather'].calls - g0}; launches "
+            f"in the prefill (counters reset before it) {pre}")
         log("serve_moe", "prefill: " + _analytic_line(
             cfg, 1, MOE_PROMPT, "prefill", t_pre * 1e3, out["n_params"]))
         log("serve_moe", f"{MOE_DECODE} decode steps after it at B = 1 "
@@ -4193,11 +4388,11 @@ def phase_serve_moe(dev, counters):
     for k, v in dec_launches.items():
         launches[k] += v
     out.update(prefill_s=t_pre, decode_ms=walls, programs={
-        k: c.calls for k, c in progs.items()})
+        k: c.calls for k, c in progs.items()}, prefill_launches=pre)
     del caches
     torch.cuda.empty_cache()
     moe_gather_times(params, cfg, dev, progs["moe_gather"].calls)
-    attn_program_times(cfg, dev, n_attn_prog)
+    out["b8_row"] = attn_program_times(cfg, dev, pre["prefill_attn"])
     del params
     torch.cuda.empty_cache()
     return launches, out
@@ -4223,9 +4418,13 @@ def phase_prefill(dev):
     import dataclasses
     import numpy as np
     import torch
+    from repro_torch.kernels.prefill_attn.ops import prefill_attn
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan
     from repro_torch.models import transformer as TT
     out = {}
     progs = _program_counters()
+    kernels = (prefill_attn, ssd_scan)
+    _reset(kernels)
     for arch, periods, B, S in PREFILL_CASES:
         cfg = _arch_cfg(arch, periods, dtype="float32")
         if cfg.n_experts:                  # no capacity drops
@@ -4234,8 +4433,7 @@ def phase_prefill(dev):
         params = TT.init_model(cfg, seed=2, device=dev)
         toks = torch.as_tensor(np.random.default_rng(S).integers(
             0, cfg.vocab_size, (B, S)), device=dev)
-        with progs["ssd_scan"], progs["chunked_attention"], \
-                progs["moe_gather"]:
+        with progs["moe_gather"]:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             full = TT.forward_train(params, cfg, {"tokens": toks})["final"][
@@ -4263,9 +4461,14 @@ def phase_prefill(dev):
         out[arch] = dict(err=err, forward_s=t_fwd, prefill_s=t_pre)
         del params, caches, full, lg
         torch.cuda.empty_cache()
+    launched = {c.__name__: c.launches for c in kernels}
+    check(all(launched.values()), f"prefill: B8 / B9 launches {launched} "
+          f"over the teacher-forcing cases")
     log("prefill", "program calls over the three cases: "
-        + ", ".join(f"{k} {c.calls}" for k, c in progs.items()))
+        + ", ".join(f"{k} {c.calls}" for k, c in progs.items())
+        + f"; kernel launches (counters reset before the cases) {launched}")
     out["programs"] = {k: c.calls for k, c in progs.items()}
+    out["launches"] = launched
     # encode: hubert-xlarge at full width and depth, bf16
     cfg = _arch_cfg("hubert-xlarge")
     params = TT.init_model(cfg, seed=3, device=dev)
@@ -4275,10 +4478,15 @@ def phase_prefill(dev):
         params["final_norm"]["scale"].dtype)
     TT.encode(params, cfg, {"frames": frames})
     torch.cuda.synchronize()
+    _reset(kernels)
     t0 = time.perf_counter()
     logits = TT.encode(params, cfg, {"frames": frames})
     torch.cuda.synchronize()
     t_enc = time.perf_counter() - t0
+    enc = {c.__name__: c.launches for c in kernels}
+    check(enc["prefill_attn"] == _attn_layers(cfg), f"prefill: B8 launched "
+          f"{enc['prefill_attn']} times in an encode of {_attn_layers(cfg)} "
+          f"attention layers")
     check(tuple(logits.shape) == (B, S, cfg.padded_vocab)
           and bool(torch.isfinite(logits[..., :cfg.vocab_size]).all())
           and bool(torch.isinf(logits[..., cfg.vocab_size:]).all()),
@@ -4288,8 +4496,10 @@ def phase_prefill(dev):
         f"frames {(B, S, cfg.d_model)}, {TT.param_count(params)} "
         f"parameters): logits {tuple(logits.shape)} finite (tail -inf), "
         f"{t_enc * 1e3:.3f} ms wall (second call; host clock, ending in "
-        f"synchronize), {B * S / t_enc:.1f} frames/s")
+        f"synchronize), {B * S / t_enc:.1f} frames/s; kernel launches "
+        f"(counters reset before the timed call) {enc}")
     out["encode_ms"] = t_enc * 1e3
+    out["encode_launches"] = enc
     del params, logits, frames
     torch.cuda.empty_cache()
     return out
@@ -4363,13 +4573,14 @@ def phase_serve_parity_more(dev):
         torch.cuda.empty_cache()
 
 
-def _program_row(tag, ms, calls, nbytes, ops, peak, lib):
-    """Log one plain-PyTorch program of the path (an XLA program in the
-    reference, not a Pallas kernel) against its bound."""
+def _program_row(tag, ms, calls, nbytes, ops, peak, lib,
+                 what="plain PyTorch"):
+    """Log one program of the path (an XLA program in the reference, not a
+    Pallas kernel; ``what`` runs it) against its bound."""
     t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / peak
     bound = max(t_b, t_o) * 1e3
     by = "bytes" if t_b >= t_o else "operations"
-    log("programs", f"{tag}: device ms a call {ms:.4f} (plain PyTorch), "
+    log("programs", f"{tag}: device ms a call {ms:.4f} ({what}), "
         f"calls on the path {calls}, bound {bound:.6f} ms by {by} "
         f"({nbytes} B, {ops} ops at {peak / 1e12:.0f} TFLOP/s), "
         f"{bound / ms:.1%} of the bound; library "
@@ -4413,48 +4624,121 @@ def moe_gather_times(params, cfg, dev, calls):
     return rows
 
 
-def attn_program_times(cfg, dev, calls):
-    """``chunked_attention`` at [serve_moe]'s prefill shape (B = 1,
-    MOE_PROMPT tokens, mixtral's heads, window 4,096, bf16) beside
-    scaled_dot_product_attention with the same boolean mask.  Operations:
-    4 H D for each live (query, key) pair."""
+def _kernel_row(name, source, replaces, plain, prog):
+    """The kernels-line row of a kernel that ``_program_row`` logged as
+    ``prog`` (max_abs_err filled in by main from the checks)."""
+    return dict(name=name, route="cuda", source=source, replaces=replaces,
+                launches=prog["calls"], max_abs_err=None, ms=prog["ms"],
+                plain_ms=plain, bound_ms=prog["bound_ms"],
+                bound_by=prog["bound_by"], library_ms=prog["library_ms"])
+
+
+def launch_split(fn, reps=5) -> str:
+    """The device time of ``fn`` a call by kernel, from torch.profiler's
+    device events over ``reps`` calls, as text ("not measured" where the
+    profiler records none)."""
+    import torch
+    from torch.autograd import DeviceType
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as tp:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = sorted((e for e in tp.key_averages()
+                     if e.device_type != DeviceType.CPU
+                     and e.self_device_time_total > 0),
+                    key=lambda e: -e.self_device_time_total)
+    if not events:
+        return "not measured (no device events)"
+    def name(key):   # "void (anonymous namespace)::f<T>(...)" -> "f"
+        key = key.replace("(anonymous namespace)::", "")
+        return key.split("(")[0].split("<")[0].split()[-1]
+    return ", ".join(f"{name(e.key)} "
+                     f"{e.self_device_time_total / 1e3 / reps:.4f} ms"
+                     for e in events)
+
+
+def b8_times(dev, cfg, B, S, launches, tag):
+    """B8 at ``cfg``'s heads over B sequences of S tokens at positions
+    0..S-1 (its mask and window; bf16): device ms a call (CUDA-graph
+    replays) beside its plain version (the reference's chunked loop) and
+    scaled_dot_product_attention with the same boolean mask (none where
+    every pair is live).  Operations: 4 H D for each live (query, key)
+    pair; bytes q, k, v, out and the positions once.  Returns the
+    kernels-line row with ``launches``."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.models import attention as A
-    B, S, H, KV, D = 1, MOE_PROMPT, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
-    W = cfg.sliding_window
+    from repro_torch.kernels.prefill_attn.ops import prefill_attn
+    from repro_torch.kernels.prefill_attn.ref import prefill_attn_ref
+    H, KV, D, W = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_, \
+        cfg.sliding_window
     g = torch.Generator(device=dev).manual_seed(9)
     q = torch.randn(B, S, H, D, generator=g, device=dev).to(torch.bfloat16)
     k = torch.randn(B, S, KV, D, generator=g, device=dev).to(torch.bfloat16)
     v = torch.randn(B, S, KV, D, generator=g, device=dev).to(torch.bfloat16)
     pos = torch.arange(S, dtype=torch.int32, device=dev)
-    fn = lambda: A.chunked_attention(q, k, v, pos, pos, causal=True,
-                                     window=W, chunk=cfg.attn_chunk)
-    ms = _program_ms(fn, 2)
-    mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - W)
+    kw = dict(causal=cfg.causal, window=W, chunk=cfg.attn_chunk)
+    saved = prefill_attn.launches
+    kern = lambda: prefill_attn(q, k, v, pos, pos, **kw)
+    plain_fn = lambda: prefill_attn_ref(q, k, v, pos, pos, **kw)
+    ms = graph_ms(kern, 10) or cuda_ms(kern, 10, 2)
+    plain = _program_ms(plain_fn, 2)
+    mask = torch.ones((S, S), dtype=torch.bool, device=dev)
+    if cfg.causal:
+        mask &= pos[None, :] <= pos[:, None]
+    if W > 0:
+        mask &= pos[None, :] > pos[:, None] - W
+    live = int(mask.sum()) * B
     lib_fn = lambda: F.scaled_dot_product_attention(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-        attn_mask=mask, enable_gqa=True)
-    e = max_abs_err(lib_fn().transpose(1, 2).float(), fn().float())
-    check(e <= 2e-2, f"chunked_attention vs scaled_dot_product_attention off "
-          f"by {e:.3g}")
+        attn_mask=None if live == B * S * S else mask, enable_gqa=True)
+    got = kern()
+    e_lib = max_abs_err(lib_fn().transpose(1, 2).float(), got.float())
+    ok, tol = attn_within(got, plain_fn())
+    check(ok and e_lib <= 2e-2, f"B8 at {tag}: off its plain version "
+          f"({tol}) or scaled_dot_product_attention by {e_lib:.3g}")
     lib = _program_ms(lib_fn, 2)
-    live = sum(min(i + 1, W) for i in range(S)) * B
-    nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2
-    return _program_row(f"chunked_attention bf16 q {tuple(q.shape)} k/v "
-                        f"{tuple(k.shape)} window {W} chunk {cfg.attn_chunk} "
-                        f"({live} live pairs; library within {e:.3g})", ms,
-                        calls, nbytes, 4 * H * D * live, 989e12, lib)
+    log("programs", f"B8 at {tag}: device time a call by kernel "
+        f"(torch.profiler, 5 calls): {launch_split(kern)}")
+    prefill_attn.launches = saved          # the timings' launches
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2 + 2 * S * 4
+    ops = 4 * H * D * live
+    prog = _program_row(
+        f"B8 prefill_attn at {tag}: bf16 q {tuple(q.shape)} k/v "
+        f"{tuple(k.shape)} causal {cfg.causal} window {W} ({live} live "
+        f"pairs; plain {plain:.4f} ms; library within {e_lib:.3g})", ms,
+        launches, nbytes, ops, 989e12, lib, "kernel B8")
+    return _kernel_row("prefill_attn", PREFILL_SOURCE,
+                       "src/repro/models/attention.py:73", plain, prog)
 
 
-def ssd_program_times(dev, calls):
-    """``_ssd_scan`` at [serve_ssm]'s prefill shape (B = 1, SSM_PROMPT
-    tokens, 64 heads of 64, N = 128, chunk 256; xh, B and C in bf16 as the
-    conv gives them, dt and log a in float32).  Operations: the causal
-    half of each chunk's dual form, the inter-chunk product and the state
-    update, on the real rows."""
+def attn_program_times(cfg, dev, launches):
+    """B8 at [serve_moe]'s prefill shape (B = 1, MOE_PROMPT tokens,
+    mixtral's heads, window 4,096); the kernels-line row."""
+    return b8_times(dev, cfg, 1, MOE_PROMPT, launches, "[serve_moe]'s prefill")
+
+
+def attn_encode_times(dev, launches):
+    """B8 at hubert-xlarge's encode shape (ENCODE_FRAMES, 16 heads of 80,
+    bidirectional), logged."""
+    b8_times(dev, _arch_cfg("hubert-xlarge"), *ENCODE_FRAMES, launches,
+             "hubert's encode")
+
+
+def ssd_program_times(dev, launches):
+    """B9 at [serve_ssm]'s prefill shape (B = 1, SSM_PROMPT tokens, 64
+    heads of 64, N = 128, chunk 256; xh, B and C in bf16 as the conv gives
+    them, dt and log a in float32): device ms a call (CUDA-graph replays)
+    beside its plain version.  Operations: the causal half of each
+    chunk's dual form, the inter-chunk product and the chunk states, on
+    the real rows; bytes the inputs, y and the state once.  Returns B9's
+    kernels-line row with ``launches``, the prefill's."""
     import torch
-    from repro_torch.models import ssm as M
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
     from repro_torch.models.ssm import ssm_dims
     cfg = _arch_cfg(SSM_ARCH)
     di, H, P, N = ssm_dims(cfg)
@@ -4466,7 +4750,18 @@ def ssd_program_times(dev, calls):
     Cm = torch.randn(B, S, N, generator=g, device=dev).to(bf)
     dt = torch.rand(B, S, H, generator=g, device=dev) * 0.5 + 0.01
     a_log = -torch.rand(B, S, H, generator=g, device=dev) * dt
-    ms = _program_ms(lambda: M._ssd_scan(cfg, xh, Bm, Cm, dt, a_log))
+    saved = ssd_scan.launches
+    kern = lambda: ssd_scan(xh, Bm, Cm, dt, a_log, chunk=cfg.ssm_chunk)
+    plain_fn = lambda: ssd_scan_ref(xh, Bm, Cm, dt, a_log,
+                                    chunk=cfg.ssm_chunk)
+    ms = graph_ms(kern, 10) or cuda_ms(kern, 10, 2)
+    plain = _program_ms(plain_fn)
+    ok, ey, es, tol = ssd_within(*kern(), *plain_fn())
+    check(ok, f"B9 at the prefill shape: y off by {ey:.3g}, state by "
+          f"{es:.3g} ({tol})")
+    log("programs", f"B9 at [serve_ssm]'s prefill: device time a call by "
+        f"kernel (torch.profiler, 5 calls): {launch_split(kern)}")
+    ssd_scan.launches = saved              # the timings' launches
     Q = min(cfg.ssm_chunk, S)
     ops = 0
     for c0 in range(0, S, Q):
@@ -4476,9 +4771,13 @@ def ssd_program_times(dev, calls):
                     + 4 * q * N * H * P)
     nbytes = (2 * (2 * xh.numel() + Bm.numel() + Cm.numel())
               + 4 * (dt.numel() + a_log.numel() + B * H * P * N))
-    return _program_row(f"_ssd_scan bf16 xh {tuple(xh.shape)} N {N} chunk "
-                        f"{cfg.ssm_chunk}", ms, calls, nbytes, ops, 67e12,
-                        None)
+    prog = _program_row(
+        f"B9 ssd_scan bf16 xh {tuple(xh.shape)} N {N} chunk "
+        f"{cfg.ssm_chunk} (plain {plain:.4f} ms; y within {ey:.3g}, state "
+        f"within {es:.3g})", ms, launches, nbytes, ops, 67e12, None,
+        "kernel B9")
+    return _kernel_row("ssd_scan", SSD_SOURCE, "src/repro/models/ssm.py:87",
+                       plain, prog)
 
 
 def attn_times_moe(dev, err):
@@ -5246,10 +5545,14 @@ def phase_train_parity(dev):
     import torch
     from repro_torch.configs import get
     from repro_torch.data import LMStreamConfig, SyntheticLMStream
+    from repro_torch.kernels.prefill_attn.ops import prefill_attn
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan
     from repro_torch.models import transformer as TT
     from repro_torch.runtime import steps as S
     from repro_torch.runtime.train_loop import batch_to, train
     restore = _tf32_on()
+    kernels = (prefill_attn, ssd_scan)
+    _reset(kernels)
     try:
         for arch, periods in TRAIN_PARITY:
             cfg = _arch_cfg(arch, periods, dtype="float32", remat="full")
@@ -5300,6 +5603,12 @@ def phase_train_parity(dev):
             del params, cpu, sg, sc, step
             gc.collect()
             torch.cuda.empty_cache()
+        launched = {c.__name__: c.launches for c in kernels}
+        check(all(launched.values()), f"[train_parity] B8 / B9 launches "
+              f"{launched}")
+        log("train_parity", f"kernel launches over the three models' "
+            f"loss_fn and 3 steps each (counters reset before them): "
+            f"{launched}; the backward is the plain versions'")
         cfg = get(TRAIN_ARCH, reduced=True)
         kw = dict(global_batch=8, seq_len=64, seed=0, log_every=0, device=dev)
         full = train(cfg, n_steps=8, **kw)
@@ -5322,6 +5631,7 @@ def phase_train_parity(dev):
             f"bit-equal; tolerance 1e-5); loss {full.losses[0]:.4f} -> {full.losses[-1]:.4f}")
     finally:
         restore()
+    return launched
 
 
 def ce_program_times(dev, calls):
@@ -5476,7 +5786,7 @@ def phase_examples():
 
 
 TIMES = ("chain", "dense", "kbest", "gate", "attn", "plan", "ingest",
-         "serve")
+         "serve", "prefill")
 
 
 def times_only(dev, which, counters) -> None:
@@ -5500,6 +5810,10 @@ def times_only(dev, which, counters) -> None:
         ingest_times(dev, None)
     if "serve" in which:
         _serve_path("serve", _serve_cfg(), dev, counters)
+    if "prefill" in which:
+        attn_program_times(_arch_cfg(MOE_ARCH, MOE_PERIODS), dev, None)
+        attn_encode_times(dev, None)
+        ssd_program_times(dev, None)
 
 
 def main(argv) -> int:
@@ -5512,6 +5826,8 @@ def main(argv) -> int:
                                                  banded_minplus_chain_kbest,
                                                  minplus_vecmat,
                                                  minplus_vecmat_argmin)
+    from repro_torch.kernels.prefill_attn.ops import prefill_attn
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan
     dev = torch.device("cuda", 0)
     # float32 products in full float32: the f32 comparisons against the CPU
     # path ([serve_parity]) rest on it
@@ -5520,7 +5836,7 @@ def main(argv) -> int:
     counters = (banded_minplus_chain, banded_minplus_argmin,
                 banded_minplus_chain_kbest, minplus_vecmat,
                 minplus_vecmat_argmin, ee_gate, decode_attn,
-                quant_signature_rows)
+                quant_signature_rows, prefill_attn, ssd_scan)
 
     if argv[:1] == ["--multihost-rank"] and len(argv) == 4:
         multihost_rank(int(argv[1]), int(argv[2]), argv[3])
@@ -5582,6 +5898,7 @@ def main(argv) -> int:
         check(row["launches"] > 0, f"{row['name']}: no launch on its path")
     rows += dense_rows
     err_serve = phase_kernels_serve(dev)
+    err_prefill = phase_kernels_prefill(dev)
     params, cfg, launches_s, serve = phase_serve(dev, counters)
     serve_rows = [gate_times(dev, err_serve["ee_gate"]),
                   attn_times(cfg, dev, err_serve["decode_attn"])]
@@ -5595,9 +5912,15 @@ def main(argv) -> int:
     # the rest of model serving: Mamba-2, MoE, prefill and encode
     launches_ssm, serve_ssm = phase_serve_ssm(dev, counters)
     launches_moe, serve_moe = phase_serve_moe(dev, counters)
-    phase_prefill(dev)
+    prefill = phase_prefill(dev)
     phase_serve_parity_more(dev)
-    ssd_program_times(dev, serve_ssm["ssd_calls"])
+    # B8 and B9 at their prefills' shapes, with those prefills' launches
+    b8_row = serve_moe["b8_row"]
+    b9_row = ssd_program_times(dev,
+                               serve_ssm["prefill_launches"]["ssd_scan"])
+    b8_row["max_abs_err"] = err_prefill["prefill_attn"]
+    b9_row["max_abs_err"] = err_prefill["ssd_scan"]
+    attn_encode_times(dev, prefill["encode_launches"]["prefill_attn"])
     moe_row = attn_times_moe(dev, err_serve["decode_attn"])
     moe_row["launches"] = launches_moe["decode_attn"]
     check(moe_row["launches"] > 0, "decode_attn: no launch on [serve_moe]")
@@ -5613,7 +5936,7 @@ def main(argv) -> int:
     walls["branchy_train"], t0 = time.perf_counter() - t0, time.perf_counter()
     train_row = phase_train(dev)
     walls["train"], t0 = time.perf_counter() - t0, time.perf_counter()
-    phase_train_parity(dev)
+    launches_tp = phase_train_parity(dev)
     walls["train_parity"], t0 = time.perf_counter() - t0, time.perf_counter()
     ce_program_times(dev, train_row["ce_calls"])
     walls["programs ce"], t0 = time.perf_counter() - t0, time.perf_counter()
@@ -5629,6 +5952,14 @@ def main(argv) -> int:
     walls["sharded"] = time.perf_counter() - t0
     check(sharded_row["launches"] > 0, "decode_attn: no launch on [sharded]")
     rows.append(sharded_row)
+    rows += [b8_row, b9_row]
+    log("order", f"B8 / B9 launches: [serve_moe]'s prefill "
+        f"{serve_moe['prefill_launches']['prefill_attn']} / -, [serve_ssm]'s"
+        f" prefill - / {serve_ssm['prefill_launches']['ssd_scan']}, "
+        f"[prefill] {prefill['launches']['prefill_attn']} / "
+        f"{prefill['launches']['ssd_scan']}, hubert's encode "
+        f"{prefill['encode_launches']['prefill_attn']} / -, [train_parity] "
+        f"{launches_tp['prefill_attn']} / {launches_tp['ssd_scan']}")
     log("order", f"B6 launches on [branchy]: {launches_branchy}; phase "
         f"walls (s): " + ", ".join(f"[{k}] {v:.1f}" for k, v in walls.items())
         + f"; since the start {time.perf_counter() - T_START:.1f}")

@@ -29,9 +29,9 @@ BASE_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 #: ``-fmad=false`` keeps every add of the (min,+) kernels a plain IEEE add
 #: (no contraction), which their bit-exactness against the reference rests
 #: on, as the fused ingest's byte-equal signatures rest on its IEEE order.
-#: The exit gate and the attention kernel are held to a tolerance and keep
-#: the default contraction.  ``-Xptxas -v`` puts the registers and shared
-#: memory of each kernel into the build log.
+#: The exit gate, the attention kernels and the SSD scan are held to a
+#: tolerance and keep the default contraction.  ``-Xptxas -v`` puts the
+#: registers and shared memory of each kernel into the build log.
 EXACT_FLAGS = ("-fmad=false",)
 BUILD_DIR = KERNELS.parents[2] / "build"
 
@@ -72,6 +72,16 @@ SOURCES: Tuple[Source, ...] = (
     Source(Path("decode_attn/csrc/decode_attn.cu"), (),
            {name: [_PTR] * 5 + [_INT] * 8 + [_PTR]
             for name in ("decode_attn_f32", "decode_attn_bf16")}),
+    # q, k, v, q_pos, k_pos, tile map, out | B, Sq, Sk, H, KV, D, causal,
+    # window, n_pad | stream
+    Source(Path("prefill_attn/csrc/prefill_attn.cu"), (),
+           {name: [_PTR] * 7 + [_INT] * 9 + [_PTR]
+            for name in ("prefill_attn_f32", "prefill_attn_bf16")}),
+    # xh, B, C, dt, a_log, y, final state, states, G, la, la_last | B, S,
+    # H, P, N, Q | stream
+    Source(Path("ssd_scan/csrc/ssd_scan.cu"), (),
+           {name: [_PTR] * 11 + [_INT] * 6 + [_PTR]
+            for name in ("ssd_scan_f32", "ssd_scan_bf16")}),
     # vec, bits, C, mask, load, out | Us, K2, N, M, mode0, mode1, gamma |
     # delta | stream; and its fast-path divide: a, b, q | n | stream
     Source(Path("ee_gate/csrc/quant_signature.cu"), EXACT_FLAGS,

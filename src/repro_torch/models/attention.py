@@ -5,10 +5,10 @@ sliding window).
 
 Port of ``repro/models/attention.py``.  ``chunked_attention`` is the
 reference's loop over KV chunks with the running (max, sum, acc) in
-float32 and its finite ``NEG_INF``: a chunk masked out for a row leaves a
-finite running max there, and the next live chunk wipes its share through
-``corr = exp(m - m_new)``.  It stays a loop of plain PyTorch products (an
-XLA program in the reference, not a Pallas kernel).
+float32 and its finite ``NEG_INF`` (an XLA program in the reference, not a
+Pallas kernel): on CUDA it launches the hand-written flash-prefill kernel
+B8 (``kernels/prefill_attn``), on the CPU it runs that kernel's plain
+version, the reference's loop; its gradient is the plain version's.
 ``decode_attention`` is the reference's function of the same name: on CUDA
 it launches the hand-written flash-decode kernel B7
 (``kernels/decode_attn``), on the CPU it runs that kernel's plain version,
@@ -24,17 +24,17 @@ from dataclasses import dataclass
 from typing import Dict, Tuple
 
 import torch
-import torch.nn.functional as F
 from torch.distributed.tensor import Replicate, Shard
 
 from ..configs.base import ArchConfig
 from ..kernels.decode_attn.ops import decode_attn
+from ..kernels.prefill_attn.ops import prefill_attention
+from ..kernels.prefill_attn.ref import NEG_INF  # noqa: F401 (reference name)
+from ..kernels.prefill_attn.ref import mask_bias as _mask_bias  # noqa: F401
 from ..sharding.dtensor import (is_dtensor, local_offsets, replicated,
                                 write_slot)
 from .layers import (F32, apply_rope, dense_init, linear, rmsnorm,
                      rmsnorm_init, scalar)
-
-NEG_INF = -1e30
 
 
 # ---------------------------------------------------------------------------
@@ -84,64 +84,22 @@ def out_proj(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
 # Chunked online-softmax attention (full sequence / prefill)
 # ---------------------------------------------------------------------------
 
-def _mask_bias(q_pos: torch.Tensor, k_pos: torch.Tensor, causal: bool,
-               window: int) -> torch.Tensor:
-    """[Sq, Sk] float32 additive bias for causal / SWA / bidirectional
-    masks; key slots at negative positions (padding) are masked."""
-    dq = q_pos[:, None]
-    dk = k_pos[None, :]
-    ok = (dk >= 0).expand(dq.shape[0], dk.shape[1])
-    if causal:
-        ok = ok & (dk <= dq)
-    if window > 0:
-        ok = ok & (dk > dq - window)
-    return torch.where(ok, scalar(0.0, ok.device), scalar(NEG_INF, ok.device))
-
-
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       q_pos: torch.Tensor, k_pos: torch.Tensor, *,
                       causal: bool, window: int, chunk: int) -> torch.Tensor:
     """q: [B, Sq, H, D]; k / v: [B, Sk, KV, D]; returns [B, Sq, H, D].
 
-    A loop over KV chunks with the running (max, sum, acc) in float32:
-    O(Sq * chunk) live scores.  Sk is padded to a multiple of ``chunk``
-    with key position -10**9, which the mask drops.  GQA groups the heads
-    as [B, Sq, KV, G, D]."""
+    The reference's loop over KV chunks with the running (max, sum, acc)
+    in float32 (``kernels/prefill_attn/ref.py``), through kernel B8 on
+    CUDA (which raises on a shape it does not take) and its gradient the
+    plain version's; over DTensors on each rank's shard."""
     if is_dtensor(q):
         return _chunked_attention_local(q, k, v, q_pos, k_pos, causal=causal,
                                         window=window, chunk=chunk)
-    B, Sq, H, D = q.shape
-    Sk, KV = k.shape[1], k.shape[2]
-    if H % KV:
-        raise ValueError(f"{H} query heads are not a multiple of {KV} KV "
-                         f"heads")
-    G = H // KV
-    scale = D ** -0.5
-    if Sk % chunk:
-        pad = chunk - Sk % chunk
-        k = F.pad(k, (0, 0, 0, 0, 0, pad))
-        v = F.pad(v, (0, 0, 0, 0, 0, pad))
-        k_pos = F.pad(k_pos, (0, pad), value=-10**9)
-        Sk += pad
-    qg = q.reshape(B, Sq, KV, G, D).to(F32)
-    m = torch.full((B, Sq, KV, G), NEG_INF, dtype=F32, device=q.device)
-    l = torch.zeros((B, Sq, KV, G), dtype=F32, device=q.device)
-    acc = torch.zeros((B, Sq, KV, G, D), dtype=F32, device=q.device)
-    for c0 in range(0, Sk, chunk):
-        kc = k[:, c0:c0 + chunk].to(F32)
-        vc = v[:, c0:c0 + chunk]
-        s = torch.einsum("bqkgd,bckd->bqkgc", qg, kc) * scale
-        s = s + _mask_bias(q_pos, k_pos[c0:c0 + chunk], causal,
-                           window)[:, None, None, :]
-        m_new = torch.maximum(m, s.amax(dim=-1))
-        p = torch.exp(s - m_new[..., None])
-        corr = torch.exp(m - m_new)
-        l = l * corr + p.sum(dim=-1)
-        acc = acc * corr[..., None] + torch.einsum(
-            "bqkgc,bckd->bqkgd", p.to(q.dtype).to(F32), vc.to(F32))
-        m = m_new
-    out = acc / l.clamp_min(1e-30)[..., None]
-    return out.reshape(B, Sq, H, D).to(q.dtype)
+    return prefill_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                             q_pos.to(torch.int32).contiguous(),
+                             k_pos.to(torch.int32).contiguous(),
+                             causal=causal, window=window, chunk=chunk)
 
 
 def _chunked_attention_local(q, k, v, q_pos, k_pos, *, causal: bool,

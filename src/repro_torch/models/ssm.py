@@ -3,9 +3,11 @@
 Port of ``repro/models/ssm.py``.  The chunked SSD (full sequence and
 prefill) splits the sequence into chunks of length Q: within a chunk the
 recurrence runs in its quadratic "dual" form, across chunks a float32
-[B, H, P, N] state is carried by a Python loop (the reference's
-``lax.scan``), with n_groups = 1 and a scalar decay per head.  Decode runs
-the O(1) recurrent step on a cached state, updated in place.
+[B, H, P, N] state is carried (the reference's ``lax.scan``), with
+n_groups = 1 and a scalar decay per head.  On CUDA it launches the
+hand-written kernel B9 (``kernels/ssd_scan``), on the CPU it runs that
+kernel's plain version, the reference's loop.  Decode runs the O(1)
+recurrent step on a cached state, updated in place.
 
   h_t = a_t * h_{t-1} + dt_t * x_t (x) B_t        a_t = exp(-exp(A_log) dt_t)
   y_t = C_t . h_t + D * x_t
@@ -19,10 +21,11 @@ reduction rounded once, as the reference's activation-dtype einsum.
 ``softplus`` is ``logaddexp(x, 0)``, as ``jax.nn.softplus``.
 
 ``_head_constraint`` is the reference's sharding constraint on the head
-axis, on the initial state and on ``xh`` / ``dt`` of the full-sequence
-mixer: over DTensors under ``activation_sharding(device_mesh)`` it
-redistributes them; on plain tensors, or without a context, it does
-nothing.
+axis, on ``xh`` / ``dt`` of the full-sequence mixer: over DTensors under
+``activation_sharding(device_mesh)`` it redistributes them; on plain
+tensors, or without a context, it does nothing.  The scan then runs on
+each rank's heads, and its state comes out sharded on them, where the
+reference constrains its initial state.
 """
 from __future__ import annotations
 
@@ -30,10 +33,12 @@ from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import Replicate, Shard
 
 from ..configs.base import ArchConfig
+from ..kernels.ssd_scan.ops import ssd_scan_fn
 from ..sharding.context import current
-from ..sharding.dtensor import constrain, replicated
+from ..sharding.dtensor import constrain, is_dtensor, replicated
 from .layers import F32, dense_init, linear, rmsnorm, rmsnorm_init
 
 
@@ -122,48 +127,52 @@ def _ssd_scan(cfg: ArchConfig, xh: torch.Tensor, Bm: torch.Tensor,
     """Chunked SSD. xh: [B, S, H, P]; Bm / Cm: [B, S, N]; dt: [B, S, H]
     (post-softplus, float32); a_log: [B, S, H] = log a_t (negative).
 
-    S is zero-padded to a multiple of Q = min(ssm_chunk, S).  Returns
-    (y [B, S, H, P] in xh's dtype, the final float32 state [B, H, P, N])."""
-    Bsz, S, H, P = xh.shape
-    S_orig = S
-    N = Bm.shape[-1]
-    Q = min(cfg.ssm_chunk, S)
-    if S % Q:
-        pad = Q - S % Q
-        xh = F.pad(xh, (0, 0, 0, 0, 0, pad))
-        Bm, Cm = (F.pad(t, (0, 0, 0, pad)) for t in (Bm, Cm))
-        dt, a_log = (F.pad(t, (0, 0, 0, pad)) for t in (dt, a_log))
-        S += pad
-    causal = replicated(torch.tril(torch.ones((Q, Q), dtype=torch.bool,
-                                              device=xh.device)), xh)
-    zero = torch.zeros((), dtype=F32, device=xh.device)
-    state = _head_constraint(cfg, replicated(torch.zeros(
-        (Bsz, H, P, N), dtype=F32, device=xh.device), xh), 1)
-    ys = []
-    for c0 in range(0, S, Q):
-        x = xh[:, c0:c0 + Q]
-        b = Bm[:, c0:c0 + Q].to(F32)
-        c = Cm[:, c0:c0 + Q].to(F32)
-        la = torch.cumsum(a_log[:, c0:c0 + Q], dim=1)          # [B,Q,H]
-        xdt = x * dt[:, c0:c0 + Q, :, None]                    # [B,Q,H,P] f32
-        # intra-chunk (quadratic dual form)
-        G = torch.bmm(c, b.transpose(1, 2))                    # [B,q,s]
-        seg = torch.exp(la[:, :, None, :] - la[:, None, :, :])  # [B,q,s,H]
-        seg = torch.where(causal[None, :, :, None], seg, zero)
-        M = G[..., None] * seg                                 # [B,q,s,H]
-        y_intra = torch.einsum("bqsh,bshp->bqhp", M, xdt)
-        # inter-chunk via the carried state
-        y_inter = torch.einsum("bqn,bhpn->bqhp", c, state) \
-            * torch.exp(la)[..., None]
-        # state update
-        la_last = la[:, -1:, :]                                # [B,1,H]
-        decay_rest = torch.exp(la_last - la)                   # [B,Q,H]
-        chunk_state = torch.einsum("bqhp,bqn->bhpn",
-                                   xdt * decay_rest[..., None], b)
-        state = state * torch.exp(la_last)[:, 0, :, None, None] + chunk_state
-        ys.append((y_intra + y_inter).to(xh.dtype))
-    y = torch.cat(ys, dim=1)
-    return y[:, :S_orig], state
+    Chunks of Q = min(ssm_chunk, S), the last one zero-padded in the
+    plain version (``kernels/ssd_scan/ref.py``).  Kernel B9 on CUDA (which
+    raises on a shape it does not take), its plain version on the CPU, the
+    plain version's gradient; over DTensors on each rank's heads.
+    Returns (y [B, S, H, P] in xh's dtype, the final float32 state
+    [B, H, P, N])."""
+    if is_dtensor(xh):
+        return _ssd_scan_local(cfg, xh, Bm, Cm, dt, a_log)
+    return ssd_scan_fn(*(t.contiguous() for t in (xh, Bm, Cm, dt, a_log)),
+                       chunk=cfg.ssm_chunk)
+
+
+def _ssd_scan_local(cfg: ArchConfig, xh, Bm, Cm, dt, a_log):
+    """``_ssd_scan`` over DTensors, on each rank's shard through
+    ``local_map``: batch shards stay local, head shards of xh, dt and
+    a_log too (a head's scan reads only its own head, and B and C, which
+    every head shares, are replicated there), and the sequence is
+    gathered.  y keeps xh's shards; the state is sharded on its heads
+    (dim 1) where xh is, as the reference constrains it."""
+    from torch.distributed.tensor.experimental import local_map
+    Bm, Cm, dt, a_log = (replicated(t, xh) for t in (Bm, Cm, dt, a_log))
+    x_place, bc_place, s_place = [], [], []
+    for p in xh.placements:
+        if p.is_shard(0):
+            x_place.append(Shard(0))
+            bc_place.append(Shard(0))
+            s_place.append(Shard(0))
+        elif p.is_shard(2):
+            x_place.append(Shard(2))
+            bc_place.append(Replicate())
+            s_place.append(Shard(1))
+        else:
+            x_place.append(Replicate())
+            bc_place.append(Replicate())
+            s_place.append(Replicate())
+    x_place, bc_place, s_place = (tuple(x_place), tuple(bc_place),
+                                  tuple(s_place))
+
+    def local(xl, bl, cl, dl, al):
+        return _ssd_scan(cfg, xl, bl, cl, dl, al)
+
+    return local_map(local, out_placements=(x_place, s_place),
+                     in_placements=(x_place, bc_place, bc_place, x_place,
+                                    x_place),
+                     device_mesh=xh.device_mesh,
+                     redistribute_inputs=True)(xh, Bm, Cm, dt, a_log)
 
 
 def ssm_apply_with_state(params, cfg: ArchConfig, x: torch.Tensor

@@ -20,8 +20,12 @@ equals its CPU path.  The exit gate (B6) holds conf to a relative 1e-5 (sums in 
 and its argmax exactly; decode attention (B7) holds 2e-5 in float32 and
 2e-2 in bf16 (its plain version rounds the probabilities to bf16 before
 the PV product, the kernel keeps them in float32), with whole split ranges
-dead, and gives the same bits on a repeat call.  The serving engine on
-CUDA, in float32, must serve the tokens its CPU path serves.
+dead, and gives the same bits on a repeat call.  Flash-prefill attention
+(B8) holds 2e-5 in float32 and 2^-6 of the largest output in bf16, with
+ragged keys, -1 slots, masked leading tiles and dead rows; the SSD scan
+(B9) holds 1e-4 of the largest y and state in float32 and 2^-7 of the
+largest y in bf16, with ragged chunks.  The serving engine on CUDA, in
+float32, must serve the tokens its CPU path serves.
 """
 import dataclasses
 
@@ -1165,3 +1169,191 @@ def test_train_step_on_card_equals_cpu_path(cuda_device):
     for a, b in zip(S.tree_leaves(sg["params"]), S.tree_leaves(sc["params"])):
         torch.testing.assert_close(a.cpu(), b, rtol=0,
                                    atol=1e-4 * float(b.abs().max()) + 1e-7)
+
+
+# (B, Sq, Sk, H, KV, D, causal, window, mask, chunk) of the flash-prefill
+# kernel B8: G = 1, 4, 6 and 48; D = 16, 64, 80 and 128; causal, windowed
+# and bidirectional; ragged Sk (no multiple of a key tile); -1 key slots;
+# leading key tiles masked for every row; dead rows (no live key)
+PREFILL_CASES = [(2, 24, 24, 4, 2, 16, True, 0, "full", 32),
+                 (1, 100, 100, 16, 16, 80, False, 0, "full", 32),
+                 (1, 130, 130, 32, 8, 64, True, 0, "slots", 64),
+                 (1, 300, 300, 48, 8, 128, True, 64, "full", 128),
+                 (1, 77, 77, 48, 1, 128, True, 0, "full", 32),
+                 (2, 70, 200, 8, 2, 64, True, 16, "lead", 64),
+                 (1, 90, 97, 12, 2, 80, True, 0, "dead", 32),
+                 (1, 40, 129, 6, 1, 16, False, 0, "empty", 16)]
+
+
+def _prefill_inputs(B, Sq, Sk, H, KV, D, mask, dtype, device, seed):
+    """Seeded q / k / v and positions: "full" queries at the last Sq key
+    positions; "slots" a tenth of the key slots at -1; "lead" queries far
+    past a short window (the first key tiles masked for every row);
+    "dead" the keys start past the first queries (causal: those rows have
+    no live key); "empty" every key slot at -1 (every row dead)."""
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.as_tensor(rng.normal(size=s), dtype=torch.float32,
+                               device=device).to(dtype)
+               for s in ((B, Sq, H, D), (B, Sk, KV, D), (B, Sk, KV, D)))
+    k_pos = np.arange(Sk)
+    q_pos = np.arange(Sk - Sq, Sk)
+    if mask == "slots":
+        k_pos[rng.choice(Sk, Sk // 10, replace=False)] = -1
+    elif mask == "dead":
+        k_pos = k_pos + 40
+        q_pos = np.arange(Sq)
+    elif mask == "empty":
+        k_pos[:] = -1
+    pos = [torch.as_tensor(p, dtype=torch.int32, device=device)
+           for p in (q_pos, k_pos)]
+    return q, k, v, *pos
+
+
+def _prefill_close(got, want):
+    """B8 against its plain version: float32 within rtol = atol = 2e-5;
+    bf16 within 2^-6 of the largest |output| (two bf16 ulps of it: the
+    kernel rounds a tile's probabilities, the plain version a chunk's)."""
+    assert got.dtype == want.dtype
+    d = (got.float() - want.float()).abs()
+    if got.dtype == torch.float32:
+        assert bool((d <= 2e-5 + 2e-5 * want.abs()).all()), float(d.max())
+    else:
+        assert float(d.max()) <= 2.0 ** -6 * float(want.float().abs().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,D,causal,window,mask,chunk",
+                         PREFILL_CASES)
+def test_prefill_attn_kernel_matches_plain_on_card(cuda_device, B, Sq, Sk, H,
+                                                   KV, D, causal, window,
+                                                   mask, chunk, dtype):
+    from repro_torch.kernels.prefill_attn.ops import prefill_attn
+    from repro_torch.kernels.prefill_attn.ref import prefill_attn_ref
+    args = _prefill_inputs(B, Sq, Sk, H, KV, D, mask, dtype, cuda_device,
+                           Sq + Sk + H)
+    kw = dict(causal=causal, window=window, chunk=chunk)
+    n8 = prefill_attn.launches
+    got = prefill_attn(*args, **kw)
+    assert prefill_attn.launches == n8 + 1
+    again = prefill_attn(*args, **kw)
+    want = prefill_attn_ref(*args, **kw)
+    torch.cuda.synchronize()
+    _prefill_close(got, want)
+    assert torch.equal(got, again)
+
+
+# (B, S, H, P, N, chunk, dtype) of the SSD scan B9: Q = 8, 13 and 256;
+# ragged S (a short last chunk), S below one chunk; P / N = 16 and 64 /
+# 128; float32 and bf16 x
+SSD_CASES = [(2, 24, 4, 16, 16, 8, torch.float32),
+             (2, 37, 4, 16, 16, 13, torch.float32),
+             (1, 600, 8, 64, 128, 256, torch.float32),
+             (1, 100, 3, 64, 128, 256, torch.float32),
+             (2, 45, 4, 16, 16, 8, torch.bfloat16),
+             (1, 700, 6, 64, 128, 256, torch.bfloat16)]
+
+
+def _ssd_inputs(B, S, H, P, N, dtype, device, seed):
+    rng = np.random.default_rng(seed)
+    f = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)
+    xh, Bm, Cm = (f(rng.normal(size=s)).to(dtype)
+                  for s in ((B, S, H, P), (B, S, N), (B, S, N)))
+    dt = f(rng.uniform(0.01, 0.5, (B, S, H)))
+    a_log = -f(rng.uniform(0.01, 1.0, (B, S, H))) * dt
+    return xh, Bm, Cm, dt, a_log
+
+
+@pytest.mark.parametrize("B,S,H,P,N,chunk,dtype", SSD_CASES)
+def test_ssd_scan_kernel_matches_plain_on_card(cuda_device, B, S, H, P, N,
+                                               chunk, dtype):
+    """y and the final state within 1e-4 of their largest |value| in
+    float32 (sums in another order; the decays are exps of the same
+    differences); bf16 y within 2^-7 of it (one rounding of a float32 sum
+    on each side)."""
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+    args = _ssd_inputs(B, S, H, P, N, dtype, cuda_device, S + H + P)
+    n9 = ssd_scan.launches
+    y, st = ssd_scan(*args, chunk=chunk)
+    assert ssd_scan.launches == n9 + 1
+    y_p, st_p = ssd_scan_ref(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert y.dtype == dtype and st.dtype == torch.float32
+    ty = (1e-4 if dtype == torch.float32 else 2.0 ** -7) * float(
+        y_p.float().abs().max())
+    assert float((y.float() - y_p.float()).abs().max()) <= ty
+    assert float((st - st_p).abs().max()) <= 1e-4 * float(st_p.abs().max())
+
+
+def test_prefill_kernel_wrappers_refuse_what_they_cannot_take(cuda_device):
+    from repro_torch.kernels.prefill_attn.ops import prefill_attn
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan
+    q, k, v, qp, kp = _prefill_inputs(1, 8, 8, 4, 2, 16, "full",
+                                      torch.float32, cuda_device, 0)
+    kw = dict(causal=True, window=0, chunk=4)
+    ssd = _ssd_inputs(1, 8, 2, 16, 16, torch.float32, cuda_device, 0)
+    n8, n9 = prefill_attn.launches, ssd_scan.launches
+    with pytest.raises(ValueError, match="multiples of 16 up to 128"):
+        prefill_attn(q[..., :8].contiguous(), k[..., :8].contiguous(),
+                     v[..., :8].contiguous(), qp, kp, **kw)
+    wide = torch.zeros(1, 8, 4, 144, device=cuda_device)
+    with pytest.raises(ValueError, match="multiples of 16 up to 128"):
+        prefill_attn(wide, wide[:, :, :2].contiguous(),
+                     wide[:, :, :2].contiguous(), qp, kp, **kw)
+    with pytest.raises(ValueError, match="int32"):
+        prefill_attn(q, k, v, qp.long(), kp, **kw)
+    with pytest.raises(ValueError, match="share"):
+        prefill_attn(q, k.bfloat16(), v, qp, kp, **kw)
+    with pytest.raises(ValueError, match="chunks of 1..256"):
+        ssd_scan(*_ssd_inputs(1, 300, 2, 16, 16, torch.float32, cuda_device,
+                              0), chunk=300)
+    with pytest.raises(ValueError, match="P <= 128"):
+        ssd_scan(*_ssd_inputs(1, 8, 2, 130, 16, torch.float32, cuda_device,
+                              0), chunk=4)
+    with pytest.raises(ValueError, match="float32"):
+        ssd_scan(*ssd[:3], ssd[3].double(), ssd[4], chunk=4)
+    assert (prefill_attn.launches, ssd_scan.launches) == (n8, n9)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "mixtral-8x22b",
+                                  "jamba-1.5-large-398b", "hubert-xlarge"])
+def test_full_sequence_paths_launch_b8_b9_on_card(cuda_device, arch):
+    """forward_train of the reduced models in float32 launches B8 once an
+    attention layer and B9 once an SSM layer, and the gradient of a loss
+    on its logits with respect to the input frames or the embedding (the
+    plain versions' backward, recomputed on the card, through every
+    layer) is within 1e-4 of the CPU path's."""
+    from repro_torch.kernels.prefill_attn.ops import prefill_attn
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan
+    from repro_torch.models import transformer as TT
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get(arch, reduced=True)
+    params = TT.init_model(cfg, seed=5, device=cuda_device)
+    cpu = TT.tree_to(params, "cpu")
+    B, S = 2, 24
+    rng = np.random.default_rng(3)
+    if cfg.frontend == "audio":
+        batch = {"frames": torch.from_numpy(
+            rng.normal(size=(B, S, cfg.d_model)).astype(np.float32))}
+    else:
+        batch = {"tokens": torch.from_numpy(
+            rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int64))}
+    kinds = [s.kind for s in cfg.pattern] * cfg.n_periods
+    grads = []
+    for where, p in ((cuda_device, params), ("cpu", cpu)):
+        # a leaf below every layer: the input frames, or the embedding
+        b = {k: v.to(where) for k, v in batch.items()}
+        if "frames" in b:
+            leaf = b["frames"].requires_grad_(True)
+        else:
+            leaf = p["embed"]["table"].detach().clone().requires_grad_(True)
+            p = dict(p, embed={"table": leaf})
+        n8, n9 = prefill_attn.launches, ssd_scan.launches
+        out = TT.forward_train(p, cfg, b)
+        if where != "cpu":
+            assert prefill_attn.launches - n8 == kinds.count("attn")
+            assert ssd_scan.launches - n9 == kinds.count("ssm")
+        logits = out["final"][..., :cfg.vocab_size]
+        grads.append(torch.autograd.grad(logits.float().square().mean(),
+                                         leaf)[0].cpu())
+    torch.testing.assert_close(grads[0], grads[1], rtol=1e-4, atol=1e-4)
