@@ -214,8 +214,14 @@ ATTN_TIME_T = (256, 8192, 32768)
 # hubert's (G = 1, D = 80), bidirectional; qwen-like G = 4 at D = 64 with
 # -1 key slots and a ragged Sk; mixtral's (G = 6, D = 128) windowed;
 # granite's MQA (G = 48); leading key tiles masked for every row by a
-# short window; dead rows beside live ones; every row dead; and
-# [serve_moe]'s prefill shape (4,608 tokens, window 4,096)
+# short window; dead rows beside live ones; every row dead;
+# [serve_moe]'s prefill shape (4,608 tokens, window 4,096); hubert's full
+# encode shape (2 x 1,024 frames, 16 heads of 80, bidirectional); a
+# granite-like MQA (G = 48, D = 128, causal) over 1,537 tokens, whose bf16
+# tiles hold 2 positions of 48 heads and end on a half tile; 10,000 keys
+# with -1 slots, more than the bf16 kernel's shared-memory copy of k_pos
+# holds at D = 128; G = 256, which the bf16 kernel cuts into two chunks
+# of 128 heads
 PREFILL_CHECK_CASES = [(2, 24, 24, 4, 2, 16, True, 0, "full", 32),
                        (1, 100, 100, 16, 16, 80, False, 0, "full", 32),
                        (1, 257, 257, 32, 8, 64, True, 0, "slots", 64),
@@ -224,7 +230,11 @@ PREFILL_CHECK_CASES = [(2, 24, 24, 4, 2, 16, True, 0, "full", 32),
                        (2, 70, 200, 8, 2, 64, True, 16, "lead", 64),
                        (1, 90, 97, 12, 2, 80, True, 0, "dead", 32),
                        (1, 40, 129, 6, 1, 16, False, 0, "empty", 16),
-                       (1, 4608, 4608, 48, 8, 128, True, 4096, "full", 1024)]
+                       (1, 4608, 4608, 48, 8, 128, True, 4096, "full", 1024),
+                       (2, 1024, 1024, 16, 16, 80, False, 0, "full", 1024),
+                       (1, 1537, 1537, 48, 1, 128, True, 0, "full", 1024),
+                       (1, 64, 10000, 32, 4, 128, True, 0, "slots", 1024),
+                       (1, 40, 40, 256, 1, 64, True, 0, "full", 32)]
 # (B, S, H, P, N, chunk) of the SSD scan checks (B9, ssd_inputs): the
 # reduced configs' Q = 8, P = N = 16; Q = 13 with a ragged S; mamba2's
 # P = 64, N = 128 at Q = 256 with a short last chunk, and below one chunk
@@ -4433,6 +4443,8 @@ def phase_prefill(dev):
         params = TT.init_model(cfg, seed=2, device=dev)
         toks = torch.as_tensor(np.random.default_rng(S).integers(
             0, cfg.vocab_size, (B, S)), device=dev)
+        # B8 / B9 launches of this case's forward_train and prefill
+        marks = [(prefill_attn.launches, ssd_scan.launches)]
         with progs["moe_gather"]:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -4440,13 +4452,17 @@ def phase_prefill(dev):
                 :, -1]
             torch.cuda.synchronize()
             t_fwd = time.perf_counter() - t0
+            marks.append((prefill_attn.launches, ssd_scan.launches))
             t0 = time.perf_counter()
             _, caches = TT.prefill(params, cfg, {"tokens": toks[:, :S - 1]},
                                    cache_len=S + 4)
             torch.cuda.synchronize()
             t_pre = time.perf_counter() - t0
+            marks.append((prefill_attn.launches, ssd_scan.launches))
             lg, _, _ = TT.decode_step(params, cfg, toks[:, S - 1:], caches,
                                       S - 1)
+        case_launches = [f"{b - a} / {d - c}" for (a, c), (b, d)
+                         in zip(marks, marks[1:])]
         err = _rel_last(full, lg)
         check(err < 1e-4, f"prefill {arch}: decode after prefill differs "
               f"from forward_train by {err:.3g} relative (>= 1e-4)")
@@ -4456,8 +4472,10 @@ def phase_prefill(dev):
             f"{', prompt past the window: ring slots wrap' if wraps else ''})"
             f": decode after prefill within {err:.3g} relative of "
             f"forward_train; walls (host clock, ending in synchronize) "
-            f"forward_train {t_fwd:.3f} s, prefill {t_pre:.3f} s; device "
-            f"memory high-water {torch.cuda.max_memory_allocated()} B")
+            f"forward_train {t_fwd:.3f} s, prefill {t_pre:.3f} s; B8 / B9 "
+            f"launches: forward_train {case_launches[0]}, prefill "
+            f"{case_launches[1]}; device memory high-water "
+            f"{torch.cuda.max_memory_allocated()} B")
         out[arch] = dict(err=err, forward_s=t_fwd, prefill_s=t_pre)
         del params, caches, full, lg
         torch.cuda.empty_cache()

@@ -5,9 +5,10 @@ For CUDA tensors ``prefill_attn`` launches the hand-written kernel
 (``csrc/prefill_attn.cu``) or raises; for CPU tensors it runs the plain
 PyTorch version in ``ref.py``.  It counts its calls that launch the kernel
 in a plain integer attribute, ``launches``, so a run can show that its
-main path went through the kernel.  A call is two launches: the tile maps
-(which key tiles a query tile may reach, and which it reaches whole), then
-the attention.
+main path went through the kernel.  A float32 call is two launches: the
+tile maps (which key tiles a query tile may reach, and which it reaches
+whole), then the attention; a bf16 call is one launch, whose producer warp
+decides the same per tile of packed (position, head) rows.
 
 ``prefill_attention`` is the program the models call: an autograd
 Function whose forward is ``prefill_attn`` and whose backward is the
@@ -23,21 +24,32 @@ from .ref import prefill_attn_ref
 
 _ENTRY = {torch.float32: "prefill_attn_f32",
           torch.bfloat16: "prefill_attn_bf16"}
-#: query rows of a block (4 warps of 16) and key rows of a tile, by dtype
-#: (``kBQ`` and the kernel's ``kBK`` instantiations)
+#: float32: query rows of a block (4 warps of 16, ``kBQ``)
 QUERY_TILE = 64
-KEY_TILE = {torch.float32: 32, torch.bfloat16: 64}
+#: bf16: (position, head) rows of a block's tile (``kRows``: two consumer
+#: warpgroups of 64), the G heads of a position side by side
+PACKED_ROWS = 128
+#: key rows of a tile, by dtype (``kBK`` and ``kBN`` in the source)
+KEY_TILE = {torch.float32: 32, torch.bfloat16: 128}
 #: the widest head the kernel takes (its q and output fragments live in
-#: registers); D must be a multiple of 16 (the bf16 mma's depth)
+#: registers); D must be a multiple of 16 (the bf16 products' depth)
 MAX_D = 128
 #: shared memory a block may opt into on Hopper
 MAX_SMEM_BYTES = 232448
 
 
 def smem_bytes(D: int, dtype: torch.dtype) -> int:
-    """Dynamic shared memory of one block: q's tile and two stages of K
-    and V tiles, each row padded by 16 bytes, and the stages' key
-    positions (``smem_bytes`` in the source)."""
+    """Dynamic shared memory of one block (``smem_bytes`` and
+    ``wg_smem_bytes`` in the source).  float32: q's tile and two stages of
+    K and V tiles, each row padded by 16 bytes, and the stages' key
+    positions.  bf16: 1,024 bytes of alignment slack, two q tiles and two
+    stages of K and V tiles of 128 rows in 64-column boxes (two at
+    D > 64), the stages' key positions and (tile, whole) words, and 12
+    mbarriers; the kernel adds a copy of k_pos when it still fits."""
+    if dtype == torch.bfloat16:
+        tile = (2 if D > 64 else 1) * PACKED_ROWS * 128
+        kt = KEY_TILE[dtype]
+        return 1024 + 6 * tile + 2 * kt * 4 + 2 * 8 + 12 * 8
     item = torch.empty((), dtype=dtype).element_size()
     ld = D + 16 // item
     kt = KEY_TILE[dtype]
@@ -45,8 +57,11 @@ def smem_bytes(D: int, dtype: torch.dtype) -> int:
 
 
 def tile_map_words(Sq: int, Sk: int, dtype: torch.dtype) -> int:
-    """int32 words of the two tile maps (key tiles that may hold a live
-    key, key tiles all live): one bit a key tile for each query tile."""
+    """int32 words of the float32 kernel's two tile maps (key tiles that
+    may hold a live key, key tiles all live): one bit a key tile for each
+    query tile.  The bf16 kernel needs none (0)."""
+    if dtype == torch.bfloat16:
+        return 0
     n_kt = -(-Sk // KEY_TILE[dtype])
     return 2 * -(-Sq // QUERY_TILE) * -(-n_kt // 32)
 
@@ -95,8 +110,8 @@ def prefill_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"H = {H} must be a multiple of KV = {KV}")
     if D % 16 or not 0 < D <= MAX_D:
         raise ValueError(f"the kernel takes head dims that are multiples of "
-                         f"16 up to {MAX_D} (the bf16 mma's depth, q's "
-                         f"fragments in registers): D = {D}")
+                         f"16 up to {MAX_D} (the bf16 products' depth, the "
+                         f"output's fragments in registers): D = {D}")
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("q, k and v must be 16-byte aligned")
     if chunk <= 0:
@@ -115,12 +130,13 @@ def prefill_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(q)
     if B == 0 or Sq == 0:
         return out
-    tiles = torch.empty(tile_map_words(Sq, Sk, q.dtype), dtype=torch.int32,
-                        device=q.device)
+    words = tile_map_words(Sq, Sk, q.dtype)
+    tiles = torch.empty(words, dtype=torch.int32, device=q.device) \
+        if words else None
     launch(_ENTRY[q.dtype], q.device, q.data_ptr(), k.data_ptr(),
-           v.data_ptr(), q_pos.data_ptr(), k_pos.data_ptr(), tiles.data_ptr(),
-           out.data_ptr(), B, Sq, Sk, H, KV, D, int(bool(causal)),
-           int(window), n_pad)
+           v.data_ptr(), q_pos.data_ptr(), k_pos.data_ptr(),
+           tiles.data_ptr() if words else None, out.data_ptr(), B, Sq, Sk,
+           H, KV, D, int(bool(causal)), int(window), n_pad)
     prefill_attn.launches += 1
     return out
 

@@ -109,22 +109,36 @@ def tile_map_ref(q_pos: torch.Tensor, k_pos: torch.Tensor, causal: bool,
     return any_, whole
 
 
+def packed_tile_positions(G: int, rows: int = 128) -> int:
+    """Query positions of one of the bf16 kernel's tiles: its ``rows``
+    rows are (position, head) pairs of one kv head, the min(G, rows) heads
+    of a position side by side (G > rows is cut into chunks of heads)."""
+    return rows // min(G, rows)
+
+
 def prefill_attn_tiled_ref(q: torch.Tensor, k: torch.Tensor,
                            v: torch.Tensor, q_pos: torch.Tensor,
                            k_pos: torch.Tensor, *, causal: bool, window: int,
-                           chunk: int, q_tile: int = 64, k_tile: int = 64
-                           ) -> torch.Tensor:
-    """Mirror of the CUDA kernel's arithmetic, for the tests: query tiles
-    of ``q_tile`` rows, each over the key tiles of ``k_tile`` that its
+                           chunk: int, q_tile: int = 64, k_tile: int = 64,
+                           packed_rows: int = 0) -> torch.Tensor:
+    """Mirror of the CUDA kernels' arithmetic, for the tests: query tiles
+    of ``q_tile`` positions (the float32 kernel's: one head a block), or,
+    with ``packed_rows``, the bf16 kernel's tiles of that many (position,
+    head) rows of one kv head, ``packed_tile_positions(G, packed_rows)``
+    positions a tile; each tile over the key tiles of ``k_tile`` that its
     tile map keeps, masked scores -inf (a tile whose keys are all live has
     nothing to mask), an online softmax a key tile, bf16 probabilities
-    rounded before the PV product; a row with no live key
-    (m still -inf) takes the reference's sum of every v over
-    ceil(Sk / chunk) * chunk.  Same arguments and result as
+    rounded before the PV product; a row with no live key (m still -inf)
+    takes the reference's sum of every v over ceil(Sk / chunk) * chunk.  A
+    row's arithmetic depends only on its own position and its tile's
+    positions (which key tiles the map keeps), so the packing is the
+    choice of q_tile.  Same arguments and result as
     :func:`prefill_attn_ref`."""
     B, Sq, H, D = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     G = H // KV
+    if packed_rows:
+        q_tile = packed_tile_positions(G, packed_rows)
     qg = q.reshape(B, Sq, KV, G, D).to(F32)
     s_all = torch.einsum("bqkgd,bckd->bqkgc", qg, k.to(F32)) * D ** -0.5
     dq, dk = q_pos[:, None].to(torch.int64), k_pos[None, :].to(torch.int64)

@@ -1174,7 +1174,12 @@ def test_train_step_on_card_equals_cpu_path(cuda_device):
 # (B, Sq, Sk, H, KV, D, causal, window, mask, chunk) of the flash-prefill
 # kernel B8: G = 1, 4, 6 and 48; D = 16, 64, 80 and 128; causal, windowed
 # and bidirectional; ragged Sk (no multiple of a key tile); -1 key slots;
-# leading key tiles masked for every row; dead rows (no live key)
+# leading key tiles masked for every row; dead rows (no live key);
+# hubert-xlarge's full encode shape (G = 1, D = 80, bidirectional) and a
+# granite-like MQA (G = 48, D = 128, causal) whose bf16 tiles hold 2
+# positions and end on a half tile; 10,000 keys with -1 slots (more than
+# the bf16 kernel's shared-memory copy of k_pos holds at D = 128); G = 256
+# (two chunks of 128 heads)
 PREFILL_CASES = [(2, 24, 24, 4, 2, 16, True, 0, "full", 32),
                  (1, 100, 100, 16, 16, 80, False, 0, "full", 32),
                  (1, 130, 130, 32, 8, 64, True, 0, "slots", 64),
@@ -1182,7 +1187,11 @@ PREFILL_CASES = [(2, 24, 24, 4, 2, 16, True, 0, "full", 32),
                  (1, 77, 77, 48, 1, 128, True, 0, "full", 32),
                  (2, 70, 200, 8, 2, 64, True, 16, "lead", 64),
                  (1, 90, 97, 12, 2, 80, True, 0, "dead", 32),
-                 (1, 40, 129, 6, 1, 16, False, 0, "empty", 16)]
+                 (1, 40, 129, 6, 1, 16, False, 0, "empty", 16),
+                 (2, 1024, 1024, 16, 16, 80, False, 0, "full", 1024),
+                 (1, 1537, 1537, 48, 1, 128, True, 0, "full", 1024),
+                 (1, 64, 10000, 32, 4, 128, True, 0, "slots", 1024),
+                 (1, 40, 40, 256, 1, 64, True, 0, "full", 32)]
 
 
 def _prefill_inputs(B, Sq, Sk, H, KV, D, mask, dtype, device, seed):

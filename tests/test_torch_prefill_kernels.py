@@ -45,7 +45,8 @@ from repro.models import ssm as RS
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.prefill_attn import ops as AO
-from repro_torch.kernels.prefill_attn.ref import (prefill_attn_ref,
+from repro_torch.kernels.prefill_attn.ref import (packed_tile_positions,
+                                                  prefill_attn_ref,
                                                   prefill_attn_tiled_ref,
                                                   tile_map_ref)
 from repro_torch.kernels.ssd_scan import ops as SO
@@ -84,15 +85,26 @@ ATTN_GRID = [(causal, window, S, chunk)
              for S, chunk in [(16, 4), (16, 16), (13, 4), (33, 8)]]
 
 
-@pytest.mark.parametrize("fn", ["ref", "tiled"])
+def _mirror(fn):
+    """The plain version, the float32 kernel's mirror (tiles of 4 query
+    positions) or the bf16 kernel's (tiles of 8 packed (position, head)
+    rows), all over key tiles of 4."""
+    if fn == "ref":
+        return prefill_attn_ref
+    if fn == "tiled":
+        return lambda *a, **kw: prefill_attn_tiled_ref(*a, q_tile=4,
+                                                       k_tile=4, **kw)
+    return lambda *a, **kw: prefill_attn_tiled_ref(*a, k_tile=4,
+                                                   packed_rows=8, **kw)
+
+
+@pytest.mark.parametrize("fn", ["ref", "tiled", "packed"])
 @pytest.mark.parametrize("causal,window,S,chunk", ATTN_GRID)
 def test_prefill_attn_plain_and_mirror_match_reference(fn, causal, window,
                                                        S, chunk):
     q, k, v = _attn_inputs(S * chunk + window, 2, S, S, 4, 2, 8)
     pos = np.arange(S, dtype=np.int32)
-    f = prefill_attn_ref if fn == "ref" else \
-        (lambda *a, **kw: prefill_attn_tiled_ref(*a, q_tile=4, k_tile=4,
-                                                 **kw))
+    f = _mirror(fn)
     got, want = _attn_both(f, q, k, v, pos, pos, causal=causal,
                            window=window, chunk=chunk)
     _close(got, want)
@@ -125,7 +137,7 @@ def _mask_positions(case, Sq, Sk, seed):
     return q_pos, k_pos
 
 
-@pytest.mark.parametrize("fn", ["ref", "tiled"])
+@pytest.mark.parametrize("fn", ["ref", "tiled", "packed"])
 @pytest.mark.parametrize("case,Sq,Sk,causal,window,chunk", MASK_CASES)
 def test_prefill_attn_masks_and_dead_rows_match_reference(
         fn, case, Sq, Sk, causal, window, chunk):
@@ -134,9 +146,7 @@ def test_prefill_attn_masks_and_dead_rows_match_reference(
     chunk), unsorted and empty key slots."""
     q, k, v = _attn_inputs(Sq + Sk, 1, Sq, Sk, 4, 1, 8)
     q_pos, k_pos = _mask_positions(case, Sq, Sk, Sq * Sk)
-    f = prefill_attn_ref if fn == "ref" else \
-        (lambda *a, **kw: prefill_attn_tiled_ref(*a, q_tile=4, k_tile=4,
-                                                 **kw))
+    f = _mirror(fn)
     got, want = _attn_both(f, q, k, v, q_pos, k_pos, causal=causal,
                            window=window, chunk=chunk)
     _close(got, want)
@@ -169,19 +179,79 @@ def test_prefill_attn_plain_bf16_is_bit_equal_to_reference(causal, window,
                                   np.asarray(want.astype(jnp.float32)))
 
 
+#: (B, S, H, KV, D, causal, window, chunk) of the bf16 kernel's mirror at
+#: its own tiles (128 packed (position, head) rows, 128-key tiles): G = 6
+#: at D = 80 (21 positions a tile), G = 48 (2 positions a tile, windowed),
+#: G = 1 (hubert's layout, bidirectional, two sequences), G = 4 with a
+#: window of one key tile; no S is a multiple of 128 or of a tile's
+#: positions
+PACKED_CASES = [(1, 200, 48, 8, 80, True, 0, 64),
+                (1, 151, 48, 1, 16, True, 40, 32),
+                (2, 130, 16, 16, 80, False, 0, 32),
+                (1, 300, 24, 6, 16, True, 128, 64)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,H,KV,D,causal,window,chunk", PACKED_CASES)
+def test_prefill_attn_packed_mirror_matches_reference(B, S, H, KV, D, causal,
+                                                      window, chunk, dtype):
+    """The bf16 kernel's arithmetic at its own tiles against the
+    reference: float32 within rtol = atol = 1e-4; bf16 (the probabilities
+    of a 128-key tile rounded, the reference's those of a chunk) within
+    2^-6 of the largest |output|, the card's tolerance for the kernel."""
+    q, k, v = _attn_inputs(S + H + D, B, S, S, H, KV, D)
+    pos = np.arange(S, dtype=np.int32)
+    kw = dict(causal=causal, window=window, chunk=chunk)
+    if dtype == "float32":
+        got, want = _attn_both(
+            lambda *a, **k_: prefill_attn_tiled_ref(
+                *a, k_tile=AO.KEY_TILE[torch.bfloat16],
+                packed_rows=AO.PACKED_ROWS, **k_), q, k, v, pos, pos, **kw)
+        _close(got, want)
+        return
+    qkv = [a.astype(jnp.bfloat16) for a in (q, k, v)]
+    want = np.asarray(RA.chunked_attention(
+        *map(jnp.asarray, qkv), jnp.asarray(pos), jnp.asarray(pos),
+        **kw).astype(jnp.float32))
+    got = prefill_attn_tiled_ref(
+        *(torch.from_numpy(a).bfloat16() for a in (q, k, v)),
+        torch.from_numpy(pos), torch.from_numpy(pos),
+        k_tile=AO.KEY_TILE[torch.bfloat16], packed_rows=AO.PACKED_ROWS, **kw)
+    assert got.dtype == torch.bfloat16
+    assert float(np.abs(got.float().numpy() - want).max()) <= \
+        2.0 ** -6 * float(np.abs(want).max())
+
+
+def test_packed_tiles_hold_whole_positions():
+    """A bf16 tile's 128 rows hold whole positions of G heads: 21 at
+    mixtral's G = 6, 2 at granite's G = 48, 128 at G = 1, one position of
+    128 heads past G = 128."""
+    assert [packed_tile_positions(G) for G in (1, 4, 6, 8, 48, 200)] == \
+        [128, 32, 21, 16, 2, 1]
+    assert AO.smem_bytes(80, torch.bfloat16) == \
+        AO.smem_bytes(128, torch.bfloat16) <= AO.MAX_SMEM_BYTES
+    assert AO.smem_bytes(64, torch.bfloat16) < AO.smem_bytes(80,
+                                                              torch.bfloat16)
+    assert AO.tile_map_words(4608, 4608, torch.bfloat16) == 0
+    assert AO.tile_map_words(4608, 4608, torch.float32) == 2 * 72 * 5
+
+
 @pytest.mark.parametrize("case,Sq,Sk,causal,window,chunk", MASK_CASES)
 def test_tile_maps_never_drop_a_live_key_nor_skip_a_mask(
         case, Sq, Sk, causal, window, chunk):
     """Every (query, key) pair the mask keeps lies in a key tile the first
     map keeps for its query tile, and every pair of a tile the second map
-    marks whole is live, at tiles of 4 and at the kernel's 64 / 32."""
+    marks whole is live, at tiles of 4, at the float32 kernel's 64 / 32
+    and at the bf16 kernel's positions of G = 6 and 48 / 128 keys."""
     q_pos, k_pos = map(torch.from_numpy, _mask_positions(case, Sq, Sk, 1))
     live = (k_pos[None] >= 0) & (~torch.tensor(causal)
                                  | (k_pos[None] <= q_pos[:, None]))
     if window > 0:
         live &= k_pos[None] > q_pos[:, None] - window
     n_whole = 0
-    for qt_size, kt_size in ((4, 4), (64, 64), (64, 32)):
+    for qt_size, kt_size in ((4, 4), (64, 64), (64, 32),
+                             (packed_tile_positions(6), 128),
+                             (packed_tile_positions(48), 128)):
         tiles, whole = tile_map_ref(q_pos, k_pos, causal, window, qt_size,
                                     kt_size)
         i, j = torch.nonzero(live, as_tuple=True)
