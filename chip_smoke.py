@@ -5,12 +5,16 @@ Run from the repository root:  python3 chip_smoke.py
 It builds every hand-written kernel of ``src/repro_torch`` (the banded
 (min,+) argmin chain B1 and k-slot chain B3, the dense (min,+) products B5
 and B4, the exit gate B6, the flash-decode attention B7, the population
-tick's fused ingest B2, the flash-prefill attention B8 and the SSD chunked
-scan B9; one ``nvcc`` per source, all in parallel), holds each against
-its plain PyTorch version on the card ([kernels_prefill] for B8 and B9:
-float32 and bf16, every head grouping and width of the registry, causal,
-windowed and bidirectional masks, ragged keys, -1 slots, masked leading
-tiles, dead rows; ragged chunks of 8, 13 and 256 rows), checks graph
+tick's fused ingest B2, the flash-prefill attention B8, the SSD chunked
+scan B9 and the MoE experts' SwiGLU B10; one ``nvcc`` per source, all in
+parallel), holds each against its plain PyTorch version on the card
+([kernels_prefill] for B8 and B9: float32 and bf16, every head grouping
+and width of the registry, causal, windowed and bidirectional masks,
+ragged keys, -1 slots, masked leading tiles, dead rows; ragged chunks of
+8, 13 and 256 rows; [kernels_moe] for B10, inside [serve_moe]: float32
+and bf16 at mixtral's decode and prefill shapes with the path's layer-0
+weights, and small cases: a dead expert with NaN weights, every slot
+valid, C no tile multiple, 16 experts), checks graph
 construction and the solver on CUDA against the port's CPU path, and
 drives each path of the port with the kernels' launch counters reset just
 before it and read just after:
@@ -76,7 +80,9 @@ before it and read just after:
                       its 56 periods (B7 at G = 6, D = 128), then a
                       4,608-token ``prefill`` into its 4,096-slot window
                       (the ring slots wrap; B8 once a layer) and 8 decode
-                      steps at B = 1;
+                      steps at B = 1 (B10 once an MoE layer throughout:
+                      4 calls a decode step, 4 a prefill), then
+                      [kernels_moe] on its layer-0 weights;
   [prefill]           teacher forcing on the card in float32 (prefill of
                       S - 1 tokens plus a decode step equals
                       ``forward_train``): qwen3-4b at 3 layers, mamba2-1.3b
@@ -117,18 +123,21 @@ measured time, with both parameter counts.
 
 It then times the kernels at their paths' shapes (B7 also at mixtral's
 heads over 4,096 slots; B8 and B9 at their prefills' shapes beside their
-plain versions and, for B8, scaled_dot_product_attention), the plain
-PyTorch programs ``_moe_gather`` and ``chunked_cross_entropy`` (forward
-plus backward) at their paths' shapes ([programs]), relaxes 2^20 scenario
-rows at population size, and prints the kernels JSON line (B1-B9)
-followed by the final status line.  The launch counters of B8 and B9 are
-reset before [serve_moe]'s and [serve_ssm]'s prefills, [prefill]'s cases,
-hubert's timed ``encode``, [train_parity] and [sharded]'s sharded train
-step, and printed after each.  Every failing phase raises; without a CUDA card, or
+plain versions and, for B8, scaled_dot_product_attention; B10 at
+[serve_moe]'s decode and prefill shapes beside its plain version, the
+three cuBLAS products alone and the whole ``_moe_gather``), the plain
+PyTorch program ``chunked_cross_entropy`` (forward plus backward) at its
+path's shape ([programs]), relaxes 2^20 scenario rows at population size,
+and prints the kernels JSON line (B1-B10) followed by the final status
+line.  The launch counters of B8, B9 and B10 are reset before
+[serve_moe]'s and [serve_ssm]'s prefills, [prefill]'s cases, hubert's
+timed ``encode``, [serve_parity]'s mixtral, [train_parity] and
+[sharded]'s sharded train step, and printed after each.  Every failing
+phase raises; without a CUDA card, or
 without the repository beside it, it exits non-zero and prints no result.
 
   python3 chip_smoke.py --times [chain] [dense] [kbest] [gate] [attn] [plan]
-                                [ingest] [serve] [prefill]
+                                [ingest] [serve] [prefill] [moe]
 
 builds the kernels and runs only the timings (no checks, no result line):
 B1 at the main path's largest launch (20,480 rows) in float64 and float32
@@ -142,8 +151,10 @@ for h4 and h6 (and on the [pop_tick] rows with the packs before and after
 the reprices, by graph replays, single launches and torch.profiler),
 [serve]'s engine run, B8 at [serve_moe]'s prefill and hubert's encode
 shapes and B9 at [serve_ssm]'s prefill shape beside their plain versions
-and the library call ([prefill]); all of them without a name, else the
-named ones.  The kernels are timed as CUDA-graph
+and the library call ([prefill]), B10 at [serve_moe]'s decode and prefill
+shapes on one seeded mixtral MoE layer beside its plain version and the
+three cuBLAS products ([moe]); all of them without a name, else the named
+ones.  The kernels are timed as CUDA-graph
 replays beside CUDA-event means.  The timings use only the kernels' public
 wrappers, so a copy of this script run from an older checkout times that
 checkout's kernels: run two in turns in one call to compare two designs on
@@ -174,6 +185,7 @@ ATTN_SOURCE = "src/repro_torch/kernels/decode_attn/csrc/decode_attn.cu"
 INGEST_SOURCE = "src/repro_torch/kernels/ee_gate/csrc/quant_signature.cu"
 PREFILL_SOURCE = "src/repro_torch/kernels/prefill_attn/csrc/prefill_attn.cu"
 SSD_SOURCE = "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu"
+MOE_SOURCE = "src/repro_torch/kernels/moe_ffn/csrc/moe_ffn.cu"
 # (B, V) of the exit-gate checks; the qwen3-4b padded vocab has a -inf tail
 # of 153,600 - 151,936 = 1,664 columns
 GATE_SHAPES = [(1, 128), (5, 5000), (4, 153600), (16, 50304),
@@ -242,6 +254,24 @@ PREFILL_CHECK_CASES = [(2, 24, 24, 4, 2, 16, True, 0, "full", 32),
 SSD_CHECK_CASES = [(2, 24, 4, 16, 16, 8), (2, 37, 4, 16, 16, 13),
                    (1, 600, 8, 64, 128, 256), (1, 100, 3, 64, 128, 256),
                    (1, 4096, 64, 64, 128, 256)]
+# (G, t, E, Ck, d, ff, live) of B10's small checks at narrow widths
+# (moe_inputs): the decode step's slots (Ck = 1 < C = 8, the stream
+# regime), 16 slots an expert (two n8 tiles of slots), 17 (the first
+# tensor-core tile shape), Ck = 200 of 600 tokens (C no multiple of the
+# 128-row tile; ff no multiple of the 128-column tile), G > 1 with
+# Ck < t, every slot valid, jamba's 16 experts; "mixed" leaves expert 0
+# without a token (its weights NaN: a block that read them would give NaN)
+# and expert E - 1 with every slot valid
+MOE_CHECK_CASES = [(4, 1, 8, 1, 128, 256, "mixed"),
+                   (1, 1, 8, 1, 64, 128, "mixed"),
+                   (2, 8, 8, 8, 64, 192, "mixed"),
+                   (17, 1, 4, 1, 64, 128, "mixed"),
+                   (1, 600, 8, 200, 256, 320, "mixed"),
+                   (3, 40, 4, 24, 128, 256, "all"),
+                   (2, 64, 16, 20, 64, 128, "mixed")]
+# (G, t) of B10 at mixtral's widths with [serve_moe]'s layer-0 weights:
+# the engine's decode step, the decode after the prefill, the prefill
+MOE_REAL_SHAPES = [(4, 1), (1, 1), (1, 4608)]
 SERVE_ARCH = "qwen3-4b"
 SERVE_BATCH = 4
 SERVE_CACHE = 256
@@ -3994,13 +4024,17 @@ def _attn_layers(cfg):
     return cfg.n_periods * sum(s.kind == "attn" for s in cfg.pattern)
 
 
+def _moe_layers(cfg):
+    return cfg.n_periods * sum(s.mlp == "moe" for s in cfg.pattern)
+
+
 def phase_serve(dev, counters):
     """The serving path: qwen3-4b at full width in bf16 through the engine,
     16 requests, then a churn trace with a failure and a recovery."""
     return _serve_path("serve", _serve_cfg(), dev, counters)
 
 
-def _serve_path(tag, cfg, dev, counters, probe=64, programs=()):
+def _serve_path(tag, cfg, dev, counters, probe=64):
     """``cfg`` at its widths in bf16 through ``SplitServeEngine``:
     ``SERVE_REQUESTS`` requests of ``SERVE_NEW`` tokens at B =
     ``SERVE_BATCH``, then a churn trace with a failure and a recovery;
@@ -4033,8 +4067,6 @@ def _serve_path(tag, cfg, dev, counters, probe=64, programs=()):
 
     for c in counters:
         c.launches = 0
-    for p in programs:
-        p.calls = 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -4085,6 +4117,9 @@ def _serve_path(tag, cfg, dev, counters, probe=64, programs=()):
     check(launches["decode_attn"] == n_attn * st.steps,
           f"{tag}: B7 launched {launches['decode_attn']} times in "
           f"{st.steps} steps, not {n_attn} a step")
+    check(launches["moe_ffn"] == _moe_layers(cfg) * st.steps,
+          f"{tag}: B10 launched {launches['moe_ffn']} times in {st.steps} "
+          f"steps, not {_moe_layers(cfg)} a step")
     check(launches["banded_minplus_chain"] > 0,
           f"{tag}: the engine's Plan did not launch B1")
     check(len(st.exit_histogram) >= 2,
@@ -4107,8 +4142,9 @@ def _serve_path(tag, cfg, dev, counters, probe=64, programs=()):
         f"reports {reports}; {wall_churn:.3f} s with {st.steps - steps_run} "
         f"more steps")
     log(tag, f"kernel launches on the path {launches} over {st.steps} "
-        f"steps: B6 {launches['ee_gate'] / st.steps:.0f} and B7 "
-        f"{launches['decode_attn'] / st.steps:.0f} per step, B1 "
+        f"steps: B6 {launches['ee_gate'] / st.steps:.0f}, B7 "
+        f"{launches['decode_attn'] / st.steps:.0f} and B10 "
+        f"{launches['moe_ffn'] / st.steps:.0f} per step, B1 "
         f"{launches['banded_minplus_chain']}; device memory high-water "
         f"{hiwater} B")
     log(tag, f"placement {placement0} -> {list(eng.placement.placement)}"
@@ -4246,32 +4282,6 @@ def _arch_cfg(arch, periods=None, **overrides):
     return dataclasses.replace(cfg, **overrides)
 
 
-class CallCounter:
-    """Counts the calls of a module function (the path's plain PyTorch
-    program ``_moe_gather``) while installed; the module's own callers
-    look the name up at call time."""
-
-    def __init__(self, module, name):
-        self.module, self.name = module, name
-        self.fn = getattr(module, name)
-        self.calls = 0
-
-    def __enter__(self):
-        def counted(*a, **kw):
-            self.calls += 1
-            return self.fn(*a, **kw)
-        setattr(self.module, self.name, counted)
-        return self
-
-    def __exit__(self, *exc):
-        setattr(self.module, self.name, self.fn)
-
-
-def _program_counters():
-    from repro_torch.models import moe
-    return {"moe_gather": CallCounter(moe, "_moe_gather")}
-
-
 def phase_serve_ssm(dev, counters):
     """mamba2-1.3b at full width and depth in bf16 through the engine, as
     [serve]: the recurrent state of 48 SSM layers, B6 and B1, no B7; then
@@ -4326,82 +4336,90 @@ def phase_serve_moe(dev, counters):
     """mixtral-8x22b at full width cut to MOE_PERIODS periods, in bf16:
     the engine run of [serve]; then a MOE_PROMPT-token prompt through
     ``prefill`` with cache_len 4,096 (the ring slots wrap past the window)
-    and MOE_DECODE decode steps at B = 1 (B7 windowed over 4,096 slots)."""
+    and MOE_DECODE decode steps at B = 1 (B7 windowed over 4,096 slots),
+    B10 once an MoE layer throughout; then [kernels_moe] and B10's
+    timings on layer 0's weights, and B8 at the prefill's shape."""
     import numpy as np
     import torch
     from repro_torch.models import transformer as TT
     cfg = _arch_cfg(MOE_ARCH, MOE_PERIODS)
-    progs = _program_counters()
-    with progs["moe_gather"]:
-        params, cfg, launches, out = _serve_path(
-            "serve_moe", cfg, dev, counters, programs=(progs["moe_gather"],))
-        log("serve_moe", f"depth cut: {MOE_PERIODS} of {MOE_ARCH}'s 56 "
-            f"periods; _moe_gather calls on the engine run (its profiled "
-            f"window included) "
-            f"{progs['moe_gather'].calls}")
-        toks = torch.as_tensor(np.random.default_rng(11).integers(
-            0, cfg.vocab_size, (1, MOE_PROMPT + MOE_DECODE)), device=dev)
-        for c in counters:
-            c.launches = 0
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        g0 = progs["moe_gather"].calls
+    params, cfg, launches, out = _serve_path("serve_moe", cfg, dev, counters)
+    log("serve_moe", f"depth cut: {MOE_PERIODS} of {MOE_ARCH}'s 56 periods")
+    toks = torch.as_tensor(np.random.default_rng(11).integers(
+        0, cfg.vocab_size, (1, MOE_PROMPT + MOE_DECODE)), device=dev)
+    for c in counters:
+        c.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    logits, caches = TT.prefill(params, cfg,
+                                {"tokens": toks[:, :MOE_PROMPT]},
+                                cache_len=cfg.sliding_window)
+    torch.cuda.synchronize()
+    t_pre = time.perf_counter() - t0
+    pre = {c.__name__: c.launches for c in counters}
+    hi_pre = torch.cuda.max_memory_allocated()
+    check(pre["prefill_attn"] == _attn_layers(cfg), f"serve_moe: B8 "
+          f"launched {pre['prefill_attn']} times in a prefill of "
+          f"{_attn_layers(cfg)} attention layers")
+    T = cfg.sliding_window
+    want_pos = torch.full((T,), -1, dtype=torch.int32)
+    live = torch.arange(MOE_PROMPT - T, MOE_PROMPT, dtype=torch.int32)
+    want_pos[live % T] = live
+    check(torch.equal(caches["l0"]["pos"].cpu(),
+                      want_pos.expand(cfg.n_periods, T)),
+          "serve_moe: the prefill cache does not hold the last 4,096 "
+          "positions at their ring slots")
+    check(tuple(logits.shape) == (1, cfg.padded_vocab)
+          and bool(torch.isfinite(logits[:, :cfg.vocab_size]).all()),
+          "serve_moe: prefill logits not finite or of the wrong shape")
+    walls = []
+    for i in range(MOE_DECODE):
+        pos = MOE_PROMPT + i
         t0 = time.perf_counter()
-        logits, caches = TT.prefill(params, cfg,
-                                    {"tokens": toks[:, :MOE_PROMPT]},
-                                    cache_len=cfg.sliding_window)
+        lg, caches, ex = TT.decode_step(params, cfg, toks[:, pos:pos + 1],
+                                        caches, pos)
         torch.cuda.synchronize()
-        t_pre = time.perf_counter() - t0
-        pre = {c.__name__: c.launches for c in counters}
-        hi_pre = torch.cuda.max_memory_allocated()
-        check(pre["prefill_attn"] == _attn_layers(cfg), f"serve_moe: B8 "
-              f"launched {pre['prefill_attn']} times in a prefill of "
-              f"{_attn_layers(cfg)} attention layers")
-        T = cfg.sliding_window
-        want_pos = torch.full((T,), -1, dtype=torch.int32)
-        live = torch.arange(MOE_PROMPT - T, MOE_PROMPT, dtype=torch.int32)
-        want_pos[live % T] = live
-        check(torch.equal(caches["l0"]["pos"].cpu(),
-                          want_pos.expand(cfg.n_periods, T)),
-              "serve_moe: the prefill cache does not hold the last 4,096 "
-              "positions at their ring slots")
-        check(tuple(logits.shape) == (1, cfg.padded_vocab)
-              and bool(torch.isfinite(logits[:, :cfg.vocab_size]).all()),
-              "serve_moe: prefill logits not finite or of the wrong shape")
-        walls = []
-        for i in range(MOE_DECODE):
-            pos = MOE_PROMPT + i
-            t0 = time.perf_counter()
-            lg, caches, ex = TT.decode_step(params, cfg, toks[:, pos:pos + 1],
-                                            caches, pos)
-            torch.cuda.synchronize()
-            walls.append(time.perf_counter() - t0)
-            check(bool(torch.isfinite(lg[:, :cfg.vocab_size]).all()),
-                  f"serve_moe: decode logits at {pos} not finite")
-        dec_launches = {c.__name__: c.launches for c in counters}
-        check(dec_launches["decode_attn"] == _attn_layers(cfg) * MOE_DECODE,
-              f"serve_moe: B7 launched {dec_launches['decode_attn']} times "
-              f"in {MOE_DECODE} decode steps")
-        log("serve_moe", f"prefill of {MOE_PROMPT} tokens (B = 1, cache_len "
-            f"{T}): {t_pre:.3f} s wall (host clock, ending in synchronize), "
-            f"{MOE_PROMPT / t_pre:.1f} tokens/s, device memory high-water "
-            f"{hi_pre} B; ring slots hold positions {MOE_PROMPT - T}.."
-            f"{MOE_PROMPT - 1}; _moe_gather calls "
-            f"{progs['moe_gather'].calls - g0}; launches "
-            f"in the prefill (counters reset before it) {pre}")
-        log("serve_moe", "prefill: " + _analytic_line(
-            cfg, 1, MOE_PROMPT, "prefill", t_pre * 1e3, out["n_params"]))
-        log("serve_moe", f"{MOE_DECODE} decode steps after it at B = 1 "
-            f"(B7 over {T} slots, window {cfg.sliding_window}): ms/step "
-            f"{[round(w * 1e3, 3) for w in walls]}; launches "
-            f"{dec_launches}")
+        walls.append(time.perf_counter() - t0)
+        check(bool(torch.isfinite(lg[:, :cfg.vocab_size]).all()),
+              f"serve_moe: decode logits at {pos} not finite")
+    dec_launches = {c.__name__: c.launches for c in counters}
+    check(dec_launches["decode_attn"] == _attn_layers(cfg) * MOE_DECODE,
+          f"serve_moe: B7 launched {dec_launches['decode_attn']} times "
+          f"in {MOE_DECODE} decode steps")
+    log("serve_moe", f"prefill of {MOE_PROMPT} tokens (B = 1, cache_len "
+        f"{T}): {t_pre:.3f} s wall (host clock, ending in synchronize), "
+        f"{MOE_PROMPT / t_pre:.1f} tokens/s, device memory high-water "
+        f"{hi_pre} B; ring slots hold positions {MOE_PROMPT - T}.."
+        f"{MOE_PROMPT - 1}; launches in the prefill (counters reset "
+        f"before it) {pre}")
+    log("serve_moe", "prefill: " + _analytic_line(
+        cfg, 1, MOE_PROMPT, "prefill", t_pre * 1e3, out["n_params"]))
+    log("serve_moe", f"{MOE_DECODE} decode steps after it at B = 1 "
+        f"(B7 over {T} slots, window {cfg.sliding_window}): ms/step "
+        f"{[round(w * 1e3, 3) for w in walls]}; launches "
+        f"{dec_launches}")
+    # the counters run on from the prefill through the decode steps
+    n_moe = _moe_layers(cfg)
+    dec_b10 = dec_launches["moe_ffn"] - pre["moe_ffn"]
+    check(pre["moe_ffn"] == n_moe, f"serve_moe: B10 launched "
+          f"{pre['moe_ffn']} times in a prefill of {n_moe} MoE layers")
+    check(dec_b10 == n_moe * MOE_DECODE, f"serve_moe: B10 launched "
+          f"{dec_b10} times in {MOE_DECODE} decode steps of {n_moe} MoE "
+          f"layers")
+    log("serve_moe", f"B10 launch counts (calls; each is two launches): "
+        f"engine run {launches['moe_ffn']} ({n_moe} a step), prefill "
+        f"{pre['moe_ffn']}, {MOE_DECODE} decode steps after it {dec_b10}")
+    decode_calls = launches["moe_ffn"] + dec_b10
     for k, v in dec_launches.items():
         launches[k] += v
-    out.update(prefill_s=t_pre, decode_ms=walls, programs={
-        k: c.calls for k, c in progs.items()}, prefill_launches=pre)
+    out.update(prefill_s=t_pre, decode_ms=walls, prefill_launches=pre)
     del caches
     torch.cuda.empty_cache()
-    moe_gather_times(params, cfg, dev, progs["moe_gather"].calls)
+    layer0 = TT._period(params["layers"], 0)["l0"]["mlp"]
+    out["b10_err"] = phase_kernels_moe(dev, layer0, cfg)
+    out["b10_rows"] = moe_ffn_times(layer0, cfg, dev,
+                                    (decode_calls, pre["moe_ffn"]))
     out["b8_row"] = attn_program_times(cfg, dev, pre["prefill_attn"])
     del params
     torch.cuda.empty_cache()
@@ -4428,12 +4446,12 @@ def phase_prefill(dev):
     import dataclasses
     import numpy as np
     import torch
+    from repro_torch.kernels.moe_ffn.ops import moe_ffn
     from repro_torch.kernels.prefill_attn.ops import prefill_attn
     from repro_torch.kernels.ssd_scan.ops import ssd_scan
     from repro_torch.models import transformer as TT
     out = {}
-    progs = _program_counters()
-    kernels = (prefill_attn, ssd_scan)
+    kernels = (prefill_attn, ssd_scan, moe_ffn)
     _reset(kernels)
     for arch, periods, B, S in PREFILL_CASES:
         cfg = _arch_cfg(arch, periods, dtype="float32")
@@ -4443,26 +4461,26 @@ def phase_prefill(dev):
         params = TT.init_model(cfg, seed=2, device=dev)
         toks = torch.as_tensor(np.random.default_rng(S).integers(
             0, cfg.vocab_size, (B, S)), device=dev)
-        # B8 / B9 launches of this case's forward_train and prefill
-        marks = [(prefill_attn.launches, ssd_scan.launches)]
-        with progs["moe_gather"]:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            full = TT.forward_train(params, cfg, {"tokens": toks})["final"][
-                :, -1]
-            torch.cuda.synchronize()
-            t_fwd = time.perf_counter() - t0
-            marks.append((prefill_attn.launches, ssd_scan.launches))
-            t0 = time.perf_counter()
-            _, caches = TT.prefill(params, cfg, {"tokens": toks[:, :S - 1]},
-                                   cache_len=S + 4)
-            torch.cuda.synchronize()
-            t_pre = time.perf_counter() - t0
-            marks.append((prefill_attn.launches, ssd_scan.launches))
-            lg, _, _ = TT.decode_step(params, cfg, toks[:, S - 1:], caches,
-                                      S - 1)
-        case_launches = [f"{b - a} / {d - c}" for (a, c), (b, d)
-                         in zip(marks, marks[1:])]
+        # B8 / B9 / B10 launches of this case's forward_train and prefill
+        mark = lambda: tuple(c.launches for c in kernels)
+        marks = [mark()]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        full = TT.forward_train(params, cfg, {"tokens": toks})["final"][
+            :, -1]
+        torch.cuda.synchronize()
+        t_fwd = time.perf_counter() - t0
+        marks.append(mark())
+        t0 = time.perf_counter()
+        _, caches = TT.prefill(params, cfg, {"tokens": toks[:, :S - 1]},
+                               cache_len=S + 4)
+        torch.cuda.synchronize()
+        t_pre = time.perf_counter() - t0
+        marks.append(mark())
+        lg, _, _ = TT.decode_step(params, cfg, toks[:, S - 1:], caches,
+                                  S - 1)
+        case_launches = [" / ".join(str(b - a) for a, b in zip(m0, m1))
+                         for m0, m1 in zip(marks, marks[1:])]
         err = _rel_last(full, lg)
         check(err < 1e-4, f"prefill {arch}: decode after prefill differs "
               f"from forward_train by {err:.3g} relative (>= 1e-4)")
@@ -4473,19 +4491,17 @@ def phase_prefill(dev):
             f": decode after prefill within {err:.3g} relative of "
             f"forward_train; walls (host clock, ending in synchronize) "
             f"forward_train {t_fwd:.3f} s, prefill {t_pre:.3f} s; B8 / B9 "
-            f"launches: forward_train {case_launches[0]}, prefill "
+            f"/ B10 launches: forward_train {case_launches[0]}, prefill "
             f"{case_launches[1]}; device memory high-water "
             f"{torch.cuda.max_memory_allocated()} B")
         out[arch] = dict(err=err, forward_s=t_fwd, prefill_s=t_pre)
         del params, caches, full, lg
         torch.cuda.empty_cache()
     launched = {c.__name__: c.launches for c in kernels}
-    check(all(launched.values()), f"prefill: B8 / B9 launches {launched} "
-          f"over the teacher-forcing cases")
-    log("prefill", "program calls over the three cases: "
-        + ", ".join(f"{k} {c.calls}" for k, c in progs.items())
-        + f"; kernel launches (counters reset before the cases) {launched}")
-    out["programs"] = {k: c.calls for k, c in progs.items()}
+    check(all(launched.values()), f"prefill: B8 / B9 / B10 launches "
+          f"{launched} over the teacher-forcing cases")
+    log("prefill", f"kernel launches over the three cases (counters reset "
+        f"before them) {launched}")
     out["launches"] = launched
     # encode: hubert-xlarge at full width and depth, bf16
     cfg = _arch_cfg("hubert-xlarge")
@@ -4549,9 +4565,11 @@ def phase_serve_parity_more(dev):
     the port's CPU path, same weights, within rtol = atol = 1e-4."""
     import numpy as np
     import torch
+    from repro_torch.kernels.moe_ffn.ops import moe_ffn
     from repro_torch.models import transformer as TT
     for arch, periods in ((SSM_ARCH, 2), (MOE_ARCH, 1)):
         cfg = _arch_cfg(arch, periods, dtype="float32", exit_layers=())
+        _reset((moe_ffn,))
         params = TT.init_model(cfg, seed=4, device=dev)
         t0 = time.perf_counter()
         cpu = TT.tree_to(params, "cpu")
@@ -4581,11 +4599,16 @@ def phase_serve_parity_more(dev):
                 f"serve_parity {arch} decode at {pos}")
         _close_tree(pre[dev][1], pre["cpu"][1], 1e-4,
                     f"serve_parity {arch} caches after decode")
+        # forward_train, prefill and 4 decode steps, once an MoE layer each
+        n_b10 = 6 * _moe_layers(cfg)
+        check(moe_ffn.launches == n_b10, f"serve_parity {arch}: B10 "
+              f"launched {moe_ffn.launches} times, not {n_b10}")
         log("serve_parity", f"{arch} widths at {cfg.n_layers} layers, f32 "
             f"({TT.param_count(params)} parameters, copied to the host in "
             f"{t_copy:.3f} s): forward_train, prefill (logits and caches) "
             f"and 4 decode steps on CUDA within rtol = atol = 1e-4 of the "
-            f"CPU path; max abs err " + ", ".join(
+            f"CPU path (B10 calls {moe_ffn.launches}); max abs err "
+            + ", ".join(
                 f"{k} {v:.3g}" for k, v in worst.items()))
         del params, cpu, fw, pre, step
         torch.cuda.empty_cache()
@@ -4611,34 +4634,190 @@ def _program_ms(fn, reps=3):
     return graph_ms(fn, reps) or cuda_ms(fn, reps, 1)
 
 
-def moe_gather_times(params, cfg, dev, calls):
-    """``_moe_gather`` of layer 0 at the engine's decode shape (4 groups of
-    one token) and at the prefill shape (one group of MOE_PROMPT tokens),
-    bf16.  Bytes: the experts this run's tokens select, read once, the
-    router, x and y; operations: the router and each kept (token, expert)
-    pair's SwiGLU."""
+def moe_inputs(G, t, E, Ck, d, ff, live, dtype, dev, seed):
+    """Seeded inputs of B10 as the top-C selection gives them: each
+    (group, expert) row of slots holds distinct tokens, its live slots
+    first (top_w > 0, descending), dead ones with top_w 0; "mixed" leaves
+    expert 0 without a token, NaN in its weights, and expert E - 1 full."""
+    import numpy as np
     import torch
+    rng = np.random.default_rng(seed)
+    top_idx = np.stack([np.stack([rng.permutation(t)[:Ck] for _ in range(E)])
+                        for _ in range(G)])
+    counts = rng.integers(0, Ck + 1, size=(G, E))
+    if live == "all":
+        counts[:] = Ck
+    else:
+        counts[:, 0] = 0
+        counts[:, -1] = Ck
+    top_w = -np.sort(-rng.uniform(0.05, 1.0, (G, E, Ck)), axis=-1)
+    top_w[np.arange(Ck)[None, None, :] >= counts[..., None]] = 0.0
+    f = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)
+    xg = f(rng.normal(size=(G, t, d))).to(dtype)
+    w = [(f(rng.normal(size=sh)) / sh[1] ** 0.5).to(dtype)
+         for sh in ((E, d, ff), (E, d, ff), (E, ff, d))]
+    if live == "mixed":
+        for a in w:
+            a[0] = float("nan")
+    tw = f(top_w)
+    return (xg, torch.as_tensor(top_idx, dtype=torch.int64, device=dev),
+            tw > 0, tw, *w)
+
+
+def moe_stage(p, cfg, x):
+    """B10's inputs at a layer's routing of x [G, t, d]: xg, top_idx,
+    valid, top_w and the experts' weights, as ``_moe_gather`` gives them."""
     from repro_torch.models import moe as M
-    from repro_torch.models import transformer as TT
-    p = TT._period(params["layers"], 0)["l0"]["mlp"]
-    d, ff, E, k = cfg.d_model, cfg.d_ff, cfg.n_experts, cfg.top_k
+    top_idx, valid, top_w = M._slots(p, cfg, x)
+    return (x, top_idx.contiguous(), valid.contiguous(), top_w.contiguous(),
+            p["w_gate"], p["w_up"], p["w_down"])
+
+
+def moe_within(got, want, dtype):
+    """B10 against its plain version: float32 inputs within 1e-5 of the
+    largest |ye| (float32 sums in another order), bf16 within 2^-6 of it
+    (h rounded to bf16 after sums in another order than cuBLAS's may land
+    one ulp apart); (ok, error, tolerance)."""
+    e = max_abs_err(got, want)
+    tol = (1e-5 if dtype == "float32" else 2.0 ** -6) * float(
+        want.abs().max())
+    return e <= tol, e, tol
+
+
+def phase_kernels_moe(dev, p, cfg):
+    """[kernels_moe]: B10 against its plain version on the card, bf16 and
+    float32, with the same bits on a repeat call and exact zeros at every
+    dead slot: at mixtral's widths with [serve_moe]'s layer-0 weights
+    (MOE_REAL_SHAPES, routed by the layer's router; float32 on a float32
+    copy of the weights), and at MOE_CHECK_CASES, where a dead expert's
+    NaN weights (which the plain version turns into NaN) must come out as
+    exact zeros.  Returns the largest abs error."""
+    import gc
+    import torch
+    from repro_torch.kernels.moe_ffn.ops import moe_ffn, moe_ffn_plan
+    from repro_torch.kernels.moe_ffn.ref import moe_ffn_ref
+    t_phase = time.perf_counter()
+    saved = moe_ffn.launches
+    worst = 0.0
+    g = torch.Generator(device=dev).manual_seed(14)
+    xs = {(G, t): torch.randn(G, t, cfg.d_model, generator=g, device=dev)
+          for G, t in MOE_REAL_SHAPES}
+    for dtype in ("bfloat16", "float32"):
+        td = getattr(torch, dtype)
+        pw = p if dtype == "bfloat16" else {k: v.float() for k, v in
+                                            p.items()}
+        for (G, t), x in xs.items():
+            args = moe_stage(pw, cfg, x.to(td))
+            got = moe_ffn(*args)
+            again = moe_ffn(*args)
+            want = moe_ffn_ref(*args)
+            torch.cuda.synchronize()
+            ok, e, tol = moe_within(got, want, dtype)
+            valid = args[2]
+            plan = moe_ffn_plan(G, cfg.n_experts, args[1].shape[-1],
+                                cfg.d_model, cfg.d_ff, td)
+            tag = (f"B10 mixtral widths (G, t) {(G, t)} {dtype} ({plan.regime}"
+                   f", experts used {int(valid.any(0).any(-1).sum())} of "
+                   f"{cfg.n_experts}, {int(valid.sum())} live slots of "
+                   f"{valid.numel()})")
+            check(ok, f"{tag}: off by {e:.3g} ({tol:.3g})")
+            check(torch.equal(got, again), f"{tag}: a repeat call gave other "
+                  f"bits")
+            check(not bool(got[~valid].any()), f"{tag}: a dead slot is not "
+                  f"zero")
+            worst = max(worst, e)
+            log("kernels_moe", f"{tag}: max_abs_err {e:.3g} within "
+                f"{tol:.3g}; same bits again; dead slots exact zeros")
+            del args, got, again, want
+        del pw
+        gc.collect()
+        torch.cuda.empty_cache()
+    for case in MOE_CHECK_CASES:
+        G, t, E, Ck, d, ff, live = case
+        for dtype in ("float32", "bfloat16"):
+            args = moe_inputs(*case, getattr(torch, dtype), dev, sum(case[:6]))
+            got = moe_ffn(*args)
+            again = moe_ffn(*args)
+            want = moe_ffn_ref(*args)
+            torch.cuda.synchronize()
+            tag = (f"B10 (G, t, E, Ck, d, ff) {case[:6]} {live} {dtype} "
+                   f"({moe_ffn_plan(G, E, Ck, d, ff, args[0].dtype).regime})")
+            if live == "mixed":
+                check(bool(torch.isnan(want[:, 0]).all())
+                      and bool((got[:, 0] == 0).all()), f"{tag}: the dead "
+                      f"expert's NaN weights were read")
+                got, again, want = got[:, 1:], again[:, 1:], want[:, 1:]
+            ok, e, tol = moe_within(got, want, dtype)
+            check(ok, f"{tag}: off by {e:.3g} ({tol:.3g})")
+            check(torch.equal(got, again), f"{tag}: a repeat call gave other "
+                  f"bits")
+            check(not bool(got[~args[2][:, 1:] if live == "mixed"
+                               else ~args[2]].any()),
+                  f"{tag}: a dead slot is not zero")
+            worst = max(worst, e)
+            log("kernels_moe", f"{tag}: max_abs_err {e:.3g} within {tol:.3g}"
+                f"; same bits again; dead slots exact zeros"
+                + ("; the dead expert (NaN weights) exact zeros"
+                   if live == "mixed" else ""))
+    moe_ffn.launches = saved               # the comparisons' launches
+    log("kernels_moe", f"the phase took {time.perf_counter() - t_phase:.1f} s")
+    return worst
+
+
+def moe_ffn_times(p, cfg, dev, launches):
+    """B10 at [serve_moe]'s shapes with layer-0 weights (bf16): the
+    engine's decode step (4 groups of one token) and the prefill (one group
+    of MOE_PROMPT tokens).  Device ms a call (CUDA-graph replays) beside
+    its plain version (the reference's gather, three products and
+    weighting), the library (the plain version's three cuBLAS
+    ``bmm(out_dtype=float32)`` products alone, on its [E, G * Ck, .]
+    operands) and the bound: bytes the live experts' weights, xg, the
+    routing and ye once; operations each live slot's SwiGLU, 6 d ff (989
+    TFLOP/s).  The whole ``_moe_gather`` (routing and scatter-add too) is
+    logged beside it.  ``launches``: (decode calls, prefill calls) on the
+    path.  Returns the two kernels-line rows."""
+    import torch
+    from repro_torch.kernels.moe_ffn.ops import moe_ffn, moe_ffn_plan
+    from repro_torch.kernels.moe_ffn.ref import moe_ffn_ref
+    from repro_torch.models import moe as M
+    d, ff, E = cfg.d_model, cfg.d_ff, cfg.n_experts
     g = torch.Generator(device=dev).manual_seed(8)
-    rows = {}
-    for G, t in ((SERVE_BATCH, 1), (1, MOE_PROMPT)):
+    saved = moe_ffn.launches
+    rows = []
+    for (G, t), calls in zip(((SERVE_BATCH, 1), (1, MOE_PROMPT)), launches):
         x = torch.randn(G, t, d, generator=g, device=dev).to(torch.bfloat16)
-        _, _, ids = M._route(p, cfg, x)
-        used = int(torch.unique(ids).numel())
-        C = min(M._capacity(t, cfg), t)
-        kept = int((torch.zeros(G, t, E, device=dev).scatter_(
-            -1, ids, 1.0).sum(1).clamp(max=C)).sum())
-        nbytes = used * 3 * d * ff * 2 + d * E * 4 + 2 * G * t * d * 2
-        ops = 2 * d * E * G * t + kept * 3 * 2 * d * ff
-        ms = _program_ms(lambda: M._moe_gather(p, cfg, x))
-        rows[(G, t)] = _program_row(
-            f"_moe_gather bf16 x {(G, t, d)} (experts used {used} of {E}, "
-            f"{kept} kept (token, expert) pairs, capacity {C})", ms,
-            calls if (G, t) == (SERVE_BATCH, 1) else None, nbytes, ops,
-            989e12, None)
+        args = moe_stage(p, cfg, x)
+        _, top_idx, valid, _, wg, wu, wd = args
+        Ck = top_idx.shape[-1]
+        used = int(valid.any(0).any(-1).sum())
+        kept = int(valid.sum())
+        kern = lambda: moe_ffn(*args)
+        ms = graph_ms(kern, 10 if t == 1 else 3) or cuda_ms(kern, 5, 1)
+        plain = _program_ms(lambda: moe_ffn_ref(*args))
+        xe = x[torch.arange(G, device=dev)[:, None, None], top_idx]
+        xe = xe.transpose(0, 1).reshape(E, G * Ck, d).contiguous()
+        h = torch.zeros(E, G * Ck, ff, dtype=x.dtype, device=dev)
+        lib_fn = lambda: (torch.bmm(xe, wg, out_dtype=torch.float32),
+                          torch.bmm(xe, wu, out_dtype=torch.float32),
+                          torch.bmm(h, wd, out_dtype=torch.float32))
+        lib = _program_ms(lib_fn)
+        whole = _program_ms(lambda: M._moe_gather(p, cfg, x))
+        log("programs", f"B10 at {(G, t)}: device time a call by kernel "
+            f"(torch.profiler, 5 calls): {launch_split(kern)}")
+        nbytes = (used * 3 * d * ff * 2 + G * t * d * 2
+                  + G * E * Ck * (8 + 1 + 4) + G * E * Ck * d * 4)
+        ops = kept * 6 * d * ff
+        plan = moe_ffn_plan(G, E, Ck, d, ff, x.dtype)
+        prog = _program_row(
+            f"B10 moe_ffn bf16 xg {(G, t, d)} ({plan.regime}; experts used "
+            f"{used} of {E}, {kept} live slots of {G * E * Ck}; plain "
+            f"{plain:.4f} ms; the whole _moe_gather {whole:.4f} ms)", ms,
+            calls, nbytes, ops, 989e12, lib, "kernel B10")
+        rows.append(_kernel_row("moe_ffn", MOE_SOURCE,
+                                "src/repro/models/moe.py:63", plain, prog))
+        del args, xe, h
+    moe_ffn.launches = saved               # the timings' launches
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -5563,13 +5742,14 @@ def phase_train_parity(dev):
     import torch
     from repro_torch.configs import get
     from repro_torch.data import LMStreamConfig, SyntheticLMStream
+    from repro_torch.kernels.moe_ffn.ops import moe_ffn
     from repro_torch.kernels.prefill_attn.ops import prefill_attn
     from repro_torch.kernels.ssd_scan.ops import ssd_scan
     from repro_torch.models import transformer as TT
     from repro_torch.runtime import steps as S
     from repro_torch.runtime.train_loop import batch_to, train
     restore = _tf32_on()
-    kernels = (prefill_attn, ssd_scan)
+    kernels = (prefill_attn, ssd_scan, moe_ffn)
     _reset(kernels)
     try:
         for arch, periods in TRAIN_PARITY:
@@ -5622,8 +5802,8 @@ def phase_train_parity(dev):
             gc.collect()
             torch.cuda.empty_cache()
         launched = {c.__name__: c.launches for c in kernels}
-        check(all(launched.values()), f"[train_parity] B8 / B9 launches "
-              f"{launched}")
+        check(all(launched.values()), f"[train_parity] B8 / B9 / B10 "
+              f"launches {launched}")
         log("train_parity", f"kernel launches over the three models' "
             f"loss_fn and 3 steps each (counters reset before them): "
             f"{launched}; the backward is the plain versions'")
@@ -5804,7 +5984,7 @@ def phase_examples():
 
 
 TIMES = ("chain", "dense", "kbest", "gate", "attn", "plan", "ingest",
-         "serve", "prefill")
+         "serve", "prefill", "moe")
 
 
 def times_only(dev, which, counters) -> None:
@@ -5832,6 +6012,15 @@ def times_only(dev, which, counters) -> None:
         attn_program_times(_arch_cfg(MOE_ARCH, MOE_PERIODS), dev, None)
         attn_encode_times(dev, None)
         ssd_program_times(dev, None)
+    if "moe" in which:
+        import torch
+        from repro_torch.models.moe import moe_init
+        cfg = _arch_cfg(MOE_ARCH, MOE_PERIODS)
+        layer = moe_init(torch.Generator(device=dev).manual_seed(0), cfg,
+                         torch.bfloat16, dev)
+        moe_ffn_times(layer, cfg, dev, (None, None))
+        del layer
+        torch.cuda.empty_cache()
 
 
 def main(argv) -> int:
@@ -5844,6 +6033,7 @@ def main(argv) -> int:
                                                  banded_minplus_chain_kbest,
                                                  minplus_vecmat,
                                                  minplus_vecmat_argmin)
+    from repro_torch.kernels.moe_ffn.ops import moe_ffn
     from repro_torch.kernels.prefill_attn.ops import prefill_attn
     from repro_torch.kernels.ssd_scan.ops import ssd_scan
     dev = torch.device("cuda", 0)
@@ -5854,7 +6044,7 @@ def main(argv) -> int:
     counters = (banded_minplus_chain, banded_minplus_argmin,
                 banded_minplus_chain_kbest, minplus_vecmat,
                 minplus_vecmat_argmin, ee_gate, decode_attn,
-                quant_signature_rows, prefill_attn, ssd_scan)
+                quant_signature_rows, prefill_attn, ssd_scan, moe_ffn)
 
     if argv[:1] == ["--multihost-rank"] and len(argv) == 4:
         multihost_rank(int(argv[1]), int(argv[2]), argv[3])
@@ -5971,13 +6161,26 @@ def main(argv) -> int:
     check(sharded_row["launches"] > 0, "decode_attn: no launch on [sharded]")
     rows.append(sharded_row)
     rows += [b8_row, b9_row]
-    log("order", f"B8 / B9 launches: [serve_moe]'s prefill "
-        f"{serve_moe['prefill_launches']['prefill_attn']} / -, [serve_ssm]'s"
-        f" prefill - / {serve_ssm['prefill_launches']['ssd_scan']}, "
-        f"[prefill] {prefill['launches']['prefill_attn']} / "
-        f"{prefill['launches']['ssd_scan']}, hubert's encode "
-        f"{prefill['encode_launches']['prefill_attn']} / -, [train_parity] "
-        f"{launches_tp['prefill_attn']} / {launches_tp['ssd_scan']}")
+    # B10 at the engine's decode shape and the prefill's, with those paths'
+    # calls
+    for row in serve_moe["b10_rows"]:
+        row["max_abs_err"] = serve_moe["b10_err"]
+        check(row["launches"] > 0, "moe_ffn: no launch on [serve_moe]")
+    rows += serve_moe["b10_rows"]
+    check(prefill["launches"]["moe_ffn"] > 0
+          and launches_tp["moe_ffn"] > 0, "moe_ffn: no launch on [prefill] "
+          "or [train_parity]")
+    log("order", f"B8 / B9 / B10 launches: [serve_moe]'s prefill "
+        f"{serve_moe['prefill_launches']['prefill_attn']} / - / "
+        f"{serve_moe['prefill_launches']['moe_ffn']}, [serve_ssm]'s prefill "
+        f"- / {serve_ssm['prefill_launches']['ssd_scan']} / -, [prefill] "
+        f"{prefill['launches']['prefill_attn']} / "
+        f"{prefill['launches']['ssd_scan']} / "
+        f"{prefill['launches']['moe_ffn']}, hubert's encode "
+        f"{prefill['encode_launches']['prefill_attn']} / - / -, "
+        f"[train_parity] {launches_tp['prefill_attn']} / "
+        f"{launches_tp['ssd_scan']} / {launches_tp['moe_ffn']}; B10 on "
+        f"[serve_moe]'s engine run and decode {launches_moe['moe_ffn']}")
     log("order", f"B6 launches on [branchy]: {launches_branchy}; phase "
         f"walls (s): " + ", ".join(f"[{k}] {v:.1f}" for k, v in walls.items())
         + f"; since the start {time.perf_counter() - T_START:.1f}")
@@ -5985,14 +6188,13 @@ def main(argv) -> int:
         f"B7 {launches_ssm['decode_attn']}, B1 "
         f"{launches_ssm['banded_minplus_chain']}; on [serve_moe]: B6 "
         f"{launches_moe['ee_gate']}, B7 {launches_moe['decode_attn']}, B1 "
-        f"{launches_moe['banded_minplus_chain']}; plain programs "
-        f"{serve_moe['programs']}")
+        f"{launches_moe['banded_minplus_chain']}")
     # B5's launches on its path are Table VII layers, not the [times] shape
-    at_path = {r["name"]: (r["ms"], r["bound_ms"]) for r in rows}
-    at_path["minplus_vecmat"] = table7_layer
-    order = sorted(((r["launches"] * (at_path[r["name"]][0]
-                                      - at_path[r["name"]][1]), r["name"])
-                    for r in rows), reverse=True)
+    def at_path(r):
+        return table7_layer if r["name"] == "minplus_vecmat" else (
+            r["ms"], r["bound_ms"])
+    order = sorted(((r["launches"] * (at_path(r)[0] - at_path(r)[1]),
+                     r["name"]) for r in rows), reverse=True)
     log("order", "launches x (time - bound) on each kernel's path (B5 at the "
         "gamma-25 Table VII layer, CUDA-graph time; the others at their "
         "[times] shape): "

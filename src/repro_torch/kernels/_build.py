@@ -29,9 +29,10 @@ BASE_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 #: ``-fmad=false`` keeps every add of the (min,+) kernels a plain IEEE add
 #: (no contraction), which their bit-exactness against the reference rests
 #: on, as the fused ingest's byte-equal signatures rest on its IEEE order.
-#: The exit gate, the attention kernels and the SSD scan are held to a
-#: tolerance and keep the default contraction.  ``-Xptxas -v`` puts the
-#: registers and shared memory of each kernel into the build log.
+#: The exit gate, the attention kernels, the SSD scan and the MoE experts'
+#: kernel are held to a tolerance and keep the default contraction.
+#: ``-Xptxas -v`` puts the registers and shared memory of each kernel into
+#: the build log.
 EXACT_FLAGS = ("-fmad=false",)
 BUILD_DIR = KERNELS.parents[2] / "build"
 
@@ -82,6 +83,11 @@ SOURCES: Tuple[Source, ...] = (
     Source(Path("ssd_scan/csrc/ssd_scan.cu"), (),
            {name: [_PTR] * 11 + [_INT] * 6 + [_PTR]
             for name in ("ssd_scan_f32", "ssd_scan_bf16")}),
+    # xg, top_idx, valid, top_w, w_gate, w_up, w_down, h, ye | G, t, d, E,
+    # Ck, ff, regime | stream
+    Source(Path("moe_ffn/csrc/moe_ffn.cu"), (),
+           {name: [_PTR] * 9 + [_INT] * 7 + [_PTR]
+            for name in ("moe_ffn_f32", "moe_ffn_bf16")}),
     # vec, bits, C, mask, load, out | Us, K2, N, M, mode0, mode1, gamma |
     # delta | stream; and its fast-path divide: a, b, q | n | stream
     Source(Path("ee_gate/csrc/quant_signature.cu"), EXACT_FLAGS,

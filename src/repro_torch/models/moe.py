@@ -4,9 +4,10 @@ Port of ``repro/models/moe.py``.
 
 ``gather`` (default): each token group's experts take their top-C tokens
 by gate weight (capacity C = t*k*cf/E, rounded up to a multiple of 8, at
-least 8), gather them into dense [G, E, C, d] blocks, run the experts'
-SwiGLU products (one batched product an expert weight) and scatter-add
-the weighted results back to the tokens.
+least 8); the experts' stage, the gather of those tokens, their SwiGLU
+and the weighting by gate, is kernel B10 on CUDA (``kernels/moe_ffn``,
+which reads only the experts and slot tiles in use) and its plain version
+on the CPU; the weighted results are scatter-added back to the tokens.
 
 ``einsum``: the literal GShard dispatch (one-hot [t, E, C] products), kept
 for small-scale fidelity checks.
@@ -27,10 +28,13 @@ from typing import Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import Partial, Replicate, Shard
 
 from ..configs.base import ArchConfig
-from ..sharding.dtensor import replicated
-from .layers import F32, bmm_f32, dense_init, matmul_f32, mlp_apply, mlp_init
+from ..kernels.moe_ffn.ops import moe_ffn_fn
+from ..kernels.moe_ffn.ref import experts_ref
+from ..sharding.dtensor import is_dtensor, replicated
+from .layers import F32, dense_init, matmul_f32, mlp_apply, mlp_init
 
 
 def moe_init(gen: torch.Generator, cfg: ArchConfig, dtype, device) -> dict:
@@ -72,18 +76,73 @@ def _route(params, cfg: ArchConfig, xg: torch.Tensor):
 
 def _experts(params, xe: torch.Tensor) -> torch.Tensor:
     """The experts' SwiGLU on xe [G, E, C, d] -> float32 [G, E, C, d]: one
-    batched product a weight, float32 where the reference keeps it."""
-    G, E, C, d = xe.shape
-    x = xe.transpose(0, 1).reshape(E, G * C, d)
-    h_g = bmm_f32(x, params["w_gate"])
-    h_u = bmm_f32(x, params["w_up"])
-    h = (F.silu(h_g) * h_u).to(xe.dtype)
-    ye = bmm_f32(h, params["w_down"])                       # [E, G*C, d]
-    return ye.reshape(E, G, C, d).transpose(0, 1)
+    batched product a weight, float32 where the reference keeps it (the
+    einsum dispatch's; the gather dispatch runs B10)."""
+    return experts_ref(xe, params["w_gate"], params["w_up"],
+                       params["w_down"])
 
 
-def _moe_gather(params, cfg: ArchConfig, xg: torch.Tensor) -> torch.Tensor:
-    """Gather-based dispatch. xg: [G, t, d] -> [G, t, d]."""
+def _moe_ffn(params, xg, top_idx, valid, top_w) -> torch.Tensor:
+    """The experts' stage of the gather dispatch -> ye [G, E, Ck, d]
+    float32: B10 on CUDA (which raises on a shape it does not take), its
+    plain version on the CPU, the plain version's gradient; over DTensors
+    on each rank's shard."""
+    w = (params["w_gate"], params["w_up"], params["w_down"])
+    if any(is_dtensor(a) for a in (xg, top_idx) + w):
+        return _moe_ffn_local(xg, top_idx, valid, top_w, *w)
+    return moe_ffn_fn(*(a.contiguous() for a in (xg, top_idx, valid, top_w)
+                        + w))
+
+
+def _moe_ffn_local(xg, top_idx, valid, top_w, w_gate, w_up, w_down):
+    """``_moe_ffn`` over DTensors, on each rank's shard through
+    ``local_map``, one mesh dimension at a time: where the groups are
+    sharded (data parallel) the routing keeps their shard and the weights
+    are gathered (FSDP's); where the experts are (expert parallel) each
+    rank runs its experts' slots on the replicated tokens, and ye keeps the
+    expert shard; where the experts' d_ff is (tensor-parallel experts) each
+    rank runs its columns of h and ye is a partial sum; else everything is
+    replicated.  The gradients' placements follow (an operand replicated
+    beside a sharded one gets a partial gradient)."""
+    from torch.distributed.tensor.experimental import local_map
+    xg, top_idx, valid, top_w, w_gate, w_up, w_down = (
+        replicated(a, xg if is_dtensor(xg) else w_gate)
+        for a in (xg, top_idx, valid, top_w, w_gate, w_up, w_down))
+    R, P = Replicate(), Partial()
+    place, grad, out = [[] for _ in range(7)], [[] for _ in range(7)], []
+    for i in range(xg.device_mesh.ndim):
+        wg, wu, wd = (a.placements[i] for a in (w_gate, w_up, w_down))
+        if xg.placements[i] == Shard(0):                    # groups
+            p = [Shard(0)] * 4 + [R] * 3
+            g, o = [Shard(0)] * 4 + [P] * 3, Shard(0)
+        elif wg == wu == wd == Shard(0):                    # experts
+            p = [R] + [Shard(1)] * 3 + [Shard(0)] * 3
+            g, o = [P] + [Shard(1)] * 3 + [Shard(0)] * 3, Shard(1)
+        elif wg == wu == Shard(2) and wd == Shard(1):       # experts' d_ff
+            p = [R] * 4 + [wg, wu, wd]
+            g, o = [P, R, R, P, wg, wu, wd], P
+        else:
+            p, g, o = [R] * 7, [R] * 7, R
+        for k in range(7):
+            place[k].append(p[k])
+            grad[k].append(g[k])
+        out.append(o)
+
+    def local(*a):
+        return moe_ffn_fn(*(t.contiguous() for t in a))
+
+    return local_map(local, out_placements=(tuple(out),),
+                     in_placements=tuple(tuple(p) for p in place),
+                     in_grad_placements=tuple(tuple(g) for g in grad),
+                     device_mesh=xg.device_mesh,
+                     redistribute_inputs=True)(
+        xg, top_idx, valid, top_w, w_gate, w_up, w_down)
+
+
+def _slots(params, cfg: ArchConfig, xg: torch.Tensor):
+    """The gather dispatch's slots: each expert's top-C tokens of a group
+    by gate weight -> (top_idx [G, E, Ck] int64, valid [G, E, Ck] bool,
+    top_w [G, E, Ck] float32), Ck = min(C, t), live slots first."""
     G, t, d = xg.shape
     E = cfg.n_experts
     C = _capacity(t, cfg)
@@ -95,11 +154,15 @@ def _moe_gather(params, cfg: ArchConfig, xg: torch.Tensor) -> torch.Tensor:
 
     # each expert takes its top-C tokens by gate weight within the group
     top_w, top_idx = _topk(gate_te.transpose(1, 2), min(C, t))  # [G,E,C]
-    valid = top_w > 0.0
-    groups = replicated(torch.arange(G, device=xg.device), xg)[:, None, None]
-    xe = xg[groups, top_idx]                                    # [G,E,C,d]
-    xe = xe * valid[..., None].to(xg.dtype)
-    ye = _experts(params, xe) * (top_w * valid)[..., None]      # f32
+    return top_idx, top_w > 0.0, top_w
+
+
+def _moe_gather(params, cfg: ArchConfig, xg: torch.Tensor) -> torch.Tensor:
+    """Gather-based dispatch. xg: [G, t, d] -> [G, t, d]."""
+    G, t, d = xg.shape
+    E = cfg.n_experts
+    top_idx, valid, top_w = _slots(params, cfg, xg)
+    ye = _moe_ffn(params, xg, top_idx, valid, top_w)            # f32
 
     # scatter-add back to the tokens within each group.  On CUDA the adds
     # land in any order; the sum is still exact because a token gets at

@@ -24,8 +24,11 @@ dead, and gives the same bits on a repeat call.  Flash-prefill attention
 (B8) holds 2e-5 in float32 and 2^-6 of the largest output in bf16, with
 ragged keys, -1 slots, masked leading tiles and dead rows; the SSD scan
 (B9) holds 1e-4 of the largest y and state in float32 and 2^-7 of the
-largest y in bf16, with ragged chunks.  The serving engine on CUDA, in
-float32, must serve the tokens its CPU path serves.
+largest y in bf16, with ragged chunks.  The MoE experts' kernel (B10)
+holds 1e-5 of the largest output in float32 and 2^-6 in bf16, in both
+regimes, with dead slots, a dead expert (NaN weights it must not read) and
+every slot valid, and gives the same bits on a repeat call.  The serving
+engine on CUDA, in float32, must serve the tokens its CPU path serves.
 """
 import dataclasses
 
@@ -1362,6 +1365,155 @@ def test_full_sequence_paths_launch_b8_b9_on_card(cuda_device, arch):
         if where != "cpu":
             assert prefill_attn.launches - n8 == kinds.count("attn")
             assert ssd_scan.launches - n9 == kinds.count("ssm")
+        logits = out["final"][..., :cfg.vocab_size]
+        grads.append(torch.autograd.grad(logits.float().square().mean(),
+                                         leaf)[0].cpu())
+    torch.testing.assert_close(grads[0], grads[1], rtol=1e-4, atol=1e-4)
+
+
+# (G, t, E, Ck, d, ff, live) of the MoE experts' kernel B10: the decode
+# step's shapes (4 groups and 1 group of one token, Ck = 1 < C = 8: the
+# stream regime, one n8 tile of slots), 16 slots an expert (two n8 tiles),
+# 17 (the first tiles shape), a prefill-like 600 tokens with Ck = 200 (no
+# multiple of the 128-row tile; ff no multiple of the 128-column tile),
+# G > 1 with Ck < t, jamba's 16 experts; "mixed" leaves expert 0 without a
+# token and expert E - 1 with every slot valid, "all" every slot valid
+MOE_CASES = [(4, 1, 8, 1, 128, 256, "mixed"), (1, 1, 8, 1, 64, 128, "mixed"),
+             (2, 8, 8, 8, 64, 192, "mixed"), (17, 1, 4, 1, 64, 128, "mixed"),
+             (1, 600, 8, 200, 256, 320, "mixed"),
+             (3, 40, 4, 24, 128, 256, "all"),
+             (2, 64, 16, 20, 64, 128, "mixed")]
+
+
+def _moe_inputs(G, t, E, Ck, d, ff, live, dtype, device, seed):
+    """Seeded inputs of B10 as the top-C selection gives them: each
+    (group, expert) row of slots holds distinct tokens, its live slots
+    first (top_w > 0, sorted descending), dead ones with top_w 0."""
+    rng = np.random.default_rng(seed)
+    top_idx = np.stack([np.stack([rng.permutation(t)[:Ck] for _ in range(E)])
+                        for _ in range(G)])
+    counts = rng.integers(0, Ck + 1, size=(G, E))
+    if live == "all":
+        counts[:] = Ck
+    else:
+        counts[:, 0] = 0
+        counts[:, -1] = Ck
+    top_w = -np.sort(-rng.uniform(0.05, 1.0, (G, E, Ck)), axis=-1)
+    top_w[np.arange(Ck)[None, None, :] >= counts[..., None]] = 0.0
+    f = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)
+    xg = f(rng.normal(size=(G, t, d))).to(dtype)
+    w = [(f(rng.normal(size=s)) / s[1] ** 0.5).to(dtype)
+         for s in ((E, d, ff), (E, d, ff), (E, ff, d))]
+    tw = f(top_w)
+    return (xg, torch.as_tensor(top_idx, dtype=torch.int64, device=device),
+            tw > 0, tw, *w)
+
+
+def _moe_close(got, want, dtype):
+    """B10 against its plain version: float32 inputs within 1e-5 of the
+    largest |ye| (float32 sums in another order); bf16 within 2^-6 of it
+    (h is rounded to bf16 after sums in another order than cuBLAS's, so an
+    entry may land one ulp apart)."""
+    assert got.dtype == want.dtype == torch.float32
+    tol = 1e-5 if dtype == torch.float32 else 2.0 ** -6
+    assert float((got - want).abs().max()) <= tol * float(want.abs().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G,t,E,Ck,d,ff,live", MOE_CASES)
+def test_moe_ffn_kernel_matches_plain_on_card(cuda_device, G, t, E, Ck, d, ff,
+                                              live, dtype):
+    """Both launches, each regime and dtype: ye within the stated
+    tolerance of the plain version, dead slots exact zeros, and the same
+    bits on a repeat call (no atomics)."""
+    from repro_torch.kernels.moe_ffn.ops import moe_ffn, moe_ffn_plan
+    from repro_torch.kernels.moe_ffn.ref import moe_ffn_ref
+    torch.backends.cuda.matmul.allow_tf32 = False
+    args = _moe_inputs(G, t, E, Ck, d, ff, live, dtype, cuda_device,
+                       G + t + E + Ck)
+    n = moe_ffn.launches
+    got = moe_ffn(*args)
+    assert moe_ffn.launches == n + 1
+    again = moe_ffn(*args)
+    want = moe_ffn_ref(*args)
+    torch.cuda.synchronize()
+    _moe_close(got, want, dtype)
+    assert torch.equal(got, again)
+    assert not bool(got[~args[2]].any())
+    plan = moe_ffn_plan(G, E, Ck, d, ff, dtype)
+    assert plan.regime == ("simt" if dtype == torch.float32 else
+                           "stream" if G * Ck <= 16 else "tiles")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G,t,Ck", [(4, 1, 1), (1, 300, 160)])
+def test_moe_ffn_kernel_reads_no_dead_expert(cuda_device, G, t, Ck, dtype):
+    """An expert with no valid slot, whose weights are NaN: its blocks read
+    none of them, so its outputs are exact zeros (the plain version, which
+    multiplies its zero rows by every weight, gives NaN there), and the
+    live experts' outputs are the plain version's."""
+    from repro_torch.kernels.moe_ffn.ops import moe_ffn
+    from repro_torch.kernels.moe_ffn.ref import moe_ffn_ref
+    xg, idx, valid, tw, wg, wu, wd = _moe_inputs(G, t, 8, Ck, 64, 128,
+                                                 "mixed", dtype, cuda_device,
+                                                 Ck)
+    assert not bool(valid[:, 0].any())
+    for w in (wg, wu, wd):
+        w[0] = float("nan")
+    got = moe_ffn(xg, idx, valid, tw, wg, wu, wd)
+    want = moe_ffn_ref(xg, idx, valid, tw, wg, wu, wd)
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(want[:, 0]).all())
+    assert bool((got[:, 0] == 0).all())
+    _moe_close(got[:, 1:], want[:, 1:], dtype)
+
+
+def test_moe_ffn_wrapper_refuses_what_it_cannot_take(cuda_device):
+    from repro_torch.kernels.moe_ffn.ops import moe_ffn
+    args = list(_moe_inputs(2, 8, 4, 4, 64, 128, "mixed", torch.float32,
+                            cuda_device, 0))
+    n = moe_ffn.launches
+    with pytest.raises(ValueError, match="int64"):
+        moe_ffn(args[0], args[1].int(), *args[2:])
+    with pytest.raises(ValueError, match="share"):
+        moe_ffn(args[0].bfloat16(), *args[1:])
+    with pytest.raises(ValueError, match="multiples of 4"):
+        moe_ffn(args[0][..., :62].contiguous(), *args[1:4],
+                args[4][:, :62].contiguous(), args[5][:, :62].contiguous(),
+                args[6][..., :62].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        moe_ffn(*args[:4], args[4].transpose(1, 2).contiguous().transpose(
+            1, 2), *args[5:])
+    assert moe_ffn.launches == n
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x22b", "jamba-1.5-large-398b"])
+def test_moe_paths_launch_b10_on_card(cuda_device, arch):
+    """forward_train of the reduced MoE models in float32 and in bf16
+    launches B10 once an MoE layer; in float32 its gradient with respect to
+    the embedding (B10's backward is the plain version's, recomputed) is
+    within 1e-4 of the CPU path's."""
+    from repro_torch.kernels.moe_ffn.ops import moe_ffn
+    from repro_torch.models import transformer as TT
+    torch.backends.cuda.matmul.allow_tf32 = False
+    B, S = 2, 24
+    tokens = torch.from_numpy(np.random.default_rng(4).integers(
+        0, 200, (B, S)).astype(np.int64))
+    for dtype in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(get(arch, reduced=True), dtype=dtype)
+        n_moe = cfg.n_periods * sum(s.mlp == "moe" for s in cfg.pattern)
+        params = TT.init_model(cfg, seed=6, device=cuda_device)
+        n = moe_ffn.launches
+        out = TT.forward_train(params, cfg, {"tokens": tokens.to(cuda_device)})
+        assert moe_ffn.launches - n == n_moe
+        assert bool(torch.isfinite(out["final"][..., :cfg.vocab_size]).all())
+    cfg = get(arch, reduced=True)
+    params = TT.init_model(cfg, seed=6, device=cuda_device)
+    grads = []
+    for where, p in ((cuda_device, params), ("cpu", TT.tree_to(params, "cpu"))):
+        leaf = p["embed"]["table"].detach().clone().requires_grad_(True)
+        out = TT.forward_train(dict(p, embed={"table": leaf}), cfg,
+                               {"tokens": tokens.to(where)})
         logits = out["final"][..., :cfg.vocab_size]
         grads.append(torch.autograd.grad(logits.float().square().mean(),
                                          leaf)[0].cpu())
