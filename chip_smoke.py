@@ -259,16 +259,20 @@ SSD_CHECK_CASES = [(2, 24, 4, 16, 16, 8), (2, 37, 4, 16, 16, 13),
 # regime), 16 slots an expert (two n8 tiles of slots), 17 (the first
 # tensor-core tile shape), Ck = 200 of 600 tokens (C no multiple of the
 # 128-row tile; ff no multiple of the 128-column tile), G > 1 with
-# Ck < t, every slot valid, jamba's 16 experts; "mixed" leaves expert 0
-# without a token (its weights NaN: a block that read them would give NaN)
-# and expert E - 1 with every slot valid
+# Ck < t, every slot valid, jamba's 16 experts, and the wgmma tiles'
+# edges (d = 136 and ff = 200: K and N no multiple of 64 or of the column
+# block, TMA zero-filling past them; M = 300 with a slot tile crossing
+# the groups); "mixed" leaves expert 0 without a token (its weights NaN:
+# a block that read them would give NaN) and expert E - 1 with every slot
+# valid
 MOE_CHECK_CASES = [(4, 1, 8, 1, 128, 256, "mixed"),
                    (1, 1, 8, 1, 64, 128, "mixed"),
                    (2, 8, 8, 8, 64, 192, "mixed"),
                    (17, 1, 4, 1, 64, 128, "mixed"),
                    (1, 600, 8, 200, 256, 320, "mixed"),
                    (3, 40, 4, 24, 128, 256, "all"),
-                   (2, 64, 16, 20, 64, 128, "mixed")]
+                   (2, 64, 16, 20, 64, 128, "mixed"),
+                   (2, 300, 4, 150, 136, 200, "mixed")]
 # (G, t) of B10 at mixtral's widths with [serve_moe]'s layer-0 weights:
 # the engine's decode step, the decode after the prefill, the prefill
 MOE_REAL_SHAPES = [(4, 1), (1, 1), (1, 4608)]
@@ -4771,12 +4775,18 @@ def moe_ffn_times(p, cfg, dev, launches):
     its plain version (the reference's gather, three products and
     weighting), the library (the plain version's three cuBLAS
     ``bmm(out_dtype=float32)`` products alone, on its [E, G * Ck, .]
-    operands) and the bound: bytes the live experts' weights, xg, the
-    routing and ye once; operations each live slot's SwiGLU, 6 d ff (989
-    TFLOP/s).  The whole ``_moe_gather`` (routing and scatter-add too) is
-    logged beside it.  ``launches``: (decode calls, prefill calls) on the
-    path.  Returns the two kernels-line rows."""
+    operands, the down product on the h those inputs give) and the bound:
+    bytes the live experts' weights, xg, the routing and ye once;
+    operations each live slot's SwiGLU, 6 d ff (989 TFLOP/s).  The card
+    runs the prefill's products at its power limit, where the clock
+    follows the heat and the data (a product of zeros draws less), so the
+    kernel and the library are timed in turns (kernel, library, library,
+    kernel) and averaged; the library with its down product on h = 0 is
+    logged beside it.  The whole ``_moe_gather`` (routing and scatter-add
+    too) is logged as well.  ``launches``: (decode calls, prefill calls) on
+    the path.  Returns the two kernels-line rows."""
     import torch
+    import torch.nn.functional as F
     from repro_torch.kernels.moe_ffn.ops import moe_ffn, moe_ffn_plan
     from repro_torch.kernels.moe_ffn.ref import moe_ffn_ref
     from repro_torch.models import moe as M
@@ -4791,19 +4801,31 @@ def moe_ffn_times(p, cfg, dev, launches):
         Ck = top_idx.shape[-1]
         used = int(valid.any(0).any(-1).sum())
         kept = int(valid.sum())
+        reps = 10 if t == 1 else 3
         kern = lambda: moe_ffn(*args)
-        ms = graph_ms(kern, 10 if t == 1 else 3) or cuda_ms(kern, 5, 1)
-        plain = _program_ms(lambda: moe_ffn_ref(*args))
         xe = x[torch.arange(G, device=dev)[:, None, None], top_idx]
         xe = xe.transpose(0, 1).reshape(E, G * Ck, d).contiguous()
-        h = torch.zeros(E, G * Ck, ff, dtype=x.dtype, device=dev)
-        lib_fn = lambda: (torch.bmm(xe, wg, out_dtype=torch.float32),
-                          torch.bmm(xe, wu, out_dtype=torch.float32),
-                          torch.bmm(h, wd, out_dtype=torch.float32))
-        lib = _program_ms(lib_fn)
+        h = (F.silu(torch.bmm(xe, wg, out_dtype=torch.float32))
+             * torch.bmm(xe, wu, out_dtype=torch.float32)).to(x.dtype)
+        lib_of = lambda hh: lambda: (
+            torch.bmm(xe, wg, out_dtype=torch.float32),
+            torch.bmm(xe, wu, out_dtype=torch.float32),
+            torch.bmm(hh, wd, out_dtype=torch.float32))
+        lib_fn = lib_of(h)
+        turns = {"kernel": [], "library": []}
+        for who in ("kernel", "library", "library", "kernel"):
+            fn = kern if who == "kernel" else lib_fn
+            turns[who].append(graph_ms(fn, reps) or cuda_ms(fn, 5, 1))
+        ms = sum(turns["kernel"]) / 2
+        lib = sum(turns["library"]) / 2
+        lib_h0 = _program_ms(lib_of(torch.zeros_like(h)))
+        plain = _program_ms(lambda: moe_ffn_ref(*args))
         whole = _program_ms(lambda: M._moe_gather(p, cfg, x))
         log("programs", f"B10 at {(G, t)}: device time a call by kernel "
-            f"(torch.profiler, 5 calls): {launch_split(kern)}")
+            f"(torch.profiler, 5 calls): {launch_split(kern)}; in turns: "
+            f"kernel {turns['kernel'][0]:.4f} / {turns['kernel'][1]:.4f} "
+            f"ms, library {turns['library'][0]:.4f} / "
+            f"{turns['library'][1]:.4f} ms (with h = 0: {lib_h0:.4f} ms)")
         nbytes = (used * 3 * d * ff * 2 + G * t * d * 2
                   + G * E * Ck * (8 + 1 + 4) + G * E * Ck * d * 4)
         ops = kept * 6 * d * ff

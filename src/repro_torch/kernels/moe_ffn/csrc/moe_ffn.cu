@@ -14,7 +14,8 @@
 // the model's dtype between the two launches:
 //
 //   moe_up    gathers each slot's row of xg by top_idx itself (a dead slot
-//             reads nothing and counts as a zero row), runs the gate and up
+//             counts as a zero row, or in the tiles regime as its group's
+//             first row, its result discarded), runs the gate and up
 //             products on that one row tile with two float32 accumulators,
 //             and rounds silu(gate) * up (float32, silu = x / (1 + expf(-x)))
 //             to the model dtype;
@@ -22,12 +23,15 @@
 //             multiplies a live slot's row by top_w and writes an exact zero
 //             for a dead one.
 //
-// Dead work is skipped on the device, without a host sync: a block first
-// reads the valid flags of its rows; a block with none reads no weight
-// byte (moe_up leaves its rows of h unwritten, moe_down writes zeros).  A
-// dead row inside a live tile reads no input either (zero-filled), and
-// comes out zero.  No atomics: every output element is summed by one
-// thread in a fixed order, so two runs give the same bits.
+// Dead work is skipped on the device, without a host sync: a block (an
+// item, in the tiles regime) first reads the valid flags of its rows; one
+// with none reads no weight byte (moe_up leaves its rows of h unwritten,
+// moe_down writes zeros).  A dead row inside a live tile reads no input
+// either (zero-filled; the tiles regime gives it its group's first token
+// row instead, see below), and comes out an exact zero in ye whatever its
+// h row holds.  No atomics and no split of K across blocks: every output
+// element is summed by one thread (one warpgroup's wgmma chain) in a
+// fixed order, so two runs give the same bits.
 //
 // What bounds it, and the design against it, by regime (the wrapper, ops.py,
 // picks the regime from the rows an expert and the dtype):
@@ -44,13 +48,39 @@
 //   ff = 16,384 and d = 6,144 give 2,048 and 768 blocks without splitting
 //   K across blocks.  (32-column down blocks, 64-byte runs of a row, read
 //   their weights at a lower rate on the card.)
-// * tiles (bf16, M > 16: prefill): operations, on the tensor cores.  A block
-//   computes a 128-row x 256-column tile (up: 128 gate + 128 up columns, the
-//   same ff columns) with 8 warps of 64 x 64 (mma.sync, 128 float32
-//   accumulators a thread), fed by a 4-stage cp.async ring of 64-deep
-//   k-tiles in XOR-swizzled rows (ldmatrix without bank conflicts).  Row
-//   tiles are the grid's fastest axis, so the blocks that read one weight
-//   tile run together and share it in L2.
+// * tiles (bf16, M > 16: prefill): operations, on the tensor cores.  Two
+//   persistent launches of one block an SM, warp-specialised: a producer
+//   warpgroup (setmaxnreg 56) and two consumer warpgroups (224), each
+//   consumer 64 rows of a 128-row slot tile with a 64 x 256 float32
+//   accumulator on wgmma m64n256k16.  An item is (expert, slot tile,
+//   column block): up 128 rows x (128 gate + 128 up columns of the same ff
+//   columns, adjacent in shared memory, so one n256 product runs both),
+//   down 128 rows x 256 d columns.  Its 64-deep k-tiles stream through a
+//   4-stage ring (16 KB of slot rows + 32 KB of weights) on full / empty
+//   mbarriers.  The weights keep their stored [E, K, N] layout: TMA loads
+//   64 x 64 boxes in the 128-byte swizzle and wgmma reads them through its
+//   transpose (MN-major) bit; K and N tails are zero-filled by TMA.  down
+//   reads h's slot tile by TMA too ([E, M, ff], rows past M zero-filled).
+//   up reads its slot rows from xe [E, M, d], which its own blocks first
+//   gather from xg by top_idx (a live slot's row; a dead slot of a live
+//   tile its group's first token row, whose products moe_down discards
+//   for the slot's exact zero; the rows of dead tiles untouched) into ye's
+//   memory, free until moe_down overwrites every element of it (xe in
+//   bf16 takes half of ye's float32 bytes), before a barrier of every
+//   block: so no third launch and no other scratch.  The pass moves 2 x
+//   113 MB at mixtral's prefill (~0.07 ms of bytes).  On the card, which
+//   runs these products at its power limit, the two ways of gathering in
+//   the producer were slower than this: cp.async 16-byte chunks straight
+//   into the swizzled layout (a request each), and one 128-byte TMA box a
+//   slot row (bound by the TMA issue rate).  Each block first builds,
+//   from the valid flags, the table of live (expert, slot tile) pairs; the
+//   walk visits the live items expert by expert, column block by column
+//   block, the slot tile fastest (the blocks sharing a weight tile run
+//   together and share it in L2), strided over the blocks, so dead tiles
+//   cost no block a turn; moe_down then visits the dead items, writing
+//   their zeros.  Two item buffers of the rows' offsets and weights on
+//   mbarriers of their own let the producer load the next item during an
+//   epilogue.
 // * simt (float32, any M): the float32 paths are parity checks, so one
 //   plain tiled design on the CUDA cores (TF32 stays off): 64 x 64 tiles
 //   (x2 for up), a 4 x 4 register tile a thread, k-tiles of 16 double
@@ -58,16 +88,19 @@
 //
 // Both launches run on the caller's stream; the C entry points return the
 // first launch error (0 when both launched).
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <climits>
 #include <cstdint>
-#include <type_traits>
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kWgThreads = 384;   // tiles: a producer, two consumers
 constexpr int kDefaultSmem = 48 * 1024;
+constexpr size_t kMaxSmem = 232448;   // a block's opt-in shared memory
 
 // regimes (ops.py's REGIMES)
 constexpr int kStream = 0;
@@ -77,7 +110,7 @@ constexpr int kSimt = 2;
 // stream: at most 16 slots an expert, k-tiles of 64
 constexpr int kStreamMaxRows = 16;
 constexpr int kSK = 64;
-// tiles: 128 rows x 256 columns x 64 deep, 4 stages
+// tiles: 128 rows x 256 columns (up: 128 gate + 128 up) x 64 deep, 4 stages
 constexpr int kBM = 128;
 constexpr int kBN = 256;
 constexpr int kBK = 64;
@@ -108,7 +141,8 @@ __device__ __forceinline__ int64_t slot_of(const Problem& p, int e, int r) {
 }
 
 // The element offset of row r's input: xg's gathered row (up) or h's row
-// (down); -1 for a dead slot or a row past M.
+// (down); -1 for a dead slot or a row past M.  (The tiles regime reads
+// its rows by TMA; for it this is the row's liveness and gather source.)
 template <bool UP>
 __device__ __forceinline__ int64_t row_source(const Problem& p, int e,
                                               int r) {
@@ -149,12 +183,6 @@ __device__ __forceinline__ void cp_async_wait() {
 
 // Four (two) 8x8 b16 matrices from shared memory; lanes 8j..8j+7 give the
 // row addresses of matrix j; .trans transposes each.
-__device__ __forceinline__ void ldsm_x4(const void* row, unsigned* r) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(row)));
-}
 __device__ __forceinline__ void ldsm_x4_t(const void* row, unsigned* r) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
@@ -393,198 +421,601 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
-// tiles: bf16, M > 16; tensor-core tiles
+// tiles: bf16, M > 16; warp-specialised wgmma tiles fed by TMA
 // ---------------------------------------------------------------------------
 
-constexpr int kTileStageElems = kBM * kBK + kBK * kBN;
+constexpr int kABytes = kBM * kBK * 2;            // a slot tile's k-tile
+constexpr int kBoxBytes = kBK * 128;              // 64 k-rows x 64 columns
+constexpr int kBBytes = 4 * kBoxBytes;            // the weights' k-tile
+constexpr int kStageBytes = kABytes + kBBytes;
+// registers a thread after setmaxnreg: 128 * 56 + 256 * 224 = 64,512 of
+// the SM's 65,536 (the launch gives each of the 384 threads 168)
+constexpr int kProducerRegs = 56;
+constexpr int kConsumerRegs = 224;
 
-// Dynamic shared memory of a tiles block (ops.py's smem_bytes mirrors it):
-// the ring, then the rows' source offsets, output offsets and weights.
-constexpr size_t tiles_smem() {
-  return static_cast<size_t>(kTileStages) * kTileStageElems * 2 +
-         kBM * (8 + 8 + 4);
+// Dynamic shared memory of a tiles block (ref.py's smem_bytes mirrors
+// it): the alignment slack, the ring, two items' row arrays (source
+// offset, output offset, weight), the mbarriers and the live-pair count,
+// then the table of (expert, slot tile) pairs: the live pairs before each
+// expert, the pairs, their flags.
+constexpr size_t kTilesFixedSmem =
+    1024 + static_cast<size_t>(kTileStages) * kStageBytes +
+    2 * kBM * (8 + 8 + 4) + (2 * kTileStages + 4) * 8 + 16;
+size_t tiles_smem(int E, int n_mt) {
+  return kTilesFixedSmem + 4 * (static_cast<size_t>(E) + 1) +
+         5 * static_cast<size_t>(E) * n_mt;
 }
 
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+// an arrival that also arms the barrier with the bytes TMA loads bring
+__device__ __forceinline__ void mbar_arrive_expect(uint64_t* bar,
+                                                   unsigned bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+// until the barrier's phase of this parity has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  unsigned done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+// TMA: the box of `map` at the given coordinates (innermost first) global
+// -> shared, zero-filled outside the tensor, counted on `bar`
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            int c0, int c1, int c2,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(
+          smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(smem_addr(bar))
+      : "memory");
+}
+template <int R>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+template <int R>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+// global writes of the generic proxy (the gather's stores) and reads of
+// the async proxy (TMA) on either side of it are ordered
+__device__ __forceinline__ void fence_proxy_async_global() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
+
+// A barrier of every block of the launch (moe_up's gather before its
+// products): the blocks are all resident (one an SM, no more than the
+// SMs).  The arrival count resets itself and the generation only grows,
+// so the module's two words serve every launch, one at a time (calls on
+// one device run in stream order; the port has no concurrent MoE call).
+__device__ unsigned int g_grid_arrived;
+__device__ unsigned int g_grid_generation;
+
+__device__ __forceinline__ void grid_barrier() {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    volatile unsigned int* generation = &g_grid_generation;
+    const unsigned int seen = *generation;
+    __threadfence();
+    if (atomicAdd(&g_grid_arrived, 1u) == gridDim.x - 1) {
+      atomicExch(&g_grid_arrived, 0u);
+      __threadfence();
+      atomicAdd(&g_grid_generation, 1u);
+    } else {
+      while (*generation == seen) __nanosleep(64);
+    }
+    __threadfence();
+  }
+  __syncthreads();
+}
+
+// wgmma's shared-memory matrix descriptor of a tile in the 128-byte
+// swizzle: start address, leading and stride byte offsets (16-byte units).
+// K-major (the slot tile): the stride offset steps 8 rows (1,024 bytes),
+// the leading one is unused.  MN-major (the weights): the leading offset
+// steps from one 64-column atom to the next, the stride offset 8 k-rows.
+__device__ __forceinline__ uint64_t smem_desc(unsigned addr, unsigned lbo,
+                                              unsigned sbo) {
+  return static_cast<uint64_t>((addr >> 4) & 0x3FFFu)
+         | (static_cast<uint64_t>((lbo >> 4) & 0x3FFFu) << 16)
+         | (static_cast<uint64_t>((sbo >> 4) & 0x3FFFu) << 32)
+         | (1ull << 62);
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// until at most N of the warpgroup's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// keeps the compiler from moving a use or a definition of the
+// accumulators across a wgmma fence, issue or wait (an operand defined
+// after the fence serializes the products)
+template <int N>
+__device__ __forceinline__ void hold(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (64 x 256, float32) (+)= A (64 x 16, the slot tile, K-major) * B (16 x
+// 256: four 64-column atoms of the weights' tile, MN-major: the transpose
+// bit set), a 16-deep step; accumulate = 0 starts the sum.
+__device__ __forceinline__ void wgmma_256(float (&d)[128], uint64_t da,
+                                          uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
+      "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
+      "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
+        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
+        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
+        "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+// The table of (expert, slot tile) pairs a block builds: pairs
+// p = e * n_mt + tile, the live ones (a valid slot among the tile's rows)
+// first in (expert, tile) order, then the dead ones; off[e] live pairs
+// before expert e (off[E] = n_live).
+struct Table {
+  const int* off;
+  const int* pair;
+  int E, n_mt, n_nb, n_live;
+};
+
+struct Item {
+  int e, tile, nb;
+};
+
+// Work item w of the walk: the live items, expert by expert, column block
+// by column block, the slot tile fastest (the blocks that read one weight
+// tile run together and share it in L2); then (moe_down only) the dead
+// ones, which write zeros.
+__device__ __forceinline__ Item item_of(const Table& t, int w) {
+  if (w < t.n_live * t.n_nb) {
+    const int u = w / t.n_nb;
+    int lo = 0, hi = t.E - 1;          // the last expert with off[e] <= u
+    while (lo < hi) {
+      const int mid = (lo + hi + 1) >> 1;
+      if (t.off[mid] <= u) lo = mid;
+      else hi = mid - 1;
+    }
+    const int n = t.off[lo + 1] - t.off[lo];
+    const int rem = w - t.off[lo] * t.n_nb;
+    const int nb = rem / n;
+    return {lo, t.pair[t.off[lo] + rem - nb * n] - lo * t.n_mt, nb};
+  }
+  const int wd = w - t.n_live * t.n_nb;
+  const int n_dead = t.E * t.n_mt - t.n_live;
+  const int nb = wd / n_dead;
+  const int q = t.pair[t.n_live + wd - nb * n_dead];
+  return {q / t.n_mt, q % t.n_mt, nb};
+}
+
+// One launch of the tiles regime: a persistent block an SM.  Warpgroup 0
+// is the producer (one warp; its lane 0 issues the TMA loads, the other
+// three warps leave after giving up their registers), warpgroups 1 and 2
+// the consumers (64 rows of the 128-row slot tile each, float32
+// accumulators of 64 x 256).  An item's k-tiles stream through a ring of
+// kTileStages stages on full / empty mbarriers; its rows' arrays through
+// two item buffers on full / empty mbarriers of their own, so that the
+// producer loads the next item while the consumers run this one's
+// epilogue.
+// up:   first the gather pass: xe [E, M, d] in ye's memory (bf16; moe_down
+//       overwrites every element of ye) takes each live slot's row of xg
+//       and its group's first row for a dead slot of a live tile (h's row
+//       of a dead slot is discarded by moe_down), the rows dealt to
+//       the launch's warps, then a barrier of every block; A = xe's slot
+//       tile, B = w_gate's and w_up's 128 columns of the item (two TMA
+//       boxes each); h = bf16(silu(gate) * up).
+// down: A = h's slot tile, B = w_down's 256 columns; ye = acc * top_w at a
+//       live row, an exact zero at a dead one.
 template <bool UP>
-__global__ void __launch_bounds__(kThreads, 1)
-    moe_tiles_kernel(const Problem p) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  auto* ring = reinterpret_cast<__nv_bfloat16*>(smem);
-  auto* sSrc = reinterpret_cast<int64_t*>(
-      smem + static_cast<size_t>(kTileStages) * kTileStageElems * 2);
-  int64_t* sOut = sSrc + kBM;
-  auto* sWt = reinterpret_cast<float*>(sOut + kBM);
+__global__ void __launch_bounds__(kWgThreads, 1)
+    moe_wgmma_kernel(const __grid_constant__ CUtensorMap tm_a,
+                     const __grid_constant__ CUtensorMap tm_b0,
+                     const __grid_constant__ CUtensorMap tm_b1,
+                     const Problem p, const int n_mt, const int n_nb) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* ring =
+      smem_raw + ((1024u - (smem_addr(smem_raw) & 1023u)) & 1023u);
+  auto* sSrc = reinterpret_cast<int64_t*>(ring + kTileStages * kStageBytes);
+  int64_t* sOut = sSrc + 2 * kBM;
+  auto* sWt = reinterpret_cast<float*>(sOut + 2 * kBM);
+  auto* full = reinterpret_cast<uint64_t*>(sWt + 2 * kBM);
+  uint64_t* empty = full + kTileStages;
+  uint64_t* ifull = empty + kTileStages;
+  uint64_t* iempty = ifull + 2;
+  auto* sNLive = reinterpret_cast<int*>(iempty + 2);
+  int* sOff = sNLive + 4;
+  int* sPair = sOff + p.E + 1;
+  auto* sFlag = reinterpret_cast<uint8_t*>(sPair + p.E * n_mt);
+  const int tid = threadIdx.x;
+  const int n_pairs = p.E * n_mt;
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int e = blockIdx.z;
-  const int N = UP ? p.ff : p.d;
-  const int K = UP ? p.d : p.ff;
-  const int m0 = blockIdx.x * kBM;
-  // up: gate and up columns n0 .. n0 + 127 of each; down: n0 .. n0 + 255
-  const int n0 = blockIdx.y * (UP ? kBN / 2 : kBN);
-
-  bool live = false;
-  if (tid < kBM) {
-    const int r = m0 + tid;
-    const int64_t src = row_source<UP>(p, e, r);
-    sSrc[tid] = src;
-    live = src >= 0;
-    if (!UP) {
-      const bool in = r < p.M;
-      const int64_t s = in ? slot_of(p, e, r) : 0;
-      sOut[tid] = in ? s * p.d : -1;
-      sWt[tid] = live ? p.top_w[s] : 0.0f;
+  // which pairs hold a valid slot: every block reads the E * M flags
+  for (int i = tid; i < n_pairs; i += kWgThreads) sFlag[i] = 0;
+  if (tid == 0) {
+    for (int s = 0; s < kTileStages; ++s) {
+      mbar_init(&full[s], 1);        // the TMA loads' issuer
+      mbar_init(&empty[s], 8);       // lane 0 of each consumer warp
+    }
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(&ifull[i], 32);      // every lane of the producer warp
+      mbar_init(&iempty[i], 256);    // every consumer thread
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int64_t n_slots = static_cast<int64_t>(p.G) * p.E * p.Ck;
+  for (int64_t s = tid; s < n_slots; s += kWgThreads) {
+    if (p.valid[s]) {
+      const int c = static_cast<int>(s % p.Ck);
+      const int64_t ge = s / p.Ck;
+      const int e = static_cast<int>(ge % p.E);
+      const int g = static_cast<int>(ge / p.E);
+      sFlag[e * n_mt + (g * p.Ck + c) / kBM] = 1;
     }
   }
-  if (!__syncthreads_or(live)) {
-    if (!UP) {   // a dead slot tile: zeros, no weight byte read
-      for (int i = tid; i < kBM * (kBN / 4); i += kThreads) {
-        const int rr = i / (kBN / 4), col = n0 + (i % (kBN / 4)) * 4;
-        if (m0 + rr < p.M && col < N)
-          *reinterpret_cast<float4*>(p.ye + sOut[rr] + col) =
-              make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  __syncthreads();
+  if (tid < 32) {
+    // the live pairs in order, then the dead ones, by warp ballots
+    const unsigned below = (1u << tid) - 1u;
+    int n_live = 0;
+    for (int q0 = 0; q0 < n_pairs; q0 += 32) {
+      const int q = q0 + tid;
+      const bool live = q < n_pairs && sFlag[q];
+      const unsigned bal = __ballot_sync(0xffffffffu, live);
+      const int at = n_live + __popc(bal & below);
+      if (q < n_pairs && q % n_mt == 0) sOff[q / n_mt] = at;
+      if (live) sPair[at] = q;
+      n_live += __popc(bal);
+    }
+    int n_done = n_live;
+    for (int q0 = 0; q0 < n_pairs; q0 += 32) {
+      const int q = q0 + tid;
+      const bool dead = q < n_pairs && !sFlag[q];
+      const unsigned bal = __ballot_sync(0xffffffffu, dead);
+      if (dead) sPair[n_done + __popc(bal & below)] = q;
+      n_done += __popc(bal);
+    }
+    if (tid == 0) {
+      sOff[p.E] = n_live;
+      *sNLive = n_live;
+    }
+  }
+  __syncthreads();
+  if (UP) {
+    // the gather pass, a warp a row of xe (16-byte chunks; the rows of a
+    // dead tile are never read, so never written).  A dead slot of a live
+    // tile takes its group's first token row: its products are discarded
+    // (moe_down writes the slot's exact zero), and on the card the
+    // products ran slower over such tiles with zero rows than with rows
+    // of data.
+    constexpr int kWarps = kWgThreads / 32;
+    auto* xe = reinterpret_cast<uint4*>(p.ye);
+    const auto* xs = static_cast<const uint4*>(p.xg);
+    const int chunks = p.d / 8, warp = tid >> 5, lane = tid & 31;
+    const int64_t n_rows = static_cast<int64_t>(p.E) * p.M;
+    for (int64_t row = static_cast<int64_t>(blockIdx.x) * kWarps + warp;
+         row < n_rows; row += static_cast<int64_t>(gridDim.x) * kWarps) {
+      const int e = static_cast<int>(row / p.M);
+      const int r = static_cast<int>(row - static_cast<int64_t>(e) * p.M);
+      if (!sFlag[e * n_mt + r / kBM]) continue;
+      const int64_t src = row_source<true>(p, e, r);
+      const uint4* from =
+          xs + (src >= 0 ? src : static_cast<int64_t>(r / p.Ck) * p.t * p.d) /
+                   8;
+      uint4* dst = xe + row * chunks;
+      for (int c = lane; c < chunks; c += 32) dst[c] = from[c];
+    }
+    fence_proxy_async_global();
+    grid_barrier();
+    fence_proxy_async_global();
+  }
+  const Table tab{sOff, sPair, p.E, n_mt, n_nb, *sNLive};
+  const int n_live_items = tab.n_live * n_nb;
+  const int n_items = UP ? n_live_items : n_pairs * n_nb;
+  const int K = UP ? p.d : p.ff;
+  const int nk = (K + kBK - 1) / kBK;
+
+  if (tid < 128) {
+    // ---- producer: one warp of the warpgroup (lane 0 issues the loads)
+    setmaxnreg_dec<kProducerRegs>();
+    if (tid >= 32) return;
+    const int lane = tid;
+    int st = 0, item = 0;
+    unsigned ph = 0;
+    for (int w = blockIdx.x; w < n_items; w += gridDim.x, ++item) {
+      const Item it = item_of(tab, w);
+      const int ib = item & 1;
+      const int m0 = it.tile * kBM;
+      mbar_wait(&iempty[ib], ((item >> 1) & 1) ^ 1);
+      if (!UP) {
+        // down: each row's liveness, output offset and weight
+        for (int rr = lane; rr < kBM; rr += 32) {
+          const int r = m0 + rr;
+          const int64_t src = row_source<false>(p, it.e, r);
+          const bool in = r < p.M;
+          const int64_t s = in ? slot_of(p, it.e, r) : 0;
+          sSrc[ib * kBM + rr] = src;
+          sOut[ib * kBM + rr] = in ? s * p.d : -1;
+          sWt[ib * kBM + rr] = src >= 0 ? p.top_w[s] : 0.0f;
+        }
+      }
+      mbar_arrive(&ifull[ib]);
+      if (w >= n_live_items) continue;   // a dead item reads no weight byte
+      // B: up, the item's 128 gate then 128 up columns; down, 256 columns
+      const int n0 = it.nb * (UP ? kBN / 2 : kBN);
+      for (int kt = 0; kt < nk; ++kt) {
+        mbar_wait(&empty[st], ph ^ 1);
+        if (lane == 0) {
+          unsigned char* sa = ring + st * kStageBytes;
+          unsigned char* sb = sa + kABytes;
+          const int k0 = kt * kBK;
+          mbar_arrive_expect(&full[st], kStageBytes);
+          tma_load_3d(sa, &tm_a, k0, m0, it.e, &full[st]);
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            tma_load_3d(sb + j * kBoxBytes, UP && j >= 2 ? &tm_b1 : &tm_b0,
+                        n0 + 64 * (UP ? j & 1 : j), k0, it.e, &full[st]);
+        }
+        __syncwarp();
+        if (++st == kTileStages) {
+          st = 0;
+          ph ^= 1;
+        }
       }
     }
     return;
   }
 
-  const auto* x = static_cast<const __nv_bfloat16*>(UP ? p.xg : p.h);
-  const auto* wa = static_cast<const __nv_bfloat16*>(UP ? p.w_gate : p.w_down) +
-                   static_cast<int64_t>(e) * K * N;
-  const auto* wb = static_cast<const __nv_bfloat16*>(UP ? p.w_up : p.w_down) +
-                   static_cast<int64_t>(e) * K * N;
-  const int nk = (K + kBK - 1) / kBK;
-
-  // this thread's chunks: A rows (tid / 8) + 32 i, chunk tid % 8; B k-rows
-  // (tid / 32) + 8 i, chunk tid % 32 (a 16-byte column run)
-  const int a_ch = tid & 7, b_ch = tid & 31;
-  int b_col;
-  const __nv_bfloat16* b_src;
-  if (UP) {
-    b_col = n0 + (b_ch & 15) * 8;
-    b_src = b_ch < 16 ? wa : wb;
-  } else {
-    b_col = n0 + b_ch * 8;
-    b_src = wa;
-  }
-  const bool b_in = b_col < N;
-
-  auto load = [&](int kt, int stage) {
-    __nv_bfloat16* sa = ring + stage * kTileStageElems;
-    __nv_bfloat16* sb = sa + kBM * kBK;
-    const int k0 = kt * kBK;
+  // ---- consumers: warpgroup cw owns rows 64 cw .. 64 cw + 63 of a tile
+  setmaxnreg_inc<kConsumerRegs>();
+  const int ct = tid - 128;
+  const int cw = ct >> 7, lane = ct & 31;
+  const int t4 = lane & 3;
+  // the thread's rows of the tile: accumulator rows lane / 4 and + 8 of
+  // its warp; acc[4 nb + e] is column 8 nb + 2 t4 + (e & 1) of row rw
+  // (e < 2) or rw + 8 (e >= 2)
+  const int rw = cw * 64 + ((ct >> 5) & 3) * 16 + (lane >> 2);
+  const unsigned ring_addr = smem_addr(ring);
+  float acc[128];
+  int st = 0, item = 0;
+  unsigned ph = 0;
+  for (int w = blockIdx.x; w < n_items; w += gridDim.x, ++item) {
+    const Item it = item_of(tab, w);
+    const int ib = item & 1;
+    const int m0 = it.tile * kBM;
+    mbar_wait(&ifull[ib], (item >> 1) & 1);
+    if (w < n_live_items) {
+      int pst = 0;
+      for (int kt = 0; kt < nk; ++kt) {
+        mbar_wait(&full[st], ph);
+        const unsigned sa = ring_addr + st * kStageBytes;
+        hold(acc);
+        wgmma_fence();
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = (tid >> 3) + 32 * i;
-      const int64_t src = sSrc[r];
-      const bool ok = src >= 0 && k0 + a_ch * 8 < K;
-      cp_async16(sa + r * kBK + swz128(r, a_ch) * 8,
-                 ok ? x + src + k0 + a_ch * 8 : x, ok);
-    }
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int kr = (tid >> 5) + 8 * i;
-      const bool ok = b_in && k0 + kr < K;
-      cp_async16(sb + kr * kBN + swz128(kr, b_ch) * 8,
-                 ok ? b_src + static_cast<int64_t>(k0 + kr) * N + b_col : wa,
-                 ok);
-    }
-  };
-
-  const int wm = warp >> 2, wn = warp & 3;
-  // the shared column of the warp's n8 tile j
-  auto tile_col = [&](int j) {
-    if (UP) return j < 4 ? wn * 32 + j * 8 : kBN / 2 + wn * 32 + (j - 4) * 8;
-    return wn * 64 + j * 8;
-  };
-  float acc[4][8][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.0f;
-
-#pragma unroll
-  for (int s = 0; s < kTileStages - 1; ++s) {
-    if (s < nk) load(s, s);
-    cp_async_commit();
-  }
-  for (int kt = 0; kt < nk; ++kt) {
-    cp_async_wait<kTileStages - 2>();
-    __syncthreads();
-    const int nxt = kt + kTileStages - 1;
-    if (nxt < nk) load(nxt, nxt % kTileStages);
-    cp_async_commit();
-    const __nv_bfloat16* sa = ring + (kt % kTileStages) * kTileStageElems;
-    const __nv_bfloat16* sb = sa + kBM * kBK;
-#pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
-      unsigned a[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = wm * 64 + i * 16 + (lane & 15);
-        const int ch = kk * 2 + (lane >> 4);
-        ldsm_x4(sa + r * kBK + swz128(r, ch) * 8, a[i]);
-      }
-      unsigned b[8][2];
-#pragma unroll
-      for (int jp = 0; jp < 4; ++jp) {
-        const int jm = lane >> 3;
-        const int kr = kk * 16 + (lane & 7) + (jm & 1) * 8;
-        const int ch = tile_col(2 * jp + (jm >> 1)) >> 3;
-        unsigned r4[4];
-        ldsm_x4_t(sb + kr * kBN + swz128(kr, ch) * 8, r4);
-        b[2 * jp][0] = r4[0];
-        b[2 * jp][1] = r4[1];
-        b[2 * jp + 1][0] = r4[2];
-        b[2 * jp + 1][1] = r4[3];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) mma16816(acc[i][j], a[i], b[j][0], b[j][1]);
-    }
-  }
-  cp_async_wait<0>();
-
-  // epilogue: c0, c1 at row lane/4, columns 2 (lane%4) and + 1; c2, c3 at
-  // the row 8 further
-  const int g = lane >> 2, t2 = (lane & 3) * 2;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {
-      const int rr = wm * 64 + i * 16 + g + hf * 8;
-      const int r = m0 + rr;
-      if (r >= p.M) continue;
-      if (UP) {
-        auto* hrow = static_cast<__nv_bfloat16*>(p.h) +
-                     (static_cast<int64_t>(e) * p.M + r) * p.ff;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int col = n0 + wn * 32 + j * 8 + t2;
-          if (col >= N) continue;
-          const float h0 = silu(acc[i][j][2 * hf]) * acc[i][j + 4][2 * hf];
-          const float h1 =
-              silu(acc[i][j][2 * hf + 1]) * acc[i][j + 4][2 * hf + 1];
-          *reinterpret_cast<unsigned*>(hrow + col) = pack_bf16(h0, h1);
-        }
-      } else {
-        const bool ok = sSrc[rr] >= 0;
-        const float w = sWt[rr];
-        float* yrow = p.ye + sOut[rr];
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const int col = n0 + wn * 64 + j * 8 + t2;
-          if (col >= N) continue;
-          *reinterpret_cast<float2*>(yrow + col) =
-              ok ? make_float2(acc[i][j][2 * hf] * w,
-                               acc[i][j][2 * hf + 1] * w)
-                 : make_float2(0.0f, 0.0f);
+        for (int kk = 0; kk < kBK / 16; ++kk)
+          wgmma_256(acc, smem_desc(sa + cw * 64 * 128 + kk * 32, 16, 1024),
+                    smem_desc(sa + kABytes + kk * 16 * 128, kBoxBytes, 1024),
+                    kt > 0 || kk > 0);
+        wgmma_commit();
+        wgmma_wait<1>();               // k-tile kt - 1's products landed
+        hold(acc);
+        if (kt > 0 && lane == 0) mbar_arrive(&empty[pst]);
+        pst = st;
+        if (++st == kTileStages) {
+          st = 0;
+          ph ^= 1;
         }
       }
+      wgmma_wait<0>();
+      hold(acc);
+      if (lane == 0) mbar_arrive(&empty[pst]);
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int rr = rw + 8 * hf;
+        const int r = m0 + rr;
+        if (r >= p.M) continue;
+        if (UP) {
+          // gate columns in acc[0, 64), up columns in acc[64, 128)
+          const int n0 = it.nb * (kBN / 2);
+          auto* hrow = static_cast<__nv_bfloat16*>(p.h) +
+                       (static_cast<int64_t>(it.e) * p.M + r) * p.ff;
+#pragma unroll
+          for (int nb = 0; nb < 16; ++nb) {
+            const int col = n0 + nb * 8 + 2 * t4;
+            if (col >= p.ff) continue;
+            const float h0 = silu(acc[4 * nb + 2 * hf]) *
+                             acc[64 + 4 * nb + 2 * hf];
+            const float h1 = silu(acc[4 * nb + 2 * hf + 1]) *
+                             acc[64 + 4 * nb + 2 * hf + 1];
+            *reinterpret_cast<unsigned*>(hrow + col) = pack_bf16(h0, h1);
+          }
+        } else {
+          const int n0 = it.nb * kBN;
+          const bool ok = sSrc[ib * kBM + rr] >= 0;
+          const float wt = sWt[ib * kBM + rr];
+          float* yrow = p.ye + sOut[ib * kBM + rr];
+#pragma unroll
+          for (int nb = 0; nb < 32; ++nb) {
+            const int col = n0 + nb * 8 + 2 * t4;
+            if (col >= p.d) continue;
+            *reinterpret_cast<float2*>(yrow + col) =
+                ok ? make_float2(acc[4 * nb + 2 * hf] * wt,
+                                 acc[4 * nb + 2 * hf + 1] * wt)
+                   : make_float2(0.0f, 0.0f);
+          }
+        }
+      }
+    } else if (!UP) {
+      // a dead item of moe_down: its rows' zeros, no weight byte read
+      const int n0 = it.nb * kBN;
+      for (int i = ct; i < kBM * (kBN / 4); i += 256) {
+        const int rr = i / (kBN / 4), col = n0 + (i % (kBN / 4)) * 4;
+        if (m0 + rr < p.M && col < p.d)
+          *reinterpret_cast<float4*>(p.ye + sOut[ib * kBM + rr] + col) =
+              make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      }
     }
+    mbar_arrive(&iempty[ib]);
+  }
+}
+
+// cuTensorMapEncodeTiled, from the driver through the runtime (no link to
+// the driver library).
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr,
+                                cudaEnableDefault, &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+// A 3-D bf16 tensor map [n2][n1][n0] (row-major, n0 innermost) with a box
+// of 64 x rows x 1 in the 128-byte swizzle (elements outside the tensor
+// read as zeros).
+bool bf16_map(CUtensorMap* map, const void* base, int n0, int n1, int n2,
+              int rows) {
+  const EncodeTiled encode = encode_tiled();
+  const cuuint64_t e = sizeof(__nv_bfloat16);
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(n0),
+                              static_cast<cuuint64_t>(n1),
+                              static_cast<cuuint64_t>(n2)};
+  const cuuint64_t strides[2] = {n0 * e, static_cast<cuuint64_t>(n0) * n1 * e};
+  const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return encode != nullptr &&
+         encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                const_cast<void*>(base), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+int sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess)
+      n = 0;
+  }
+  return n;
+}
+
+template <bool UP>
+cudaError_t launch_wgmma(const CUtensorMap& a, const CUtensorMap& b0,
+                         const CUtensorMap& b1, const Problem& p, int n_mt,
+                         int n_nb, size_t smem, int sms, cudaStream_t stream) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      moe_wgmma_kernel<UP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const long long items = static_cast<long long>(p.E) * n_mt * n_nb;
+  const int grid = items < sms ? static_cast<int>(items) : sms;
+  moe_wgmma_kernel<UP><<<grid, kWgThreads, smem, stream>>>(a, b0, b1, p,
+                                                           n_mt, n_nb);
+  return cudaGetLastError();
+}
+
+// The two launches of the tiles regime: a persistent block an SM each,
+// the weights (and h) through TMA maps over [E, K, N] ([E, M, ff]).
+cudaError_t launch_tiles(const Problem& p, cudaStream_t stream) {
+  const int n_mt = (p.M + kBM - 1) / kBM;
+  const int up_nb = (p.ff + kBN / 2 - 1) / (kBN / 2);
+  const int down_nb = (p.d + kBN - 1) / kBN;
+  const size_t smem = tiles_smem(p.E, n_mt);
+  const int sms = sm_count();
+  const long long pairs = static_cast<long long>(p.E) * n_mt;
+  if (sms <= 0 || smem > kMaxSmem || pairs * up_nb >= INT_MAX ||
+      pairs * down_nb >= INT_MAX)
+    return cudaErrorInvalidValue;
+  CUtensorMap xe, gate, up, down, h;
+  if (!bf16_map(&xe, p.ye, p.d, p.M, p.E, kBM) ||
+      !bf16_map(&gate, p.w_gate, p.ff, p.d, p.E, kBK) ||
+      !bf16_map(&up, p.w_up, p.ff, p.d, p.E, kBK) ||
+      !bf16_map(&down, p.w_down, p.d, p.ff, p.E, kBK) ||
+      !bf16_map(&h, p.h, p.ff, p.M, p.E, kBM))
+    return cudaErrorInvalidValue;
+  const cudaError_t err = launch_wgmma<true>(xe, gate, up, p, n_mt, up_nb,
+                                             smem, sms, stream);
+  if (err != cudaSuccess) return err;
+  return launch_wgmma<false>(h, down, down, p, n_mt, down_nb, smem, sms,
+                             stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -774,14 +1205,7 @@ int run(const Problem& p, int regime, bool bf16, void* stream) {
     if (p.M > kStreamMaxRows) return static_cast<int>(cudaErrorInvalidValue);
     err = p.M <= 8 ? launch_stream<1>(p, st) : launch_stream<2>(p, st);
   } else if (regime == kTiles && bf16) {
-    const unsigned mt = static_cast<unsigned>((p.M + kBM - 1) / kBM);
-    err = launch_one(moe_tiles_kernel<true>,
-                     dim3(mt, (p.ff + kBN / 2 - 1) / (kBN / 2), p.E),
-                     tiles_smem(), p, st);
-    if (err == cudaSuccess)
-      err = launch_one(moe_tiles_kernel<false>,
-                       dim3(mt, (p.d + kBN - 1) / kBN, p.E), tiles_smem(), p,
-                       st);
+    err = launch_tiles(p, st);
   } else if (regime == kSimt && !bf16) {
     const unsigned mt = static_cast<unsigned>((p.M + kFM - 1) / kFM);
     err = launch_one(moe_simt_kernel<true>,

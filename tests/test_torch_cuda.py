@@ -1376,13 +1376,16 @@ def test_full_sequence_paths_launch_b8_b9_on_card(cuda_device, arch):
 # stream regime, one n8 tile of slots), 16 slots an expert (two n8 tiles),
 # 17 (the first tiles shape), a prefill-like 600 tokens with Ck = 200 (no
 # multiple of the 128-row tile; ff no multiple of the 128-column tile),
-# G > 1 with Ck < t, jamba's 16 experts; "mixed" leaves expert 0 without a
-# token and expert E - 1 with every slot valid, "all" every slot valid
+# G > 1 with Ck < t, jamba's 16 experts, and the tiles regime's edges (K and
+# N no multiple of 64 or of the column block, M > 128 with a slot tile
+# crossing groups); "mixed" leaves expert 0 without a token and expert
+# E - 1 with every slot valid, "all" every slot valid
 MOE_CASES = [(4, 1, 8, 1, 128, 256, "mixed"), (1, 1, 8, 1, 64, 128, "mixed"),
              (2, 8, 8, 8, 64, 192, "mixed"), (17, 1, 4, 1, 64, 128, "mixed"),
              (1, 600, 8, 200, 256, 320, "mixed"),
              (3, 40, 4, 24, 128, 256, "all"),
-             (2, 64, 16, 20, 64, 128, "mixed")]
+             (2, 64, 16, 20, 64, 128, "mixed"),
+             (2, 300, 4, 150, 136, 200, "mixed")]
 
 
 def _moe_inputs(G, t, E, Ck, d, ff, live, dtype, device, seed):

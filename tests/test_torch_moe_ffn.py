@@ -201,16 +201,30 @@ def test_plan_regime_and_grids(G, Ck, dtype, regime, nt):
     plan = moe_ffn_plan(G, E, Ck, d, ff, dtype)
     M = G * Ck
     assert (plan.regime, plan.rows, plan.nt) == (regime, M, nt)
+    assert plan.experts == E
     if regime == "stream":
         assert plan.up_grid == (ff // 64, E, 1)
         assert plan.down_grid == (d // 64, E, 1)
+        assert plan.up_items == (1, ff // 64, E)
         assert plan.slot_tiles == 1 and M <= 16
     else:
         rows = 128 if regime == "tiles" else 64
         tiles = -(-M // rows)
         assert plan.slot_tiles == tiles
-        assert plan.up_grid == (tiles, -(-ff // plan.up_cols), E)
-        assert plan.down_grid == (tiles, -(-d // plan.down_cols), E)
+        assert plan.up_items == (tiles, -(-ff // plan.up_cols), E)
+        assert plan.down_items == (tiles, -(-d // plan.down_cols), E)
+        if regime == "tiles":
+            # a persistent block an SM (132 on an H100), fewer when the
+            # items are fewer
+            assert (plan.up_cols, plan.down_cols) == (128, 256)
+            for grid, items in ((plan.up_grid, plan.up_items),
+                                (plan.down_grid, plan.down_items)):
+                assert grid == (min(132, items[0] * items[1] * E), 1, 1)
+            assert moe_ffn_plan(G, 1, Ck, 64, 128, dtype).down_grid == \
+                (tiles, 1, 1)
+        else:
+            assert plan.up_grid == plan.up_items
+            assert plan.down_grid == plan.down_items
     with pytest.raises(ValueError):
         moe_ffn_plan(G, E, Ck, d, ff, torch.float16)
 
@@ -230,11 +244,20 @@ def test_plan_smem_within_a_hopper_block():
                     assert 0 < down <= MAX_SMEM_BYTES
                     seen.add((plan.regime, plan.nt, up, down))
     # the source's sizes: the stream rings (6 stages of 18 KB / 8 of 10 KB
-    # at two n8 tiles), the tiles ring (4 stages of 48 KB), the simt arrays
+    # at two n8 tiles), the simt arrays; the tiles regime's slack, ring (4
+    # stages of 48 KB), item buffers and barriers, and its table of
+    # (expert, slot tile) pairs, at mixtral's prefill (8 x 12 pairs) and
+    # at arctic's 128 experts
     assert ("stream", 2, 110912, 82240) in seen
     assert ("stream", 1, 104768, 74048) in seen
-    assert ("tiles", 2, 199168, 199168) in seen
+    assert ("tiles", 2, 203380, 203380) in seen
+    assert ("tiles", 2, 211060, 211060) in seen
     assert ("simt", 1, 26368, 18176) in seen
+    fixed = 1024 + 4 * 48 * 1024 + 2 * 128 * 20 + 12 * 8 + 16
+    for E, Ck in ((8, 1440), (16, 17), (128, 333)):
+        plan = moe_ffn_plan(1, E, Ck, 64, 128, BF16)
+        assert smem_bytes(plan) == (fixed + 4 * (E + 1)
+                                    + 5 * E * plan.slot_tiles,) * 2
 
 
 def _valid_prefix(G, E, Ck, counts):
@@ -281,6 +304,58 @@ def test_live_tiles_follow_the_valid_flags(G, E, Ck, dtype):
         for i in range(plan.slot_tiles):
             if not live[e, i]:
                 assert not by_row[e, i * rows:(i + 1) * rows].any()
+
+
+@pytest.mark.parametrize("G,E,Ck,d,ff,live", [
+    (1, 8, 1440, 6144, 16384, "prefix"),     # mixtral's 4,608-token prefill
+    (1, 8, 1440, 6144, 16384, "mixed"),
+    (2, 4, 150, 136, 200, "mixed"),          # a slot tile crossing groups
+    (1, 3, 17, 64, 128, "all")])
+def test_tile_walk_visits_every_item_once_in_the_source_order(G, E, Ck, d,
+                                                              ff, live):
+    """The tiles regime's persistent walk (``tile_walk``, the source's
+    table and ``item_of``): moe_up visits every live (expert, slot tile,
+    column block) item exactly once and no dead one, moe_down every item
+    exactly once; the order is the live items expert by expert, column
+    block by column block, the slot tile fastest, then (down) the dead
+    ones column block by column block, dealt to the blocks in turn, so no
+    block has more than one live item beyond another's."""
+    from repro_torch.kernels.moe_ffn.ref import tile_walk
+    rng = np.random.default_rng(E * Ck + d)
+    counts = rng.integers(0, Ck + 1, size=(G, E))
+    if live == "prefix":
+        counts[:] = 1152                  # 9,216 of 11,520 slots live
+    elif live == "all":
+        counts[:] = Ck
+    else:
+        counts[:, 0] = 0
+        counts[:, -1] = Ck
+    valid = _valid_prefix(G, E, Ck, counts)
+    if live == "mixed":                   # live rows need not be a prefix
+        valid = valid[:, :, torch.from_numpy(rng.permutation(Ck))]
+    plan = moe_ffn_plan(G, E, Ck, d, ff, BF16)
+    assert plan.regime == "tiles"
+    flags = live_tiles(valid, plan)
+    for up, (n_mt, n_nb, _) in ((True, plan.up_items),
+                                (False, plan.down_items)):
+        walk = tile_walk(flags, plan, up)
+        grid = (plan.up_grid if up else plan.down_grid)[0]
+        assert len(walk) == grid
+        every = [(e, i, nb) for e in range(E) for nb in range(n_nb)
+                 for i in range(n_mt) if flags[e, i]]
+        if not up:
+            every += [(e, i, nb) for nb in range(n_nb) for e in range(E)
+                      for i in range(n_mt) if not flags[e, i]]
+        for b, items in enumerate(walk):
+            assert items == every[b::grid]
+        seen = [it for items in walk for it in items]
+        assert len(seen) == len(set(seen)) == len(every)
+        n_live = [sum(bool(flags[e, i]) for e, i, _ in items)
+                  for items in walk]
+        assert max(n_live) - min(n_live) <= 1
+    if live == "prefix":
+        assert int(flags.sum()) == 72 and plan.up_grid == (132, 1, 1)
+        assert sum(map(len, tile_walk(flags, plan, True))) == 72 * 128
 
 
 def _stage_inputs(G, t, E, Ck, d, ff, dtype, seed):
@@ -358,8 +433,24 @@ def test_build_source_and_entry_points():
     # the source's constants that the mirror repeats
     for const in ("kStreamMaxRows = 16", "kBM = 128", "kBN = 256",
                   "kBK = 64", "kTileStages = 4", "kFM = 64", "kFN = 64",
-                  "kFK = 16", "kStages = UP ? 6 : 8", "kCols = 64"):
+                  "kFK = 16", "kStages = UP ? 6 : 8", "kCols = 64",
+                  "kWgThreads = 384", "2 * kBM * (8 + 8 + 4)",
+                  "(2 * kTileStages + 4) * 8 + 16",
+                  "4 * (static_cast<size_t>(E) + 1)",
+                  "5 * static_cast<size_t>(E) * n_mt"):
         assert const in text, const
+    # the tiles regime: wgmma fed by TMA, warp-specialised, on mbarrier
+    # stages, moe_up's gather before a barrier of every block; mma.sync is
+    # left to the stream regime alone
+    for part in ("wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16",
+                 "cp.async.bulk.tensor.3d", "fence.proxy.async.global",
+                 "grid_barrier();", "setmaxnreg.dec", "setmaxnreg.inc",
+                 "mbarrier.try_wait",
+                 "cuTensorMapEncodeTiled", "launch_wgmma<true>",
+                 "launch_wgmma<false>", "moe_wgmma_kernel<UP>"):
+        assert part in text, part
+    assert "moe_tiles_kernel" not in text
+    assert text.count("mma.sync.aligned.m16n8k16") == 1
 
 
 # ---------------------------------------------------------------------------
