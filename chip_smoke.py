@@ -6,15 +6,21 @@ It builds every hand-written kernel of ``src/repro_torch`` (the banded
 (min,+) argmin chain B1 and k-slot chain B3, the dense (min,+) products B5
 and B4, the exit gate B6, the flash-decode attention B7, the population
 tick's fused ingest B2, the flash-prefill attention B8, the SSD chunked
-scan B9 and the MoE experts' SwiGLU B10; one ``nvcc`` per source, all in
-parallel), holds each against its plain PyTorch version on the card
+scan B9, the MoE experts' SwiGLU B10 and the training loss B11; one
+``nvcc`` per source, all in parallel), holds each against its plain
+PyTorch version on the card
 ([kernels_prefill] for B8 and B9: float32 and bf16, every head grouping
 and width of the registry, causal, windowed and bidirectional masks,
 ragged keys, -1 slots, masked leading tiles, dead rows; ragged chunks of
 8, 13 and 256 rows; [kernels_moe] for B10, inside [serve_moe]: float32
 and bf16 at mixtral's decode and prefill shapes with the path's layer-0
 weights, and small cases: a dead expert with NaN weights, every slot
-valid, C no tile multiple, 16 experts), checks graph
+valid, C no tile multiple, 16 experts; [kernels_ce] for B11: float32
+and bf16, ragged rows, -1 labels and every label -1, a padded vocab tail,
+a label in the last live column, the tied table.T head, g != 1, several
+backward passes, and [train]'s call, mamba2's tied head and
+[train_parity]'s call at full width, then heads split over 2-4 vocab
+shards, the ranks run in turn), checks graph
 construction and the solver on CUDA against the port's CPU path, and
 drives each path of the port with the kernels' launch counters reset just
 before it and read just after:
@@ -102,7 +108,9 @@ before it and read just after:
                       loss falls); B-LeNet 5 steps against the CPU path;
   [train]             qwen3-4b at full width and depth (bf16, float32
                       moments, ``remat="full"``) through ``train()``, 8
-                      steps at B = 4, S = 512;
+                      steps at B = 4, S = 512 (B11 three calls a step),
+                      then one more step under torch.profiler, split by
+                      family (products, B8, B11, AdamW, clip, copies);
   [train_parity]      ``loss_fn``, its gradients and 3 train steps in
                       float32 on CUDA against the CPU path (qwen3-4b widths
                       at 2 layers, mamba2 and mixtral at 1 period), and a
@@ -125,19 +133,22 @@ It then times the kernels at their paths' shapes (B7 also at mixtral's
 heads over 4,096 slots; B8 and B9 at their prefills' shapes beside their
 plain versions and, for B8, scaled_dot_product_attention; B10 at
 [serve_moe]'s decode and prefill shapes beside its plain version, the
-three cuBLAS products alone and the whole ``_moe_gather``), the plain
-PyTorch program ``chunked_cross_entropy`` (forward plus backward) at its
-path's shape ([programs]), relaxes 2^20 scenario rows at population size,
-and prints the kernels JSON line (B1-B10) followed by the final status
-line.  The launch counters of B8, B9 and B10 are reset before
+three cuBLAS products alone and the whole ``_moe_gather``), B11
+(``chunked_cross_entropy`` forward plus backward) at [train]'s shape beside
+its plain version, the parent's chunked program and the library route
+(two calls: cuBLAS ``mm(out_dtype=float32)`` and ``F.cross_entropy``)
+([programs]), relaxes 2^20 scenario rows at population size, and prints
+the kernels JSON line (B1-B11) followed by the final status line.  The launch counters of B8, B9 and B10 are reset before
 [serve_moe]'s and [serve_ssm]'s prefills, [prefill]'s cases, hubert's
 timed ``encode``, [serve_parity]'s mixtral, [train_parity] and
-[sharded]'s sharded train step, and printed after each.  Every failing
+[sharded]'s sharded train step, and printed after each; B11's before
+[train], [train_parity] and [sharded]'s steps (on DTensors B11 runs on
+each rank's shards through ``local_map``).  Every failing
 phase raises; without a CUDA card, or
 without the repository beside it, it exits non-zero and prints no result.
 
   python3 chip_smoke.py --times [chain] [dense] [kbest] [gate] [attn] [plan]
-                                [ingest] [serve] [prefill] [moe]
+                                [ingest] [serve] [prefill] [moe] [ce]
 
 builds the kernels and runs only the timings (no checks, no result line):
 B1 at the main path's largest launch (20,480 rows) in float64 and float32
@@ -153,8 +164,8 @@ the reprices, by graph replays, single launches and torch.profiler),
 shapes and B9 at [serve_ssm]'s prefill shape beside their plain versions
 and the library call ([prefill]), B10 at [serve_moe]'s decode and prefill
 shapes on one seeded mixtral MoE layer beside its plain version and the
-three cuBLAS products ([moe]); all of them without a name, else the named
-ones.  The kernels are timed as CUDA-graph
+three cuBLAS products ([moe]), B11 at [train]'s call ([ce]); all of them
+without a name, else the named ones.  The kernels are timed as CUDA-graph
 replays beside CUDA-event means.  The timings use only the kernels' public
 wrappers, so a copy of this script run from an older checkout times that
 checkout's kernels: run two in turns in one call to compare two designs on
@@ -186,6 +197,7 @@ INGEST_SOURCE = "src/repro_torch/kernels/ee_gate/csrc/quant_signature.cu"
 PREFILL_SOURCE = "src/repro_torch/kernels/prefill_attn/csrc/prefill_attn.cu"
 SSD_SOURCE = "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu"
 MOE_SOURCE = "src/repro_torch/kernels/moe_ffn/csrc/moe_ffn.cu"
+CE_SOURCE = "src/repro_torch/kernels/linear_ce/csrc/linear_ce.cu"
 # (B, V) of the exit-gate checks; the qwen3-4b padded vocab has a -inf tail
 # of 153,600 - 151,936 = 1,664 columns
 GATE_SHAPES = [(1, 128), (5, 5000), (4, 153600), (16, 50304),
@@ -312,6 +324,38 @@ TRAIN_SEQ = 512
 TRAIN_PARITY = (("qwen3-4b", 2), ("mamba2-1.3b", 1), ("mixtral-8x22b", 1))
 TRAIN_PARITY_BATCH = 2
 TRAIN_PARITY_SEQ = 32
+# (case, N, d, V_pad, vocab, tied, g, dl rows a pass or None for one pass)
+# of the B11 checks ([kernels_ce]), float32 and bf16: ragged rows (no
+# multiple of 128), -1 labels, every label -1, a padded tail no multiple of
+# 256 (1,000 = 3 x 256 + 232), a label in the last live column (every case
+# has one at row 0), the tied table.T head, g != 1, several backward passes
+# on the tied head; then, bf16, [train]'s call (qwen3-4b, B = 4, S = 512)
+# and mamba2-1.3b's tied head at its width, and, float32, [train_parity]'s
+# qwen3-4b call (B = 2, S = 32)
+CE_CHECK_CASES = [("ragged", 70, 64, 2048, 2048, False, 1.0, None),
+                  ("unlabelled", 300, 128, 1000, 999, False, 1.0, None),
+                  ("all_unlabelled", 130, 64, 512, 500, False, 1.0, None),
+                  ("padded", 257, 64, 1000, 990, False, 1.0, None),
+                  ("last_live", 129, 64, 768, 700, False, 1.0, None),
+                  ("tied", 200, 96, 1536, 1500, True, 1.0, None),
+                  ("g", 96, 64, 1024, 1000, False, -2.5, None),
+                  ("passes", 600, 64, 1024, 1000, True, 0.5, 256)]
+CE_TRAIN_CASE = ("train", 2048, 2560, 153600, 151936, False, 1.0, None)
+CE_WIDE_CASES = [(CE_TRAIN_CASE, "bfloat16"),
+                 (("tied_mamba2", 2048, 2048, 51200, 50280, True, 1.0, None),
+                  "bfloat16"),
+                 (("parity", 64, 2560, 153600, 151936, False, 1.0, None),
+                  "float32")]
+# (case, N, d, V_pad, vocab, tied, ranks, dtype) of B11 on a vocab-sharded
+# head ([kernels_ce]), the ranks run one after another on the card: each
+# rank's K1 partials, the combine over all of them, K2 and K3 on its
+# columns; the last rank all padding (1,000 of 1,024 over 4: 768-1,023),
+# the tied head, and [train]'s head over 4 ranks
+CE_SHARD_CASES = [("shards_dead", 300, 128, 1024, 700, False, 4, "float32"),
+                  ("shards_dead", 300, 128, 1024, 700, False, 4, "bfloat16"),
+                  ("shards_tied", 257, 64, 2048, 2000, True, 2, "bfloat16"),
+                  ("shards_train", 2048, 2560, 153600, 151936, False, 4,
+                   "bfloat16")]
 CARD_SHAPES = [(1, 1, 4, 4), (64, 4, 5, 26), (8, 2, 23, 26), (4, 4, 8, 131)]
 # (case, B, L, N, G+1) of B1's launch plans, each checked to reach what it
 # names: a batch that is no multiple of the group, B = 1, more groups than
@@ -3332,20 +3376,28 @@ def sharded_rank(rank, world, port):
         placed = place_inputs(cfg_t, shape_t, {
             "state": copy.deepcopy(state), "batch": batch}, dm)
         tstep = build_train_step(cfg_t)
+        _reset(_b11_counters())
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         new, m = tstep(state, batch)
         torch.cuda.synchronize()
         t_train_plain = time.perf_counter() - t0
+        b11_plain = _b11_counters()[0].launches
         prefill_attn.launches = 0
+        _reset(_b11_counters())
         t0 = time.perf_counter()
         with activation_sharding(dm):
             new2, m2 = tstep(placed["state"], placed["batch"])
         torch.cuda.synchronize()
         t_train_shard = time.perf_counter() - t0
         b8 = prefill_attn.launches
+        b11 = _b11_counters()[0].launches
         check(b8 > 0, f"rank {rank}: B8 not launched in the sharded train "
               f"step")
+        check(b11 > 0 and b11 == b11_plain and all(
+            c.launches for c in _b11_counters()), f"rank {rank}: B11 "
+              f"launched {[c.launches for c in _b11_counters()]} times in "
+              f"the sharded train step, {b11_plain} forwards unsharded")
         loss, loss2 = float(m["loss"]), float(full(m2["loss"]))
         gn, gn2 = float(m["grad_norm"]), float(full(m2["grad_norm"]))
         check(abs(loss2 - loss) <= SHARDED_RTOL * abs(loss),
@@ -3363,11 +3415,14 @@ def sharded_rank(rank, world, port):
                   f"the bound by {float((e - bound).max()):.3g}")
             worst = max(worst, float(e.max()))
             n_leaves += 1
+        del state, new, w, mu, got
+        torch.cuda.empty_cache()
         out.update(train=dict(
             layers=cfg_t.n_layers, loss=loss, loss_sharded=loss2,
             grad_norm=gn, grad_norm_sharded=gn2, worst_param_err=worst,
             leaves=n_leaves, plain_ms=t_train_plain * 1e3,
-            sharded_ms=t_train_shard * 1e3, b8_launches=b8))
+            sharded_ms=t_train_shard * 1e3, b8_launches=b8,
+            b11_launches=b11))
         out["b7"] = row
         print(f"[sharded] rank {rank}: {json.dumps(out)}", flush=True)
     finally:
@@ -3385,7 +3440,8 @@ def phase_sharded():
     """[sharded]: this script started once a rank of the (1,
     SHARDED_WORLD) mesh (``--sharded-rank r world port``); every rank must
     exit 0 and report its checks.  Returns B7's kernels-line row with the
-    ranks' launches in the sharded decode."""
+    ranks' launches in the sharded decode, and B11's forward launches in
+    the sharded train step (``b11_launches``)."""
     import socket
     t_phase = time.perf_counter()
     with socket.socket() as s:
@@ -3433,16 +3489,23 @@ def phase_sharded():
         f"{t['loss']:.6f} / {t['loss_sharded']:.6f}, grad norm "
         f"{t['grad_norm']:.6f} / {t['grad_norm_sharded']:.6f}, "
         f"{t['leaves']} parameters within the bound (largest |diff| "
-        f"{t['worst_param_err']:.3g}); one step (host wall, the first) "
-        f"unsharded {t['plain_ms']:.3f} ms, sharded {t['sharded_ms']:.3f} "
-        f"ms; B8 launches on the ranks' shards in the sharded step (counter"
-        f" reset before it) {sum(x['train']['b8_launches'] for x in res)}")
+        f"{t['worst_param_err']:.3g}); one step (host wall) unsharded "
+        f"{t['plain_ms']:.3f} ms, sharded "
+        f"{t['sharded_ms']:.3f} ms (its first); B8 launches on the ranks' "
+        f"shards in the sharded step (counter reset before it) "
+        f"{sum(x['train']['b8_launches'] for x in res)}; B11 forward "
+        f"launches there (each K1 + combine, then K2 + K3; counters reset "
+        f"before it) {sum(x['train']['b11_launches'] for x in res)}, "
+        f"through local_map on each rank's shards (over a mesh dimension "
+        f"of one the head is whole on every rank: no gather of K1's "
+        f"partials)")
     log("sharded", f"B7 at a rank's shape {row.pop('shape')}: "
         f"{row['ms']:.4f} ms (CUDA graph), plain {row['plain_ms']:.4f}, "
         f"sdpa {row['library_ms']:.4f}, bound {row['bound_ms']:.6f} by "
         f"{row['bound_by']}; the phase took "
         f"{time.perf_counter() - t_phase:.1f} s")
     row["launches"] = sum(x["decode"]["launches"] for x in res)
+    row["b11_launches"] = sum(x["train"]["b11_launches"] for x in res)
     return row
 
 
@@ -5662,18 +5725,32 @@ def phase_train(dev):
     gc.collect()
     torch.cuda.empty_cache()
     restore = _tf32_on()
-    built = {}
+    built, last = {}, {}
     make_state = train_loop.init_train_state
+    make_step = train_loop.build_train_step
+    b11 = _b11_counters()
 
     def recorded(cfg_, **kw):          # the state train() builds, as shapes
         state = make_state(cfg_, **kw)
         built["state"] = _tree_specs(state)
         return state
 
+    def kept(cfg_):                    # the last step's state, for the split
+        fn = make_step(cfg_)
+
+        def step(state, batch):
+            new, metrics = fn(state, batch)
+            last.update(step=fn, state=new, batch=batch)
+            return new, metrics
+        return step
+
     train_loop.init_train_state = recorded
+    train_loop.build_train_step = kept
     try:
         for periods in (None, 24, 12):
             cfg = _arch_cfg(TRAIN_ARCH, periods, remat="full")
+            last.clear()
+            _reset(b11)
             torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
             try:
@@ -5689,9 +5766,27 @@ def phase_train(dev):
             raise PhaseFailed("[train] no depth fits")
     finally:
         train_loop.init_train_state = make_state
+        train_loop.build_train_step = make_step
         restore()
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
+    launches = {c.__name__: c.launches for c in b11}
+    ce_calls = 1 + len(cfg.exit_layer_list)
+    check(all(launches.values()), f"[train] B11 launches {launches}")
+    log("train", f"B11 launches over the {TRAIN_STEPS} steps (counters reset "
+        f"before them): {launches}; {ce_calls} loss calls a step (the final "
+        f"head and {ce_calls - 1} exits sharing it), each K1 + combine, then "
+        f"K2 and K3 for dh and dW a backward pass")
+    check(launches["linear_ce_forward"] == ce_calls * TRAIN_STEPS,
+          f"[train] B11 forward launched {launches['linear_ce_forward']} "
+          f"times, not {ce_calls} a step")
+    restore = _tf32_on()
+    try:
+        split = profile_train_step(last["step"], last["state"],
+                                   last["batch"], launches)
+    finally:
+        restore()
+        last.clear()
     n_state = _same_tree(built["state"], train_state_shapes(cfg),
                          "[train] train_state_shapes")
     losses = res.losses
@@ -5719,7 +5814,8 @@ def phase_train(dev):
         f"shape and dtype")
     log("train", _analytic_line(cfg, TRAIN_BATCH, TRAIN_SEQ, "train", ms, N))
     return dict(ms=ms, bound_ms=bound, tokens_s=tokens / (ms * 1e-3),
-                peak=peak, ce_calls=1 + len(cfg.exit_layer_list))
+                peak=peak, ce_calls=ce_calls,
+                b11_launches=launches["linear_ce_forward"], split=split)
 
 
 def _leafwise(a, b, tol, what):
@@ -5771,7 +5867,7 @@ def phase_train_parity(dev):
     from repro_torch.runtime import steps as S
     from repro_torch.runtime.train_loop import batch_to, train
     restore = _tf32_on()
-    kernels = (prefill_attn, ssd_scan, moe_ffn)
+    kernels = (prefill_attn, ssd_scan, moe_ffn) + _b11_counters()
     _reset(kernels)
     try:
         for arch, periods in TRAIN_PARITY:
@@ -5824,11 +5920,13 @@ def phase_train_parity(dev):
             gc.collect()
             torch.cuda.empty_cache()
         launched = {c.__name__: c.launches for c in kernels}
-        check(all(launched.values()), f"[train_parity] B8 / B9 / B10 "
+        check(all(launched.values()), f"[train_parity] B8 / B9 / B10 / B11 "
               f"launches {launched}")
         log("train_parity", f"kernel launches over the three models' "
             f"loss_fn and 3 steps each (counters reset before them): "
-            f"{launched}; the backward is the plain versions'")
+            f"{launched}; B8's / B9's / B10's backward is the plain "
+            f"versions', B11's its own kernels (float32: the CUDA-core "
+            f"tiles, with the global TF32 flags on)")
         cfg = get(TRAIN_ARCH, reduced=True)
         kw = dict(global_batch=8, seq_len=64, seed=0, log_every=0, device=dev)
         full = train(cfg, n_steps=8, **kw)
@@ -5854,39 +5952,386 @@ def phase_train_parity(dev):
     return launched
 
 
-def ce_program_times(dev, calls):
-    """``chunked_cross_entropy`` forward plus backward at [train]'s shape
-    (qwen3-4b: B = 4, S = 512, d = 2,560, V_pad = 153,600, bf16 hiddens
-    and head, chunk 256): device ms a call against the bound of its 6 B S
-    d V FLOP at 989 TFLOP/s (forward 2, backward 4; the recompute of the
-    checkpointed chunk is the implementation's) and of its bytes."""
+def _b11_counters():
+    from repro_torch.kernels.linear_ce import ops as LO
+    return (LO.linear_ce_forward, LO.linear_ce_dlogits, LO.linear_ce_gemm)
+
+
+def ce_inputs(case, N, d, V, vocab, tied, dtype, dev, seed):
+    """Seeded h [N, d], head [d, V] (a table's transpose if tied) and
+    labels [N] int64 of a B11 case: a label in the last live column at
+    row 0, -1 at 30% of the rows ("unlabelled") or at all ("all_...")."""
     import numpy as np
     import torch
-    from repro_torch.models.layers import chunked_cross_entropy
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    h = torch.randn((N, d), generator=gen, device=dev).to(dtype)
+    w = (torch.randn((d, V), generator=gen, device=dev)
+         * (3 / d ** 0.5)).to(dtype)
+    if tied:
+        w = w.T.contiguous().T
+    labels = rng.integers(0, vocab, N)
+    if case == "unlabelled":
+        labels[rng.uniform(size=N) < 0.3] = -1
+    if case == "all_unlabelled":
+        labels[:] = -1
+    labels[0] = -1 if case == "all_unlabelled" else vocab - 1
+    return h, w, torch.as_tensor(labels, dtype=torch.int64, device=dev)
+
+
+def ce_shards(h, w, labels, vocab, ranks, g, dl_bytes):
+    """B11 on a head split over ``ranks`` equal column shards, the ranks
+    one after another on this card, as ``layers._linear_ce_local`` runs
+    them: each rank's K1 partials (a first pass collects them: the gather),
+    the combine of all of them (every rank's lse and stats must be the
+    same bits), each rank's K2 and K3 on its columns with the combined lse
+    -> (stats, loss, lse, dh summed over the ranks in float32, dW [d, V]).
+    A rank's untied shard is a dense copy of its columns, as a rank holds
+    it; the tied table's rows are dense as they lie."""
+    import torch
+    from repro_torch.kernels.linear_ce import ops as LO
+    width = w.shape[1] // ranks
+    cols = [(r * width, w[:, r * width:(r + 1) * width])
+            for r in range(ranks)]
+    cols = [(c, x if LO._stored(x) else x.contiguous()) for c, x in cols]
+    parts = []
+    for col0, wr in cols:
+        LO.linear_ce_forward(h, wr, labels, vocab, LO.plan_for(h, wr, 0),
+                             col0=col0, gather=lambda p: parts.append(p) or p)
+    every = lambda p: torch.cat(parts, dim=1)
+    fwd = [LO.linear_ce_forward(h, wr, labels, vocab, LO.plan_for(h, wr, 0),
+                                col0=col0, gather=every)
+           for col0, wr in cols]
+    check(all(torch.equal(a, b) for f in fwd[1:] for a, b in
+              zip(f, fwd[0])), "[kernels_ce] the ranks' combines differ")
+    stats, loss, lse = fwd[0]
+    scale = g / torch.clamp(stats[1], min=1.0)
+    dh = torch.zeros(h.shape, dtype=torch.float32, device=h.device)
+    dws = []
+    for col0, wr in cols:
+        dhr, dwr = LO._backward(h, wr, labels, lse, scale, vocab,
+                                LO.plan_for(h, wr, dl_bytes), True, True,
+                                col0)
+        dh += dhr.float()
+        dws.append(dwr)
+    return stats, loss, lse, dh, torch.cat(dws, dim=1)
+
+
+def phase_kernels_ce(dev):
+    """[kernels_ce]: B11 (K1 + combine, then K2 and K3 for dh and dW, a pass
+    of rows at a time) against its plain version (``linear_ce/ref.py``) on
+    the card at CE_CHECK_CASES in float32 and bf16, at CE_WIDE_CASES and,
+    on a vocab-sharded head (``ce_shards``), at CE_SHARD_CASES:
+    the loss within a relative 1e-5 (float32) / 1e-4 (bf16), lse within
+    the same of max|lse|, dh and dW within 1e-5 / 2^-6 of max|plain|, dW
+    exactly 0 on the padded columns, a loss and gradients of exactly 0
+    when every label is -1, and the same bits on a repeat (a sharded
+    head: dh, the sum of the ranks' rounded shares, within 2^-6 too).  The
+    launches here are the checks', not a path's: the counters are put
+    back.  Returns the largest abs error at [train]'s shape (loss, lse, dh,
+    dW)."""
+    import gc
+    import torch
+    from repro_torch.kernels.linear_ce import ops as LO
+    from repro_torch.kernels.linear_ce.ref import (linear_ce_bwd_ref,
+                                                   linear_ce_fwd_ref)
+    counters = _b11_counters()
+    saved = [c.launches for c in counters]
+    cases = [(c, dt, None) for c in CE_CHECK_CASES
+             for dt in ("float32", "bfloat16")] + [
+        (c, dt, None) for c, dt in CE_WIDE_CASES] + [
+        ((case, N, d, V, vocab, tied, -1.5, None), dtype, ranks)
+        for case, N, d, V, vocab, tied, ranks, dtype in CE_SHARD_CASES]
+    train_err = None
+    t0 = time.perf_counter()
+    for (case, N, d, V, vocab, tied, g, rows), dtype, ranks in cases:
+        dt = getattr(torch, dtype)
+        h, w, labels = ce_inputs(case, N, d, V, vocab, tied, dt, dev, N + V)
+        if ranks:
+            # a label in every rank's first column
+            labels[1:ranks + 1] = torch.arange(ranks, device=dev) * (
+                V // ranks)
+            labels.clamp_(max=vocab - 1)
+        plan = LO.plan_for(h, w, (rows or N) * V * dt.itemsize)
+        gt = torch.full((), g, device=dev)
+        runs = []
+        for _ in range(2):
+            if ranks:
+                runs.append(ce_shards(h, w, labels, vocab, ranks, gt,
+                                      N * V * dt.itemsize))
+                continue
+            stats, loss, lse = LO.linear_ce_forward(h, w, labels, vocab, plan)
+            scale = gt / torch.clamp(stats[1], min=1.0)
+            dh, dw = LO._backward(h, w, labels, lse, scale, vocab, plan,
+                                  True, True)
+            runs.append((stats, loss, lse, dh, dw))
+        torch.cuda.synchronize()
+        what = f"[kernels_ce] {case} {dtype} N={N} d={d} V={V}"
+        check(all(torch.equal(a, b) for a, b in zip(*runs)),
+              f"{what}: a repeat differs")
+        stats, loss, lse, dh, dw = runs[1]
+        del runs
+        tot, cnt, lse_p = linear_ce_fwd_ref(h, w, labels, vocab)
+        dh_p, dw_p = linear_ce_bwd_ref(h, w, labels, lse_p,
+                                       gt / torch.clamp(cnt, min=1.0), vocab)
+        check((dh.dtype == dt or ranks) and dw.dtype == dt and
+              dh.shape == h.shape and dw.shape == w.shape,
+              f"{what}: gradient dtype or shape")
+        check(float(stats[1]) == float(cnt), f"{what}: count")
+        check(not bool(dw[:, vocab:].any()), f"{what}: dW not 0 on the "
+              f"padded columns")
+        want = float(tot) / max(float(cnt), 1.0)
+        errs = (abs(float(loss) - want),
+                float((lse - lse_p).abs().max()),
+                float((dh.float() - dh_p.float()).abs().max()),
+                float((dw.float() - dw_p.float()).abs().max()))
+        if case == "all_unlabelled":
+            check(float(loss) == 0.0 and not bool(dh.any())
+                  and not bool(dw.any()), f"{what}: not all zeros")
+        else:
+            rel = 1e-5 if dtype == "float32" else 1e-4
+            tol = 1e-5 if dtype == "float32" else 2.0 ** -6
+            check(errs[0] <= rel * abs(want), f"{what}: loss {float(loss)} "
+                  f"vs {want}")
+            check(errs[1] <= rel * float(lse_p.abs().max()),
+                  f"{what}: lse off by {errs[1]:.3g}")
+            for e, ref, name in ((errs[2], dh_p, "dh"), (errs[3], dw_p, "dW")):
+                lim = tol * float(ref.float().abs().max())
+                check(e <= lim, f"{what}: {name} off by {e:.3g} (> {lim:.3g})")
+        if case == "train":
+            train_err = max(errs)
+        log("kernels_ce", f"{case} {dtype} N={N} d={d} V_pad={V} "
+            f"vocab={vocab} {'tied' if tied else 'untied'} g={g}"
+            f"{f' over {ranks} vocab shards' if ranks else ''}: "
+            f"{-(-N // plan.pass_rows)} pass(es) of {plan.pass_rows} rows, "
+            f"{plan.n_split} vocab splits, dh split {plan.dh_split}; loss "
+            f"{float(loss):.7g} vs plain {want:.7g}; abs errors loss "
+            f"{errs[0]:.3g}, lse {errs[1]:.3g}, dh {errs[2]:.3g} (max|dh| "
+            f"{float(dh_p.float().abs().max()):.3g}), dW {errs[3]:.3g} "
+            f"(max|dW| {float(dw_p.float().abs().max()):.3g}); repeat "
+            f"bit-identical")
+        del h, w, labels, dh, dw, dh_p, dw_p, lse_p
+        gc.collect()
+        torch.cuda.empty_cache()
+    for c, n in zip(counters, saved):
+        c.launches = n
+    log("kernels_ce", f"{len(cases)} cases in {time.perf_counter() - t0:.1f} "
+        f"s")
+    return train_err
+
+
+def _b11_kind(name):
+    """B11's kernel behind a device event's name (K1, combine, K2, K3 dh,
+    K3 dW), or None."""
+    name = name.replace("(anonymous namespace)::", "")
+    if "lce_" not in name:
+        return None
+    if "combine" in name:
+        return "combine"
+    mode = name.split("kernel<", 1)[1][:8] if "kernel<" in name else ""
+    return {"0": "K1", "1": "K2"}.get(mode[:1]) or (
+        "K3 dW" if mode.startswith("2, true") else
+        "K3 dh" if mode.startswith("2, false") else "K3")
+
+
+def b11_split(fn, reps=3):
+    """Device ms a call of each of B11's kernels in ``fn`` (torch.profiler
+    over ``reps`` calls), or None where the profiler records none."""
+    import torch
+    from torch.autograd import DeviceType
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as tp:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ms = {}
+    for e in tp.events():
+        kind = _b11_kind(e.name) if e.device_type != DeviceType.CPU else None
+        if kind:
+            ms[kind] = ms.get(kind, 0.0) + e.time_range.elapsed_us() / 1e3
+    return {k: v / reps for k, v in sorted(ms.items())} or None
+
+
+#: kernel families of the [train] split, by device kernel name
+_FAMILIES = (("B11", ("lce_",)), ("B8", ("prefill_attn", "tile_map")),
+             ("products", ("gemm", "nvjet", "xmma", "cutlass", "sm90_")),
+             ("copies", ("Memcpy", "Memset")))
+
+
+def profile_train_step(step, state, batch, launches_before):
+    """One [train] step after the timed ones under torch.profiler, split by
+    range (the forward + backward, the gradient clip, AdamW's update: each
+    wrapped in a record_function range between device syncs, so a device
+    event belongs to the range its start falls in) and, inside the forward
+    + backward, by kernel family (products, B8, B11, copies, the rest).
+    Logs device ms a step by family, B11's share, and B11's launches the
+    profiler saw (K1 kernels) against the counter's."""
+    import torch
+    from torch.autograd import DeviceType
+    from repro_torch.kernels.linear_ce import ops as LO
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import steps as S
+    names = ("forward+backward", "clip", "AdamW")
+    orig = (S.value_and_grad, S.clip_by_global_norm, adamw.AdamW.update)
+
+    def ranged(name, fn):
+        def inner(*a, **k):
+            torch.cuda.synchronize()
+            with torch.profiler.record_function(f"train_split:{name}"):
+                out = fn(*a, **k)
+                torch.cuda.synchronize()
+            return out
+        return inner
+
+    S.value_and_grad, S.clip_by_global_norm, adamw.AdamW.update = (
+        ranged(n, f) for n, f in zip(names, orig))
+    n0 = LO.linear_ce_forward.launches
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as tp:
+            _, m = step(state, batch)
+            float(m["loss"])
+            torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        S.value_and_grad, S.clip_by_global_norm, adamw.AdamW.update = orig
+    counted = LO.linear_ce_forward.launches - n0
+    events = tp.events()
+    spans = {e.name.split(":", 1)[1]: (e.time_range.start, e.time_range.end)
+             for e in events if e.name.startswith("train_split:")
+             and e.device_type == DeviceType.CPU}
+    dev_ev = [e for e in events if e.device_type != DeviceType.CPU
+              and not e.name.startswith("train_split:")]
+    if not dev_ev or len(spans) != 3:
+        log("train", f"split of one step: not measured (torch.profiler saw "
+            f"{len(dev_ev)} device events, ranges {sorted(spans)}); B11 "
+            f"launches by the counter {counted}")
+        return None
+    ms = {k: 0.0 for k in ("B11", "B8", "products", "copies", "rest",
+                           "clip", "AdamW", "outside")}
+    b11 = {}
+    k1_seen = 0
+    for e in dev_ev:
+        t = e.time_range.elapsed_us() / 1e3
+        at = next((n for n, (a, b) in spans.items() if a <= e.time_range.start
+                   <= b), "outside")
+        if at in ("clip", "AdamW", "outside"):
+            ms[at] += t
+            continue
+        fam = next((f for f, keys in _FAMILIES
+                    if any(k in e.name for k in keys)), "rest")
+        ms[fam] += t
+        if fam == "B11":
+            kind = _b11_kind(e.name)
+            b11[kind] = b11.get(kind, 0.0) + t
+            k1_seen += kind == "K1"
+    total = sum(ms.values())
+    log("train", f"split of one step after the timed ones (torch.profiler, "
+        f"device syncs at the range boundaries; wall {wall:.3f} ms): device "
+        f"ms " + ", ".join(f"{k} {v:.4f}" for k, v in ms.items())
+        + f"; total {total:.4f}; B11 {ms['B11']:.4f} ms = "
+        f"{ms['B11'] / total:.1%} of the device time (by kernel: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in sorted(b11.items()))
+        + f"); B11 forward launches the profiler saw {k1_seen}, the "
+        f"counter's {counted}"
+        + ("" if k1_seen == counted else " (the profiler dropped events)"))
+    return dict(ms=ms, total=total, wall=wall, b11=b11, seen=k1_seen,
+                counted=counted)
+
+
+def ce_program_times(dev, calls):
+    """B11 (``chunked_cross_entropy`` on CUDA: forward plus backward) at
+    [train]'s shape (qwen3-4b: B = 4, S = 512, d = 2,560, V_pad = 153,600,
+    bf16 hiddens and head, chunk 256): device ms a call by CUDA-graph
+    replay and by CUDA events, by kernel (torch.profiler), against the
+    bound of its 6 B S d V FLOP at 989 TFLOP/s (forward 2, backward 4; K2's
+    recompute of the logits is the implementation's) and of its bytes; the
+    plain version (``linear_ce/ref.py``, float32 logits), the parent's
+    chunked program (``layers._chunked_cross_entropy`` on the same CUDA
+    tensors) and the library route (two calls: cuBLAS ``mm(out_dtype=
+    float32)`` over all rows, then ``F.cross_entropy``, forward and
+    backward) beside it, and each call's max_memory_allocated.  Returns the
+    kernels-line row (``calls``: B11's calls on [train])."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.linear_ce.ref import (linear_ce_bwd_ref,
+                                                   linear_ce_fwd_ref)
+    from repro_torch.models import layers as L
+    counters = _b11_counters()
+    saved = [c.launches for c in counters]
     cfg = _arch_cfg(TRAIN_ARCH)
     B, Sq, d, V = TRAIN_BATCH, TRAIN_SEQ, cfg.d_model, cfg.padded_vocab
+    vocab = cfg.vocab_size
     gen = torch.Generator(device=dev).manual_seed(0)
     h = torch.randn((B, Sq, d), generator=gen, device=dev).to(
         torch.bfloat16).requires_grad_(True)
     w = (torch.randn((d, V), generator=gen, device=dev) / d ** 0.5).to(
         torch.bfloat16).requires_grad_(True)
     labels = torch.as_tensor(np.random.default_rng(0).integers(
-        0, cfg.vocab_size, (B, Sq)), device=dev)
+        0, vocab, (B, Sq)), device=dev)
 
-    def fwd_bwd():
-        loss = chunked_cross_entropy(h, w, labels, cfg.vocab_size)
+    def fwd_bwd(fn=L.chunked_cross_entropy):
+        loss = fn(h, w, labels, vocab)
         return torch.autograd.grad(loss, (h, w))
 
-    torch.cuda.reset_peak_memory_stats()
-    ms = cuda_ms(fwd_bwd, 5, 2)
-    peak = torch.cuda.max_memory_allocated()
+    h2, lab2 = h.detach().reshape(B * Sq, d), labels.reshape(-1)
+
+    def plain():
+        tot, cnt, lse = linear_ce_fwd_ref(h2, w.detach(), lab2, vocab)
+        return linear_ce_bwd_ref(h2, w.detach(), lab2, lse,
+                                 1.0 / torch.clamp(cnt, min=1.0), vocab)
+
+    def library():
+        logits = L._MatmulF32.apply(h.reshape(B * Sq, d), w, False)
+        loss = F.cross_entropy(logits[:, :vocab], labels.reshape(-1),
+                               ignore_index=-1)
+        return torch.autograd.grad(loss, (h, w))
+
+    def peak(fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        fn()
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_allocated() - base
+
+    ms_graph = graph_ms(fwd_bwd, 3)
+    ms_events = cuda_ms(fwd_bwd, 5, 2)
+    kinds = b11_split(fwd_bwd)
+    split = ("not measured (no device events)" if kinds is None else
+             ", ".join(f"{k} {v:.4f} ms" for k, v in kinds.items()))
+    ms = ms_graph if ms_graph is not None else ms_events
+    plain_ms = _program_ms(plain)
+    chunked = lambda: fwd_bwd(L._chunked_cross_entropy)
+    chunked_ms = _program_ms(chunked)
+    lib_ms = _program_ms(library)
+    mem = {k: peak(f) for k, f in (("B11", fwd_bwd), ("chunked", chunked),
+                                   ("library", library), ("plain", plain))}
+    for c, n in zip(counters, saved):
+        c.launches = n
     nbytes = 2 * (h.numel() + w.numel()) * 2 + labels.numel() * 8
-    row = _program_row("chunked_cross_entropy (forward + backward)", ms,
-                       calls, nbytes, 6 * B * Sq * d * V, 989e12, None)
-    log("programs", f"chunked_cross_entropy at [B, S, d, V_pad] = "
-        f"{[B, Sq, d, V]}: max_memory_allocated {peak} B (the full logits "
-        f"would be {B * Sq * V * 4} B)")
-    return row
+    row = _program_row(
+        f"B11 linear_ce bf16 [B S, d, V_pad] = {[B * Sq, d, V]} (forward + "
+        f"backward; CUDA events {ms_events:.4f} ms, graph "
+        + ("not measured" if ms_graph is None else f"{ms_graph:.4f} ms")
+        + f"; by kernel: {split}; plain version {plain_ms:.4f} ms, the "
+        f"parent's chunked program {chunked_ms:.4f} ms, library route "
+        f"(two calls: mm(out_dtype=float32) + F.cross_entropy) "
+        f"{lib_ms:.4f} ms)", ms, calls, nbytes, 6 * B * Sq * d * V, 989e12,
+        None, "kernel B11")
+    log("programs", f"B11 at [B, S, d, V_pad] = {[B, Sq, d, V]}: "
+        f"max_memory_allocated above the inputs a call: "
+        + ", ".join(f"{k} {v} B" for k, v in mem.items())
+        + f" (the full float32 logits would be {B * Sq * V * 4} B)")
+    return _kernel_row("linear_ce", CE_SOURCE,
+                       "src/repro/models/layers.py:131", plain_ms, row)
 
 
 # ---------------------------------------------------------------------------
@@ -6006,7 +6451,7 @@ def phase_examples():
 
 
 TIMES = ("chain", "dense", "kbest", "gate", "attn", "plan", "ingest",
-         "serve", "prefill", "moe")
+         "serve", "prefill", "moe", "ce")
 
 
 def times_only(dev, which, counters) -> None:
@@ -6034,6 +6479,8 @@ def times_only(dev, which, counters) -> None:
         attn_program_times(_arch_cfg(MOE_ARCH, MOE_PERIODS), dev, None)
         attn_encode_times(dev, None)
         ssd_program_times(dev, None)
+    if "ce" in which:
+        ce_program_times(dev, None)
     if "moe" in which:
         import torch
         from repro_torch.models.moe import moe_init
@@ -6129,6 +6576,7 @@ def main(argv) -> int:
     rows += dense_rows
     err_serve = phase_kernels_serve(dev)
     err_prefill = phase_kernels_prefill(dev)
+    err_ce = phase_kernels_ce(dev)
     params, cfg, launches_s, serve = phase_serve(dev, counters)
     serve_rows = [gate_times(dev, err_serve["ee_gate"]),
                   attn_times(cfg, dev, err_serve["decode_attn"])]
@@ -6168,7 +6616,10 @@ def main(argv) -> int:
     walls["train"], t0 = time.perf_counter() - t0, time.perf_counter()
     launches_tp = phase_train_parity(dev)
     walls["train_parity"], t0 = time.perf_counter() - t0, time.perf_counter()
-    ce_program_times(dev, train_row["ce_calls"])
+    check(launches_tp["linear_ce_forward"] > 0, "linear_ce: no launch on "
+          "[train_parity]")
+    ce_row = ce_program_times(dev, train_row["b11_launches"])
+    ce_row["max_abs_err"] = err_ce
     walls["programs ce"], t0 = time.perf_counter() - t0, time.perf_counter()
     # the rest of the package: the dry run (sizing, specs, roofline,
     # report) and the four examples
@@ -6179,6 +6630,7 @@ def main(argv) -> int:
     # sharded execution over a DeviceMesh: B7 on each rank's heads
     torch.cuda.empty_cache()
     sharded_row = phase_sharded()
+    b11_sharded = sharded_row.pop("b11_launches")
     walls["sharded"] = time.perf_counter() - t0
     check(sharded_row["launches"] > 0, "decode_attn: no launch on [sharded]")
     rows.append(sharded_row)
@@ -6189,6 +6641,8 @@ def main(argv) -> int:
         row["max_abs_err"] = serve_moe["b10_err"]
         check(row["launches"] > 0, "moe_ffn: no launch on [serve_moe]")
     rows += serve_moe["b10_rows"]
+    # B11 at [train]'s call, with [train]'s calls
+    rows.append(ce_row)
     check(prefill["launches"]["moe_ffn"] > 0
           and launches_tp["moe_ffn"] > 0, "moe_ffn: no launch on [prefill] "
           "or [train_parity]")
@@ -6203,6 +6657,10 @@ def main(argv) -> int:
         f"[train_parity] {launches_tp['prefill_attn']} / "
         f"{launches_tp['ssd_scan']} / {launches_tp['moe_ffn']}; B10 on "
         f"[serve_moe]'s engine run and decode {launches_moe['moe_ffn']}")
+    log("order", f"B11 forward launches: [train] "
+        f"{train_row['b11_launches']} ({train_row['ce_calls']} a step), "
+        f"[train_parity] {launches_tp['linear_ce_forward']}, [sharded]'s "
+        f"sharded step {b11_sharded} (on the ranks' shards)")
     log("order", f"B6 launches on [branchy]: {launches_branchy}; phase "
         f"walls (s): " + ", ".join(f"[{k}] {v:.1f}" for k, v in walls.items())
         + f"; since the start {time.perf_counter() - T_START:.1f}")

@@ -29,8 +29,9 @@ BASE_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 #: ``-fmad=false`` keeps every add of the (min,+) kernels a plain IEEE add
 #: (no contraction), which their bit-exactness against the reference rests
 #: on, as the fused ingest's byte-equal signatures rest on its IEEE order.
-#: The exit gate, the attention kernels, the SSD scan and the MoE experts'
-#: kernel are held to a tolerance and keep the default contraction.
+#: The exit gate, the attention kernels, the SSD scan, the MoE experts'
+#: kernel and the training loss are held to a tolerance and keep the
+#: default contraction.
 #: ``-Xptxas -v`` puts the registers and shared memory of each kernel into
 #: the build log.
 EXACT_FLAGS = ("-fmad=false",)
@@ -88,6 +89,20 @@ SOURCES: Tuple[Source, ...] = (
     Source(Path("moe_ffn/csrc/moe_ffn.cu"), (),
            {name: [_PTR] * 9 + [_INT] * 7 + [_PTR]
             for name in ("moe_ffn_f32", "moe_ffn_bf16")}),
+    # the training loss B11: K1 + combine (h, w, labels, part, lse, stats,
+    # loss | N, d, V, vocab, col0, w stored [d, V], splits), the combine
+    # alone (part, labels, lse, stats, loss | N, splits), K2 (h, w, labels,
+    # lse, scale, dl | N, d, V, vocab, col0, w stored [d, V]) and K3 (a, b,
+    # c_in, out, work, sem | M, N, K, a stored [K][M], b stored [K][N],
+    # split, float32 out) | stream
+    Source(Path("linear_ce/csrc/linear_ce.cu"), (),
+           {**{f"linear_ce_fwd_{t}": [_PTR] * 7 + [_INT] * 7 + [_PTR]
+               for t in ("f32", "bf16")},
+            "linear_ce_combine": [_PTR] * 5 + [_INT] * 2 + [_PTR],
+            **{f"linear_ce_dlogits_{t}": [_PTR] * 6 + [_INT] * 6 + [_PTR]
+               for t in ("f32", "bf16")},
+            **{f"linear_ce_gemm_{t}": [_PTR] * 6 + [_INT] * 7 + [_PTR]
+               for t in ("f32", "bf16")}}),
     # vec, bits, C, mask, load, out | Us, K2, N, M, mode0, mode1, gamma |
     # delta | stream; and its fast-path divide: a, b, q | n | stream
     Source(Path("ee_gate/csrc/quant_signature.cu"), EXACT_FLAGS,

@@ -13,23 +13,23 @@ where the reference keeps the float32 result (the SwiGLU gate and up
 products, the LM heads' logits) the port asks for a float32 output
 (``matmul_f32``).  ``rmsnorm`` and ``apply_rope`` run in float32 and cast
 back.  ``cross_entropy`` and ``chunked_cross_entropy`` are the training
-losses; the second never holds the full sequence's logits.
+losses; the second never holds the full sequence's logits (on CUDA it
+runs the hand-written kernel B11, ``kernels/linear_ce``).
 """
 from __future__ import annotations
 
 import contextlib
 import math
-from typing import Dict, Tuple
+from typing import Callable, Dict, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from torch.distributed.tensor import Replicate
+from torch.distributed.tensor import Partial, Replicate, Shard
 
 from ..sharding.dtensor import (is_dtensor, local_offsets, product_local,
-                                replicated, settle, shard_local,
-                                sharded_only_on)
+                                replicated, settle)
 
 F32 = torch.float32
 
@@ -304,42 +304,13 @@ def _ce_chunk(h: torch.Tensor, head_w: torch.Tensor, labels: torch.Tensor,
     V = logits.shape[-1]
     if V != vocab_size:
         pad = torch.arange(V, device=logits.device) >= vocab_size
-        logits = logits.masked_fill(replicated(pad, logits), -1e30)
+        logits = logits.masked_fill(pad, -1e30)
     with torch.no_grad():                       # the reference's stop_gradient
         m = logits.max(dim=-1).values
     lse = m + torch.log(torch.exp(logits - m[..., None]).sum(dim=-1))
-    gold = _gold(logits, labels.clamp_min(0))
+    gold = torch.gather(logits, -1, labels.clamp_min(0)[..., None])[..., 0]
     valid = (labels >= 0).to(F32)
     return ((lse - gold) * valid).sum(), valid.sum()
-
-
-def _gold(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """``logits[..., labels]``.  On DTensors each rank gathers from its
-    own vocabulary columns (a label outside them gives 0) and the shares
-    are summed (as are a partial sum's)."""
-    if not is_dtensor(logits):
-        return torch.gather(logits, -1, labels[..., None])[..., 0]
-    from torch.distributed.tensor import Partial
-    from torch.distributed.tensor.experimental import local_map
-    last = logits.dim() - 1
-    lo = local_offsets(logits)[last]
-    split = [p.is_shard(last) or p.is_partial() for p in logits.placements]
-    out = tuple(Partial() if s else p
-                for s, p in zip(split, logits.placements))
-    lab = tuple(Replicate() if s else p
-                for s, p in zip(split, logits.placements))
-
-    def local(lg, lb):
-        mine = (lb >= lo) & (lb < lo + lg.shape[-1])
-        idx = torch.where(mine, lb - lo, torch.zeros_like(lb))
-        g = torch.gather(lg, -1, idx[..., None])[..., 0]
-        return torch.where(mine, g, torch.zeros_like(g))
-
-    return settle(local_map(local, out_placements=(out,),
-                            in_placements=(logits.placements, lab),
-                            in_grad_placements=(logits.placements, lab),
-                            device_mesh=logits.device_mesh,
-                            redistribute_inputs=True)(logits, labels))
 
 
 def chunked_cross_entropy(h: torch.Tensor, head_w: torch.Tensor,
@@ -348,22 +319,112 @@ def chunked_cross_entropy(h: torch.Tensor, head_w: torch.Tensor,
     """Mean CE without materializing full-sequence logits.
 
     ``h``: pre-head hidden states [B, S, d]; ``head_w``: [d, V_pad];
-    labels [B, S] (-1: no label).  The sequence is cut into chunks (h
-    padded with zeros and the labels with -1 to a multiple of ``chunk``);
-    each chunk's float32 logits [B, chunk, V_pad] live only inside its
-    body, which runs under ``torch.utils.checkpoint`` (the reference's
-    ``jax.checkpoint`` over a scan) and is recomputed in the backward.
-    The gold logit is gathered, which selects the same float as the
-    reference's one-hot contraction.
+    labels [B, S] (-1: no label).
+
+    On CUDA plain tensors the whole [B * S] rows go to the hand-written
+    kernel B11 (``kernels.linear_ce.linear_ce``), which never holds the
+    float32 logits; ``chunk`` then only caps its backward's dlogits a pass
+    at the chunked program's float32 chunk logits (B * chunk * V_pad * 4
+    bytes).  On DTensors B11 runs on each rank's shards
+    (``_linear_ce_local``), and on the CPU its wrappers' plain versions.
+    Plain CPU tensors take the chunked program (``_chunked_cross_entropy``),
+    the reference's own.
     """
-    # a sequence-parallel h is gathered first: the chunks cut the sequence
-    h, labels = (sharded_only_on(t, 0) for t in (h, labels))
+    if any(is_dtensor(t) for t in (h, head_w, labels)):
+        return _linear_ce_local(h, head_w, labels, vocab_size, chunk)
+    if h.is_cuda:
+        # imported here: the kernel's module imports this one
+        from ..kernels.linear_ce.ops import linear_ce
+        B, S, d = h.shape
+        return linear_ce(h.reshape(B * S, d), head_w, labels.reshape(B * S),
+                         vocab_size, B * chunk * head_w.shape[-1] * 4)
+    return _chunked_cross_entropy(h, head_w, labels, vocab_size, chunk=chunk)
+
+
+def _all_gather(group) -> Callable[[torch.Tensor], torch.Tensor]:
+    """K1's partials [3, n_split, N] -> every rank's of ``group``, [3,
+    ranks * n_split, N] in rank order."""
+    import torch.distributed as dist
+
+    def gather(part: torch.Tensor) -> torch.Tensor:
+        parts = [torch.empty_like(part)
+                 for _ in range(dist.get_world_size(group))]
+        dist.all_gather(parts, part.contiguous(), group=group)
+        return torch.cat(parts, dim=1)
+
+    return gather
+
+
+def _linear_ce_local(h: torch.Tensor, head_w: torch.Tensor,
+                     labels: torch.Tensor, vocab_size: int,
+                     chunk: int) -> torch.Tensor:
+    """``chunked_cross_entropy`` over DTensors: B11 (``LinearCE``) on each
+    rank's shards through ``local_map``, one mesh dimension at a time.
+    Where the head's vocabulary is sharded (and the batch is not) each rank
+    takes its columns for all the rows: K1's partials are gathered over the
+    dimension and combined, so every rank has the whole lse, and dh is a
+    partial sum.  Where the rows (batch or sequence) are sharded each rank
+    takes its rows and the gathered head: the loss sum, the count and dW
+    are partial sums.  Else everything is replicated."""
+    from torch.distributed.tensor.experimental import local_map
+    from ..kernels.linear_ce.ops import LinearCE
+    h, head_w, labels = (replicated(t, h if is_dtensor(h) else head_w)
+                         for t in (h, head_w, labels))
+    mesh = h.device_mesh
+    R, P = Replicate(), Partial()
+    place, grad, out = [[], [], []], [[], [], []], []
+    vocab_dim = None
+    for i in range(mesh.ndim):
+        ph, pw = h.placements[i], head_w.placements[i]
+        if (pw.is_shard(1) and not ph.is_shard(0) and mesh.size(i) > 1
+                and vocab_dim is None):
+            vocab_dim = i
+            p, g, o = [R, pw, R], [P, pw, R], R
+        elif ph.is_shard(0) or ph.is_shard(1):
+            rows = Shard(ph.dim)
+            p, g, o = [rows, R, rows], [rows, P, rows], P
+        else:
+            p, g, o = [R] * 3, [R] * 3, R
+        for k in range(3):
+            place[k].append(p[k])
+            grad[k].append(g[k])
+        out.append(o)
+    col0, gather = None, None
+    if vocab_dim is not None:
+        col0 = local_offsets(head_w, place[1])[1]
+        gather = _all_gather(mesh.get_group(vocab_dim))
+
+    def local(hl, wl, ll):
+        B, S, d = hl.shape
+        return LinearCE.apply(hl.reshape(B * S, d).contiguous(), wl,
+                              ll.reshape(B * S).long().contiguous(),
+                              vocab_size, B * chunk * wl.shape[-1] * 4,
+                              col0, gather)
+
+    tot, cnt = local_map(local, out_placements=(tuple(out), tuple(out)),
+                         in_placements=tuple(tuple(p) for p in place),
+                         in_grad_placements=tuple(tuple(g) for g in grad),
+                         device_mesh=mesh, redistribute_inputs=True)(
+        h, head_w, labels)
+    return settle(tot) / torch.clamp(settle(cnt), min=1.0)
+
+
+def _chunked_cross_entropy(h: torch.Tensor, head_w: torch.Tensor,
+                           labels: torch.Tensor, vocab_size: int,
+                           *, chunk: int = 256) -> torch.Tensor:
+    """The reference's chunked program on plain tensors: the sequence is
+    cut into chunks (h padded with zeros and the labels with -1 to a
+    multiple of ``chunk``); each chunk's float32 logits [B, chunk, V_pad]
+    live only inside its body, which runs under ``torch.utils.checkpoint``
+    (the reference's ``jax.checkpoint`` over a scan) and is recomputed in
+    the backward.  The gold logit is gathered, which selects the same float
+    as the reference's one-hot contraction."""
     B, S, _ = h.shape
     labels = labels.long()
     if S % chunk:
         pad = chunk - S % chunk
-        h = shard_local(F.pad, h, (0, 0, 0, pad))
-        labels = shard_local(F.pad, labels, (0, pad), "constant", -1)
+        h = F.pad(h, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad), "constant", -1)
     tot = torch.zeros((), dtype=F32, device=h.device)
     cnt = torch.zeros((), dtype=F32, device=h.device)
     for hc, lc in zip(h.split(chunk, dim=1), labels.split(chunk, dim=1)):

@@ -41,28 +41,6 @@ def settle(x: torch.Tensor) -> torch.Tensor:
                                           else p for p in x.placements])
 
 
-def sharded_only_on(x: torch.Tensor, *dims: int) -> torch.Tensor:
-    """``x`` with every placement but a shard of one of ``dims`` made
-    replicated (partial sums reduced, other shards gathered)."""
-    if not is_dtensor(x):
-        return x
-    want = [p if any(p.is_shard(d) for d in dims) else Replicate()
-            for p in x.placements]
-    if want == list(x.placements):
-        return x
-    return x.redistribute(x.device_mesh, want)
-
-
-def shard_local(fn, x: torch.Tensor, *args) -> torch.Tensor:
-    """``fn(x, *args)`` for a function that acts along dimensions ``x`` is
-    not sharded on (a pad, a gather along a replicated axis): on a DTensor
-    it runs on the local shard and keeps the placements."""
-    if not is_dtensor(x):
-        return fn(x, *args)
-    return DTensor.from_local(fn(x.to_local(), *args), x.device_mesh,
-                              x.placements, run_check=False)
-
-
 def replicated(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     """``t`` (the same on every rank) as a replicated DTensor on ``like``'s
     mesh when ``like`` is a DTensor; ``t`` itself otherwise."""

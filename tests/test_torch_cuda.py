@@ -27,7 +27,15 @@ ragged keys, -1 slots, masked leading tiles and dead rows; the SSD scan
 largest y in bf16, with ragged chunks.  The MoE experts' kernel (B10)
 holds 1e-5 of the largest output in float32 and 2^-6 in bf16, in both
 regimes, with dead slots, a dead expert (NaN weights it must not read) and
-every slot valid, and gives the same bits on a repeat call.  The serving
+every slot valid, and gives the same bits on a repeat call.  The training
+loss (B11) holds its loss and lse to a relative 1e-5 in float32 and 1e-4
+in bf16, dh and dW to 1e-5 and 2^-6 of their largest magnitude, with
+ragged rows, -1 labels, a padded vocab tail, the tied head and several
+backward passes, and gives the same bits on a repeat; so does a head split
+over vocab shards (dh the sum of the ranks' shares).  In bf16 its
+gradients of ``loss_fn`` are held to a float32-cotangent loss (2^-6 of
+each leaf's largest), as far from it as the chunked program's, and to
+the chunked program's (2^-7).  The serving
 engine on CUDA, in float32, must serve the tokens its CPU path serves.
 """
 import dataclasses
@@ -1521,3 +1529,294 @@ def test_moe_paths_launch_b10_on_card(cuda_device, arch):
         grads.append(torch.autograd.grad(logits.float().square().mean(),
                                          leaf)[0].cpu())
     torch.testing.assert_close(grads[0], grads[1], rtol=1e-4, atol=1e-4)
+
+
+# (case, N, d, V_pad, vocab, tied, g, dl rows a pass or None for one pass):
+# ragged rows (no multiple of 128), -1 labels, every label -1, a padded
+# tail no multiple of 256, a label in the last live column, the tied
+# table.T head, g != 1, several backward passes (dW summed across them)
+CE_CASES = [("ragged", 70, 64, 2048, 2048, False, 1.0, None),
+            ("unlabelled", 300, 128, 1000, 999, False, 1.0, None),
+            ("all_unlabelled", 130, 64, 512, 500, False, 1.0, None),
+            ("padded", 257, 64, 1000, 990, False, 1.0, None),
+            ("last_live", 129, 64, 768, 700, False, 1.0, None),
+            ("tied", 200, 96, 1536, 1500, True, 1.0, None),
+            ("g", 96, 64, 1024, 1000, False, -2.5, None),
+            ("passes", 600, 64, 1024, 1000, False, 0.5, 256),
+            ("passes_tied", 600, 64, 1024, 1000, True, 0.5, 128)]
+
+
+def _ce_inputs(case, N, d, V, vocab, tied, dtype, device, seed):
+    """Seeded h [N, d], head [d, V] (a table's transpose if tied) and
+    labels [N] int64 for B11's cases."""
+    rng = np.random.default_rng(seed)
+    f = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)
+    h = f(rng.normal(size=(N, d))).to(dtype)
+    w = (f(rng.normal(size=(d, V))) * (3 / d ** 0.5)).to(dtype)
+    if tied:
+        w = w.T.contiguous().T
+    labels = rng.integers(0, vocab, N)
+    if case == "unlabelled":
+        labels[rng.uniform(size=N) < 0.3] = -1
+    if case == "all_unlabelled":
+        labels[:] = -1
+    labels[0] = -1 if case == "all_unlabelled" else vocab - 1
+    return h, w, torch.as_tensor(labels, dtype=torch.int64, device=device)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case,N,d,V,vocab,tied,g,rows", CE_CASES)
+def test_linear_ce_kernels_match_plain_on_card(cuda_device, case, N, d, V,
+                                               vocab, tied, g, rows, dtype):
+    """B11's forward (K1 + combine) and backward (K2, K3 for dh and dW, a
+    pass of rows at a time) against the plain version on the card: the
+    loss and lse within a relative 1e-5 (float32) / 1e-4 (bf16), dh and dW
+    within 1e-5 / 2^-6 of their largest magnitude, dW exactly 0 on the
+    padded columns, and the same bits on a repeat."""
+    from repro_torch.kernels.linear_ce import ops as LO
+    from repro_torch.kernels.linear_ce.ref import (linear_ce_bwd_ref,
+                                                   linear_ce_fwd_ref)
+    h, w, labels = _ce_inputs(case, N, d, V, vocab, tied, dtype, cuda_device,
+                              N + V)
+    elem = 4 if dtype == torch.float32 else 2
+    plan = LO.plan_for(h, w, (rows or N) * V * elem)
+    assert plan.pass_rows == (rows or N)
+    gt = torch.full((), g, device=cuda_device)
+    counts = [c.launches for c in (LO.linear_ce_forward, LO.linear_ce_dlogits,
+                                   LO.linear_ce_gemm)]
+    runs = []
+    for _ in range(2):
+        stats, loss, lse = LO.linear_ce_forward(h, w, labels, vocab, plan)
+        scale = gt / torch.clamp(stats[1], min=1.0)
+        dh, dw = LO._backward(h, w, labels, lse, scale, vocab, plan,
+                              True, True)
+        runs.append((stats, loss, lse, dh, dw))
+    torch.cuda.synchronize()
+    passes = -(-N // plan.pass_rows)
+    assert [c.launches for c in (LO.linear_ce_forward, LO.linear_ce_dlogits,
+                                 LO.linear_ce_gemm)] == [
+        counts[0] + 2, counts[1] + 2 * passes, counts[2] + 4 * passes]
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    stats, loss, lse, dh, dw = runs[0]
+    tot, cnt, lse_p = linear_ce_fwd_ref(h, w, labels, vocab)
+    dh_p, dw_p = linear_ce_bwd_ref(h, w, labels, lse_p,
+                                   gt / torch.clamp(cnt, min=1.0), vocab)
+    assert dh.dtype == h.dtype and dw.dtype == w.dtype
+    assert dh.shape == h.shape and dw.shape == w.shape
+    assert float(stats[1]) == float(cnt)
+    assert not bool(dw[:, vocab:].any())
+    if case == "all_unlabelled":
+        assert float(loss) == 0.0 and not bool(dh.any())
+        assert not bool(dw.any())
+        return
+    rel = 1e-5 if dtype == torch.float32 else 1e-4
+    want = float(tot) / max(float(cnt), 1.0)
+    assert abs(float(loss) - want) <= rel * abs(want)
+    assert float((lse - lse_p).abs().max()) <= rel * float(lse_p.abs().max())
+    tol = 1e-5 if dtype == torch.float32 else 2.0 ** -6
+    for got, ref in ((dh, dh_p), (dw, dw_p)):
+        e = float((got.float() - ref.float()).abs().max())
+        assert e <= tol * float(ref.float().abs().max())
+
+
+# (N, d, V_pad, vocab, tied, ranks): the last of 4 ranks all padding, the
+# tied head over 2
+CE_SHARD_CASES = [(300, 128, 1024, 700, False, 4),
+                  (257, 64, 2048, 2000, True, 2)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N,d,V,vocab,tied,ranks", CE_SHARD_CASES)
+def test_linear_ce_vocab_shards_on_card(cuda_device, N, d, V, vocab, tied,
+                                        ranks, dtype):
+    """B11 on a head split over ``ranks`` vocab shards, the ranks one
+    after another on the card: each rank's K1 partials gathered, the
+    combine over all of them, K2 and K3 on its columns from ``col0``.  The
+    loss and lse equal the whole head's plain version within a relative
+    1e-5 / 1e-4, dh (the ranks' shares summed) and dW within 1e-5 / 2^-6
+    of their largest, and dW's padded columns are exactly 0."""
+    from repro_torch.kernels.linear_ce import ops as LO
+    from repro_torch.kernels.linear_ce.ref import (linear_ce_bwd_ref,
+                                                   linear_ce_fwd_ref)
+    h, w, labels = _ce_inputs("shards", N, d, V, vocab, tied, dtype,
+                              cuda_device, N + V)
+    width = V // ranks
+    labels[1:ranks + 1] = torch.arange(ranks, device=cuda_device) * width
+    labels.clamp_(max=vocab - 1)
+    cols = [(r * width, w[:, r * width:(r + 1) * width])
+            for r in range(ranks)]
+    cols = [(c, x if LO._stored(x) else x.contiguous()) for c, x in cols]
+    parts = []
+    for col0, wr in cols:
+        LO.linear_ce_forward(h, wr, labels, vocab, col0=col0,
+                             gather=lambda p: parts.append(p) or p)
+    fwd = [LO.linear_ce_forward(h, wr, labels, vocab, col0=col0,
+                                gather=lambda p: torch.cat(parts, dim=1))
+           for col0, wr in cols]
+    for f in fwd[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(f, fwd[0]))
+    stats, loss, lse = fwd[0]
+    scale = torch.full((), -1.5, device=cuda_device) / stats[1]
+    dh = torch.zeros(h.shape, device=cuda_device)
+    dws = []
+    for col0, wr in cols:
+        plan = LO.plan_for(h, wr, N * width * 4)
+        dhr, dwr = LO._backward(h, wr, labels, lse, scale, vocab, plan,
+                                True, True, col0)
+        dh += dhr.float()
+        dws.append(dwr)
+    dw = torch.cat(dws, dim=1)
+    tot, cnt, lse_p = linear_ce_fwd_ref(h, w, labels, vocab)
+    dh_p, dw_p = linear_ce_bwd_ref(h, w, labels, lse_p, -1.5 / cnt, vocab)
+    rel = 1e-5 if dtype == torch.float32 else 1e-4
+    assert float(stats[1]) == float(cnt)
+    assert abs(float(loss) - float(tot / cnt)) <= rel * abs(float(tot / cnt))
+    assert float((lse - lse_p).abs().max()) <= rel * float(lse_p.abs().max())
+    tol = 1e-5 if dtype == torch.float32 else 2.0 ** -6
+    for got, ref in ((dh, dh_p), (dw, dw_p)):
+        e = float((got.float() - ref.float()).abs().max())
+        assert e <= tol * float(ref.float().abs().max())
+    assert not bool(dw[:, vocab:].any())
+
+
+#: B11's bf16 loss_fn gradients: the largest leaf error relative to the
+#: leaf's largest |gradient|, against a float32-cotangent loss and against
+#: the chunked program (read on the card at 0.0117 and 0.0049, PERF.md)
+CE_BF16_GRAD_TOL = 2.0 ** -6
+CE_BF16_VS_CHUNKED_TOL = 2.0 ** -7
+
+
+def _f32_cotangent_ce(h, head_w, labels, vocab_size, *, chunk=256):
+    """The loss with float32 logits whose cotangent is never rounded: the
+    head's products run in float32 under autograd (no TF32), and only
+    their gradients are rounded to bf16, once, at the casts."""
+    from repro_torch.models.layers import no_tf32
+    with no_tf32():
+        logits = h.float() @ head_w.float()
+    logits = logits.masked_fill(
+        torch.arange(logits.shape[-1], device=h.device) >= vocab_size, -1e30)
+    m = logits.max(dim=-1).values.detach()
+    lse = m + torch.log(torch.exp(logits - m[..., None]).sum(dim=-1))
+    labels = labels.long()
+    gold = torch.gather(logits, -1, labels.clamp_min(0)[..., None])[..., 0]
+    valid = (labels >= 0).float()
+    return ((lse - gold) * valid).sum() / torch.clamp(valid.sum(), min=1.0)
+
+
+def _named_leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree)
+                for x in _named_leaves(tree[k], f"{prefix}/{k}")]
+    return [(prefix, tree)]
+
+
+@pytest.mark.parametrize("arch", ["qwen3-4b", "mamba2-1.3b"])
+def test_b11_bf16_gradients_against_a_float32_cotangent(cuda_device, arch,
+                                                        monkeypatch):
+    """loss_fn of the reduced models in bf16 on the card, every parameter's
+    gradient three ways on the same tensors: B11 (dl rounded to bf16, dW
+    one float32 sum over all rows), the chunked program
+    (``_chunked_cross_entropy``: dl rounded to bf16 too, each chunk's
+    products rounded to bf16 and summed in bf16, 2 chunks) and a
+    float32-cotangent loss (``_f32_cotangent_ce``).  Against the last,
+    B11's worst leaf is within CE_BF16_GRAD_TOL of the leaf's largest
+    |gradient| and within 2^-4 (relative) of the chunked program's worst:
+    B11 adds no error of its own.  Against the chunked program, every leaf
+    within CE_BF16_VS_CHUNKED_TOL.  Run with ``-s`` it prints the
+    readings."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as TT
+    cfg = dataclasses.replace(get(arch, reduced=True), dtype="bfloat16")
+    params = TT.init_model(cfg, seed=2, device=cuda_device)
+    names, leaves = zip(*_named_leaves(params))
+    rng = np.random.default_rng(9)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 64)))
+             .to(cuda_device) for k in ("tokens", "labels")}
+    batch["labels"][:, -3:] = -1
+    grads = {}
+    for name, ce in (("b11", L.chunked_cross_entropy),
+                     ("chunked", L._chunked_cross_entropy),
+                     ("f32", _f32_cotangent_ce)):
+        monkeypatch.setattr(TT, "chunked_cross_entropy", ce)
+        for x in leaves:
+            x.requires_grad_(True)
+        loss = TT.loss_fn(params, cfg, batch, ce_chunk=32)
+        grads[name] = [g.float() for g in torch.autograd.grad(loss, leaves)]
+        for x in leaves:
+            x.requires_grad_(False)
+
+    def errs(a, c):
+        return [float((x - y).abs().max()) / max(float(y.abs().max()), 1e-30)
+                for x, y in zip(grads[a], grads[c])]
+
+    e_b, e_c, e_bc = (errs("b11", "f32"), errs("chunked", "f32"),
+                      errs("b11", "chunked"))
+    for i in sorted(range(len(names)), key=lambda i: -e_b[i])[:4] + [
+            i for i, n in enumerate(names) if "head" in n or "table" in n]:
+        print(f"{arch} {names[i]}: against the float32 cotangent B11 "
+              f"{e_b[i]:.4g}, chunked {e_c[i]:.4g}; B11 against chunked "
+              f"{e_bc[i]:.4g}")
+    print(f"{arch}: worst leaf B11 {max(e_b):.4g}, chunked {max(e_c):.4g};"
+          f" mean over leaves B11 {sum(e_b) / len(e_b):.4g}, chunked "
+          f"{sum(e_c) / len(e_c):.4g}")
+    assert max(e_b) <= CE_BF16_GRAD_TOL
+    assert max(e_b) <= max(e_c) * (1 + 2.0 ** -4)
+    assert max(e_bc) <= CE_BF16_VS_CHUNKED_TOL
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", ["qwen3-4b", "mamba2-1.3b"])
+def test_loss_fn_launches_b11_on_card(cuda_device, arch, dtype):
+    """loss_fn of the reduced models on CUDA runs B11 once a head (the
+    final head and the exits'; mamba2's head is the tied table.T) and its
+    loss equals the CPU path's (float32 within 1e-5, bf16 within 1e-2),
+    and in float32 so does its embedding gradient (within 1e-4; in bf16
+    the CUDA backward rounds the logits' cotangent to bf16, the CPU path
+    multiplies it in float32, and the difference grows through the
+    model)."""
+    from repro_torch.kernels.linear_ce import ops as LO
+    from repro_torch.models import transformer as TT
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get(arch, reduced=True), dtype=dtype)
+    params = TT.init_model(cfg, seed=2, device=cuda_device)
+    rng = np.random.default_rng(9)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 40)))
+             for k in ("tokens", "labels")}
+    batch["labels"][:, -3:] = -1
+    out = []
+    for where, p in ((cuda_device, params),
+                     ("cpu", TT.tree_to(params, "cpu"))):
+        n = LO.linear_ce_forward.launches
+        leaf = p["embed"]["table"].detach().clone().requires_grad_(True)
+        loss = TT.loss_fn(dict(p, embed={"table": leaf}), cfg,
+                          {k: v.to(where) for k, v in batch.items()})
+        grad = torch.autograd.grad(loss, leaf)[0]
+        out.append((float(loss.detach()), grad.float().cpu(),
+                    LO.linear_ce_forward.launches - n))
+    assert out[0][2] == 1 + len(cfg.exit_layer_list) and out[1][2] == 0
+    assert bool(torch.isfinite(out[0][1]).all())
+    assert abs(out[0][0] - out[1][0]) <= (
+        1e-5 if dtype == "float32" else 1e-2) * abs(out[1][0])
+    if dtype == "float32":
+        e = float((out[0][1] - out[1][1]).abs().max())
+        assert e <= 1e-4 * float(out[1][1].abs().max())
+
+
+def test_linear_ce_wrappers_refuse_what_they_cannot_take(cuda_device):
+    from repro_torch.kernels.linear_ce import ops as LO
+    h, w, labels = _ce_inputs("ragged", 64, 64, 512, 512, False,
+                              torch.bfloat16, cuda_device, 0)
+    counts = [c.launches for c in (LO.linear_ce_forward, LO.linear_ce_gemm)]
+    with pytest.raises(ValueError, match="multiples of 8"):
+        LO.linear_ce_forward(h[:, :60].contiguous(), w[:60], labels, 512)
+    with pytest.raises(ValueError, match="one device"):
+        LO.linear_ce_forward(h, w, labels.cpu(), 512)
+    with pytest.raises(ValueError, match="stored"):
+        LO.linear_ce_forward(h, w[:, ::2], labels, 256)
+    with pytest.raises(ValueError, match="needs b stored"):
+        LO.linear_ce_gemm(h.t(), torch.zeros_like(h).t())
+    with pytest.raises(ValueError, match="split"):
+        LO.linear_ce_gemm(h, w, split=9)
+    assert [c.launches for c in (LO.linear_ce_forward,
+                                 LO.linear_ce_gemm)] == counts

@@ -26,6 +26,14 @@ counterpart of ``tests/test_sharding.py`` (the reference's
     kept on one side and dropped on the other;
   - in bfloat16, ``loss_fn`` of the five within the reference's rtol 5e-3
     (mixtral and jamba at their own capacity);
+  - ``chunked_cross_entropy`` on DTensors (B11's ``LinearCE`` on each
+    rank's shards through ``local_map``, the wrappers' plain versions on
+    the CPU) equals it on the whole tensors in float32, value and the
+    gradients of h and the head within RTOL: a vocab-parallel head
+    (K1's partials gathered over "model"), a sequence-parallel h beside an
+    FSDP head, the tied table's transpose, rows sharded on both axes (the
+    head gathered), and a vocabulary whose last "model" shard is all
+    padding;
   - ``seq_parallel`` under ``remat="full"``: the backward runs on another
     thread, as autograd's CUDA device thread does; the recompute must
     redistribute as the forward did (the context is thread-local), and the
@@ -358,8 +366,62 @@ def check_decode(dm, arch):
             f"one step apart: {flips}")
 
 
+#: (h's placements, the head's, vocab): on the (data, model) mesh
+CE_CASES = {"vocab": ("S0 R", "R S1", 250),
+            "fsdp_seq": ("S0 S1", "S0 S1", 250),
+            "tied": ("S0 R", "tied", 250),
+            "rows": ("S0 S0", "S1 S1", 250),
+            "dead_shard": ("S0 R", "R S1", 150)}
+
+
+def check_linear_ce_dtensor(dm, case):
+    """chunked_cross_entropy over DTensors (B11 on the ranks' shards)
+    against chunked_cross_entropy's B11 route on the whole tensors
+    (``linear_ce``, the plain versions here)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from repro_torch.kernels.linear_ce.ops import linear_ce
+    from repro_torch.models import layers as L
+    hp, wp, vocab = CE_CASES[case]
+    B, S, d, V = 4, 12, 32, 256
+    rng = np.random.default_rng(11)
+    h = torch.from_numpy(rng.normal(size=(B, S, d)).astype(np.float32))
+    w = torch.from_numpy((rng.normal(size=(d, V)) / 3).astype(np.float32))
+    labels = torch.from_numpy(rng.integers(-1, vocab, (B, S)))
+    labels[0, :4] = torch.tensor([0, 64, 128, vocab - 1])
+    pl = lambda spec: [Replicate() if x == "R" else Shard(int(x[1]))
+                       for x in spec.split()]
+
+    def place(t, spec):
+        return DTensor.from_local(t, dm, [Replicate()] * 2).redistribute(
+            dm, pl(spec))
+
+    hd = place(h, hp).detach().requires_grad_(True)
+    if wp == "tied":
+        table = place(w.T.contiguous(), "S1 S0").detach().requires_grad_(True)
+        wd, leaf = table.T, table
+    else:
+        wd = leaf = place(w, wp).detach().requires_grad_(True)
+    ld = place(labels, hp.split()[0] + " R")
+    got = L.chunked_cross_entropy(hd, wd, ld, vocab, chunk=8)
+    gh, gw = torch.autograd.grad(got, (hd, leaf))
+    if wp == "tied":
+        gw = gw.full_tensor().T
+    hw = h.clone().requires_grad_(True)
+    ww = w.clone().requires_grad_(True)
+    want = linear_ce(hw.reshape(B * S, d), ww, labels.reshape(-1), vocab,
+                     1 << 20)
+    gh_w, gw_w = torch.autograd.grad(want, (hw, ww))
+    _close(got, want.detach(), "loss")
+    _close(gh, gh_w, "dh")
+    _close(gw, gw_w, "dW")
+    assert not bool(_full(gw)[:, vocab:].any()), "dW's padded columns"
+    return f"loss {float(want):.6f}"
+
+
 CHECKS = ([(f"train_f32[{a}]", check_train_f32, (a,)) for a in ARCHS]
           + [(f"loss_bf16[{a}]", check_loss_bf16, (a,)) for a in ARCHS]
+          + [(f"linear_ce[{c}]", check_linear_ce_dtensor, (c,))
+             for c in CE_CASES]
           + [("seq_parallel_remat", check_seq_parallel_remat, ())]
           + [(f"decode[{a}]", check_decode, (a,)) for a in DECODE_ARCHS])
 
@@ -662,6 +724,11 @@ def test_sharded_train_step_equals_unsharded(spawn, arch):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_sharded_bf16_loss_equals_unsharded(spawn, arch):
     _result(spawn, f"loss_bf16[{arch}]")
+
+
+@pytest.mark.parametrize("case", list(CE_CASES))
+def test_linear_ce_on_dtensors_equals_whole(spawn, case):
+    _result(spawn, f"linear_ce[{case}]")
 
 
 def test_seq_parallel_remat_backward_on_another_thread(spawn):
