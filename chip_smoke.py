@@ -6,9 +6,10 @@ It builds every hand-written kernel of ``src/repro_torch`` (the banded
 (min,+) argmin chain B1 and k-slot chain B3, the dense (min,+) products B5
 and B4, the exit gate B6, the flash-decode attention B7, the population
 tick's fused ingest B2, the flash-prefill attention B8, the SSD chunked
-scan B9, the MoE experts' SwiGLU B10 and the training loss B11; one
-``nvcc`` per source, all in parallel), holds each against its plain
-PyTorch version on the card
+scan B9, the MoE experts' SwiGLU B10, the training loss B11, and the
+train step's optimizer programs, the gradients' global norm B12 and
+AdamW's update with the clip folded in B13; one ``nvcc`` per source, all
+in parallel), holds each against its plain PyTorch version on the card
 ([kernels_prefill] for B8 and B9: float32 and bf16, every head grouping
 and width of the registry, causal, windowed and bidirectional masks,
 ragged keys, -1 slots, masked leading tiles, dead rows; ragged chunks of
@@ -20,7 +21,10 @@ and bf16, ragged rows, -1 labels and every label -1, a padded vocab tail,
 a label in the last live column, the tied table.T head, g != 1, several
 backward passes, and [train]'s call, mamba2's tied head and
 [train_parity]'s call at full width, then heads split over 2-4 vocab
-shards, the ranks run in turn), checks graph
+shards, the ranks run in turn; [kernels_adamw] for B12 and B13: every
+dtype instantiation of p, g and the moments, misaligned views and odd
+sizes, with and without the folded clip, B13 bit-equal, B12 repeating
+bit for bit within 1e-6 of its plain version and a float64 sum), checks graph
 construction and the solver on CUDA against the port's CPU path, and
 drives each path of the port with the kernels' launch counters reset just
 before it and read just after:
@@ -105,12 +109,14 @@ before it and read just after:
                       ``solve_fin`` on the paper scenario, B6 at the exits'
                       [256, 10] and [4096, 10];
   [branchy_train]     B-ResNet-110, 20 AdamW steps on synthetic images (the
-                      loss falls); B-LeNet 5 steps against the CPU path;
+                      loss falls; B13 once a step); B-LeNet 5 steps
+                      against the CPU path;
   [train]             qwen3-4b at full width and depth (bf16, float32
                       moments, ``remat="full"``) through ``train()``, 8
-                      steps at B = 4, S = 512 (B11 three calls a step),
-                      then one more step under torch.profiler, split by
-                      family (products, B8, B11, AdamW, clip, copies);
+                      steps at B = 4, S = 512 (B11 three calls a step, B12
+                      and B13 one each), then one more step under
+                      torch.profiler, split by family (products, B8, B11,
+                      copies) and range (clip: B12's call, AdamW: B13's);
   [train_parity]      ``loss_fn``, its gradients and 3 train steps in
                       float32 on CUDA against the CPU path (qwen3-4b widths
                       at 2 layers, mamba2 and mixtral at 1 period), and a
@@ -137,13 +143,17 @@ three cuBLAS products alone and the whole ``_moe_gather``), B11
 (``chunked_cross_entropy`` forward plus backward) at [train]'s shape beside
 its plain version, the parent's chunked program and the library route
 (two calls: cuBLAS ``mm(out_dtype=float32)`` and ``F.cross_entropy``)
-([programs]), relaxes 2^20 scenario rows at population size, and prints
-the kernels JSON line (B1-B11) followed by the final status line.  The launch counters of B8, B9 and B10 are reset before
+([programs]), B12 and B13 at [train]'s tree beside their plain versions,
+``torch._foreach_norm`` and ``torch._fused_adamw_`` (at bf16 moments: it
+takes one dtype a leaf), relaxes 2^20 scenario rows at population size,
+and prints the kernels JSON line (B1-B13) followed by the final status
+line.  The launch counters of B8, B9 and B10 are reset before
 [serve_moe]'s and [serve_ssm]'s prefills, [prefill]'s cases, hubert's
 timed ``encode``, [serve_parity]'s mixtral, [train_parity] and
-[sharded]'s sharded train step, and printed after each; B11's before
-[train], [train_parity] and [sharded]'s steps (on DTensors B11 runs on
-each rank's shards through ``local_map``).  Every failing
+[sharded]'s sharded train step, and printed after each; B11's, B12's
+and B13's before [train], [train_parity] and [sharded]'s steps (on
+DTensors B11 runs on each rank's shards through ``local_map``, B12 and
+B13 on the local shards), B13's before [branchy_train].  Every failing
 phase raises; without a CUDA card, or
 without the repository beside it, it exits non-zero and prints no result.
 
@@ -198,6 +208,7 @@ PREFILL_SOURCE = "src/repro_torch/kernels/prefill_attn/csrc/prefill_attn.cu"
 SSD_SOURCE = "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu"
 MOE_SOURCE = "src/repro_torch/kernels/moe_ffn/csrc/moe_ffn.cu"
 CE_SOURCE = "src/repro_torch/kernels/linear_ce/csrc/linear_ce.cu"
+ADAMW_SOURCE = "src/repro_torch/kernels/adamw/csrc/adamw.cu"
 # (B, V) of the exit-gate checks; the qwen3-4b padded vocab has a -inf tail
 # of 153,600 - 151,936 = 1,664 columns
 GATE_SHAPES = [(1, 128), (5, 5000), (4, 153600), (16, 50304),
@@ -317,6 +328,17 @@ BRANCHY_GATE_SHAPES = ((256, 10), (4096, 10))   # B6 at the exits' [B, 10]
 BRANCHY_TRAIN_STEPS = 20
 LENET_PARITY_STEPS = 5
 # [train]: qwen3-4b full width and depth; [train_parity] in float32
+#: [kernels_adamw]: B12 / B13 leaves (1 and 7 elements, a 0-dim leaf, a
+#: chunk less and more one, three chunks and a bit, a 2-D leaf, 2^22 + 3),
+#: and element offsets of each leaf's tensors into larger buffers:
+#: aligned, a shared scalar head, shifts that disagree (element by
+#: element)
+ADAMW_CHECK_SHAPES = ((1,), (7,), (), (65535,), (65537,), (196613,),
+                      (37, 129), (4194307,))
+ADAMW_OFFSETS = ((0,), (3,), (0, 1, 2, 5))
+#: B12 against its plain version (float32 sums a piece at a time) and a
+#: float64 sum, relative
+ADAMW_NORM_RTOL = 1e-6
 TRAIN_ARCH = "qwen3-4b"
 TRAIN_STEPS = 8
 TRAIN_BATCH = 4
@@ -514,6 +536,36 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def queued_ms(fn, reps: int, lead_cycles: int = 400_000_000):
+    """(device ms, host ms) of ``fn`` a call when the host runs ahead of
+    the card, as it does in a train step: the stream first sleeps
+    ``lead_cycles`` clock cycles while the host queues ``reps`` calls,
+    then CUDA events time the calls.  For calls that cannot be captured
+    into a graph and whose host work is as long as their device time (the
+    optimizer kernels build their chunk table on the host at each call).
+    Logged if the host had not queued every call when the sleep ended:
+    the device time then holds host gaps."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    ev[0].record()
+    torch.cuda._sleep(lead_cycles)
+    ev[1].record()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host = (time.perf_counter() - t0) * 1e3
+    ev[2].record()
+    torch.cuda.synchronize()
+    lead = ev[0].elapsed_time(ev[1])
+    if host >= lead:
+        log("times", f"queued_ms: the host took {host:.3f} ms to queue "
+            f"{reps} calls, longer than the {lead:.3f} ms lead: the device "
+            f"time holds host gaps")
+    return ev[1].elapsed_time(ev[2]) / reps, host / reps
 
 
 def graph_ms(fn, reps: int, replays: int = 5):
@@ -3376,15 +3428,16 @@ def sharded_rank(rank, world, port):
         placed = place_inputs(cfg_t, shape_t, {
             "state": copy.deepcopy(state), "batch": batch}, dm)
         tstep = build_train_step(cfg_t)
-        _reset(_b11_counters())
+        _reset(_b11_counters() + _optim_counters())
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         new, m = tstep(state, batch)
         torch.cuda.synchronize()
         t_train_plain = time.perf_counter() - t0
         b11_plain = _b11_counters()[0].launches
+        optim_plain = [c.launches for c in _optim_counters()]
         prefill_attn.launches = 0
-        _reset(_b11_counters())
+        _reset(_b11_counters() + _optim_counters())
         t0 = time.perf_counter()
         with activation_sharding(dm):
             new2, m2 = tstep(placed["state"], placed["batch"])
@@ -3392,6 +3445,10 @@ def sharded_rank(rank, world, port):
         t_train_shard = time.perf_counter() - t0
         b8 = prefill_attn.launches
         b11 = _b11_counters()[0].launches
+        optim = [c.launches for c in _optim_counters()]
+        check(optim == optim_plain == [1, 1], f"rank {rank}: B12 / B13 "
+              f"launched {optim} times in the sharded train step, "
+              f"{optim_plain} unsharded")
         check(b8 > 0, f"rank {rank}: B8 not launched in the sharded train "
               f"step")
         check(b11 > 0 and b11 == b11_plain and all(
@@ -3422,7 +3479,7 @@ def sharded_rank(rank, world, port):
             grad_norm=gn, grad_norm_sharded=gn2, worst_param_err=worst,
             leaves=n_leaves, plain_ms=t_train_plain * 1e3,
             sharded_ms=t_train_shard * 1e3, b8_launches=b8,
-            b11_launches=b11))
+            b11_launches=b11, optim_launches=optim))
         out["b7"] = row
         print(f"[sharded] rank {rank}: {json.dumps(out)}", flush=True)
     finally:
@@ -3498,7 +3555,10 @@ def phase_sharded():
         f"before it) {sum(x['train']['b11_launches'] for x in res)}, "
         f"through local_map on each rank's shards (over a mesh dimension "
         f"of one the head is whole on every rank: no gather of K1's "
-        f"partials)")
+        f"partials); B12 / B13 launches there on the ranks' local shards "
+        f"{sum(x['train']['optim_launches'][0] for x in res)} / "
+        f"{sum(x['train']['optim_launches'][1] for x in res)} (B12's leaf "
+        f"sums go over the mesh between the two halves of its finish)")
     log("sharded", f"B7 at a rank's shape {row.pop('shape')}: "
         f"{row['ms']:.4f} ms (CUDA graph), plain {row['plain_ms']:.4f}, "
         f"sdpa {row['library_ms']:.4f}, bound {row['bound_ms']:.6f} by "
@@ -3506,6 +3566,8 @@ def phase_sharded():
         f"{time.perf_counter() - t_phase:.1f} s")
     row["launches"] = sum(x["decode"]["launches"] for x in res)
     row["b11_launches"] = sum(x["train"]["b11_launches"] for x in res)
+    row["optim_launches"] = [sum(x["train"]["optim_launches"][i]
+                                 for x in res) for i in range(2)]
     return row
 
 
@@ -5596,9 +5658,15 @@ def phase_branchy_train(dev):
         x, y = synthetic_images(0, BRANCHY_BATCH, (32, 32, 3), 10)
         x, y = torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
         torch.cuda.reset_peak_memory_stats()
+        optim = _optim_counters()
+        _reset(optim)
         losses, walls = _branchy_train_steps(net, x, y, BRANCHY_TRAIN_STEPS,
                                              1e-3)
         peak = torch.cuda.max_memory_allocated()
+        b13 = optim[1].launches
+        check(b13 == BRANCHY_TRAIN_STEPS and optim[0].launches == 0,
+              f"[branchy_train] B12 / B13 launched {optim[0].launches} / "
+              f"{b13} times in {BRANCHY_TRAIN_STEPS} steps")
         check(all(np.isfinite(losses)) and losses[-1] < losses[0],
               f"[branchy_train] B-ResNet-110: the loss did not fall: "
               f"{losses}")
@@ -5613,7 +5681,9 @@ def phase_branchy_train(dev):
             f"{BRANCHY_BATCH / (ms * 1e-3):.1f} images/s; bound {bound:.4f} "
             f"ms by operations (forward + backward = 3 x forward at 67 "
             f"TFLOP/s float32), {bound / ms:.1%} of the bound; "
-            f"max_memory_allocated {peak} B")
+            f"max_memory_allocated {peak} B; B13 launches {b13} (one a "
+            f"step over the {sum(1 for _ in net.parameters())} leaves; no "
+            f"clip here: no B12)")
         del net, x, y
         torch.cuda.empty_cache()
         gpu, cpu = _branchy_pair("b-lenet", {}, 13, dev)
@@ -5729,6 +5799,7 @@ def phase_train(dev):
     make_state = train_loop.init_train_state
     make_step = train_loop.build_train_step
     b11 = _b11_counters()
+    optim = _optim_counters()
 
     def recorded(cfg_, **kw):          # the state train() builds, as shapes
         state = make_state(cfg_, **kw)
@@ -5750,7 +5821,7 @@ def phase_train(dev):
         for periods in (None, 24, 12):
             cfg = _arch_cfg(TRAIN_ARCH, periods, remat="full")
             last.clear()
-            _reset(b11)
+            _reset(b11 + optim)
             torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
             try:
@@ -5780,10 +5851,18 @@ def phase_train(dev):
     check(launches["linear_ce_forward"] == ce_calls * TRAIN_STEPS,
           f"[train] B11 forward launched {launches['linear_ce_forward']} "
           f"times, not {ce_calls} a step")
+    optim_launches = tuple(c.launches for c in optim)
+    check(optim_launches == (TRAIN_STEPS, TRAIN_STEPS), f"[train] B12 / B13 "
+          f"launched {optim_launches} times in {TRAIN_STEPS} steps, not once "
+          f"a step each")
+    log("train", f"B12 / B13 launches over the {TRAIN_STEPS} steps "
+        f"(counters reset before them): {optim_launches[0]} / "
+        f"{optim_launches[1]}, one each a step over the whole tree")
     restore = _tf32_on()
     try:
         split = profile_train_step(last["step"], last["state"],
                                    last["batch"], launches)
+        optim_rows = optim_program_times(last["state"], dev, optim_launches)
     finally:
         restore()
         last.clear()
@@ -5815,7 +5894,8 @@ def phase_train(dev):
     log("train", _analytic_line(cfg, TRAIN_BATCH, TRAIN_SEQ, "train", ms, N))
     return dict(ms=ms, bound_ms=bound, tokens_s=tokens / (ms * 1e-3),
                 peak=peak, ce_calls=ce_calls,
-                b11_launches=launches["linear_ce_forward"], split=split)
+                b11_launches=launches["linear_ce_forward"], split=split,
+                optim_rows=optim_rows)
 
 
 def _leafwise(a, b, tol, what):
@@ -5867,7 +5947,8 @@ def phase_train_parity(dev):
     from repro_torch.runtime import steps as S
     from repro_torch.runtime.train_loop import batch_to, train
     restore = _tf32_on()
-    kernels = (prefill_attn, ssd_scan, moe_ffn) + _b11_counters()
+    kernels = (prefill_attn, ssd_scan, moe_ffn) + _b11_counters() + \
+        _optim_counters()
     _reset(kernels)
     try:
         for arch, periods in TRAIN_PARITY:
@@ -5921,12 +6002,18 @@ def phase_train_parity(dev):
             torch.cuda.empty_cache()
         launched = {c.__name__: c.launches for c in kernels}
         check(all(launched.values()), f"[train_parity] B8 / B9 / B10 / B11 "
-              f"launches {launched}")
+              f"/ B12 / B13 launches {launched}")
+        n_steps = 3 * len(TRAIN_PARITY)
+        check(launched["global_norm_scale"] == launched["adamw_update"]
+              == n_steps, f"[train_parity] B12 / B13 launches "
+              f"{launched}, not once a CUDA step")
         log("train_parity", f"kernel launches over the three models' "
             f"loss_fn and 3 steps each (counters reset before them): "
             f"{launched}; B8's / B9's / B10's backward is the plain "
             f"versions', B11's its own kernels (float32: the CUDA-core "
-            f"tiles, with the global TF32 flags on)")
+            f"tiles, with the global TF32 flags on); B12 and B13 once a "
+            f"step on CUDA (the CPU path's steps run their plain versions "
+            f"and count none)")
         cfg = get(TRAIN_ARCH, reduced=True)
         kw = dict(global_batch=8, seq_len=64, seed=0, log_every=0, device=dev)
         full = train(cfg, n_steps=8, **kw)
@@ -6163,19 +6250,23 @@ _FAMILIES = (("B11", ("lce_",)), ("B8", ("prefill_attn", "tile_map")),
 
 def profile_train_step(step, state, batch, launches_before):
     """One [train] step after the timed ones under torch.profiler, split by
-    range (the forward + backward, the gradient clip, AdamW's update: each
-    wrapped in a record_function range between device syncs, so a device
-    event belongs to the range its start falls in) and, inside the forward
-    + backward, by kernel family (products, B8, B11, copies, the rest).
-    Logs device ms a step by family, B11's share, and B11's launches the
-    profiler saw (K1 kernels) against the counter's."""
+    range (the forward + backward, the gradient clip: B12's call, AdamW's
+    update: B13's call; each wrapped in a record_function range between
+    device syncs, so a device event belongs to the range its start falls
+    in) and, inside the forward + backward, by kernel family (products,
+    B8, B11, copies, the rest).  Logs device ms a step by family, B11's
+    share, and the launches of B11 (K1 kernels), B12 (its chunk pass) and
+    B13 the profiler saw against the counters'."""
     import torch
     from torch.autograd import DeviceType
+    from repro_torch.kernels.adamw import ops as AO
     from repro_torch.kernels.linear_ce import ops as LO
     from repro_torch.optim import adamw
     from repro_torch.runtime import steps as S
     names = ("forward+backward", "clip", "AdamW")
-    orig = (S.value_and_grad, S.clip_by_global_norm, adamw.AdamW.update)
+    where = ((S, "value_and_grad"), (adamw, "global_norm_scale"),
+             (adamw, "adamw_update"))
+    orig = tuple(getattr(m, n) for m, n in where)
 
     def ranged(name, fn):
         def inner(*a, **k):
@@ -6186,9 +6277,10 @@ def profile_train_step(step, state, batch, launches_before):
             return out
         return inner
 
-    S.value_and_grad, S.clip_by_global_norm, adamw.AdamW.update = (
-        ranged(n, f) for n, f in zip(names, orig))
+    for (m, n), name, f in zip(where, names, orig):
+        setattr(m, n, ranged(name, f))
     n0 = LO.linear_ce_forward.launches
+    n_opt = (AO.global_norm_scale.launches, AO.adamw_update.launches)
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -6200,8 +6292,11 @@ def profile_train_step(step, state, batch, launches_before):
             torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     finally:
-        S.value_and_grad, S.clip_by_global_norm, adamw.AdamW.update = orig
+        for (m, n), f in zip(where, orig):
+            setattr(m, n, f)
     counted = LO.linear_ce_forward.launches - n0
+    opt_counted = (AO.global_norm_scale.launches - n_opt[0],
+                   AO.adamw_update.launches - n_opt[1])
     events = tp.events()
     spans = {e.name.split(":", 1)[1]: (e.time_range.start, e.time_range.end)
              for e in events if e.name.startswith("train_split:")
@@ -6217,12 +6312,16 @@ def profile_train_step(step, state, batch, launches_before):
                            "clip", "AdamW", "outside")}
     b11 = {}
     k1_seen = 0
+    opt_seen = {"clip": 0, "AdamW": 0}
     for e in dev_ev:
         t = e.time_range.elapsed_us() / 1e3
         at = next((n for n, (a, b) in spans.items() if a <= e.time_range.start
                    <= b), "outside")
         if at in ("clip", "AdamW", "outside"):
             ms[at] += t
+            if at in opt_seen and ("norm_partials_kernel" in e.name
+                                   or "adamw_kernel" in e.name):
+                opt_seen[at] += 1
             continue
         fam = next((f for f, keys in _FAMILIES
                     if any(k in e.name for k in keys)), "rest")
@@ -6240,7 +6339,13 @@ def profile_train_step(step, state, batch, launches_before):
         + ", ".join(f"{k} {v:.4f}" for k, v in sorted(b11.items()))
         + f"); B11 forward launches the profiler saw {k1_seen}, the "
         f"counter's {counted}"
-        + ("" if k1_seen == counted else " (the profiler dropped events)"))
+        + ("" if k1_seen == counted else " (the profiler dropped events)")
+        + f"; the clip range is B12's call, the AdamW range B13's: B12 / "
+        f"B13 launches the profiler saw {opt_seen['clip']} / "
+        f"{opt_seen['AdamW']}, the counters' {opt_counted[0]} / "
+        f"{opt_counted[1]}")
+    check(opt_counted == (1, 1), f"[train] the profiled step launched B12 / "
+          f"B13 {opt_counted} times")
     return dict(ms=ms, total=total, wall=wall, b11=b11, seen=k1_seen,
                 counted=counted)
 
@@ -6332,6 +6437,277 @@ def ce_program_times(dev, calls):
         + f" (the full float32 logits would be {B * Sq * V * 4} B)")
     return _kernel_row("linear_ce", CE_SOURCE,
                        "src/repro/models/layers.py:131", plain_ms, row)
+
+
+# ---------------------------------------------------------------------------
+# The optimizer programs: B12 and B13
+# ---------------------------------------------------------------------------
+
+def _optim_counters():
+    from repro_torch.kernels.adamw import ops as AO
+    return (AO.global_norm_scale, AO.adamw_update)
+
+
+def _optim_leaves(dts, offsets, dev, seed):
+    """{p, g, m, v: [leaf]} at ADAMW_CHECK_SHAPES, seeded, in dtypes ``dts``
+    (p, g, m and v); each tensor starts ``offsets[...]`` elements into a
+    larger buffer.  A few gradients are 40 times the rest."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    out = {k: [] for k in "pgmv"}
+    for i, shape in enumerate(ADAMW_CHECK_SHAPES):
+        n = int(np.prod(shape))
+        for j, (k, lo) in enumerate(zip("pgmv", (-1.0, -3.0, -0.1, 0.0))):
+            x = rng.uniform(lo, abs(lo) + 0.01, n + 8)
+            if k == "g":
+                x[rng.integers(0, n + 8, max(1, n // 50))] *= 40.0
+            buf = torch.as_tensor(x, dtype=torch.float32, device=dev).to(
+                dts[min(j, 2)])
+            off = offsets[(i + j) % len(offsets)]
+            out[k].append(buf[off:off + n].view(shape))
+    return out
+
+
+def _bits(t):
+    import torch
+    return t.view(torch.int32 if t.dtype == torch.float32 else torch.int16)
+
+
+def phase_kernels_adamw(dev):
+    """[kernels_adamw]: B13 against its plain version (``adamw/ref.py``) on
+    the card for every dtype instantiation (p, g and the moments each
+    float32 or bf16), at ADAMW_OFFSETS and with and without the folded
+    clip, 2 steps of the cosine schedule: p, m and v bit-equal, the
+    gradients unwritten.  B12 in float32 and bf16 at ADAMW_OFFSETS: the
+    same bits on a repeat and through the DTensor route's leaf sums, the
+    norm within ADAMW_NORM_RTOL of the plain version and of a float64
+    sum, the scale the plain formula on its norm.  The counters are put
+    back.  Returns (B12's largest abs error of the norm against the plain
+    version, B13's largest abs error of p, m and v)."""
+    import itertools
+    import torch
+    from repro_torch.kernels.adamw import ops as AO
+    from repro_torch.kernels.adamw.ref import adamw_update_ref, global_norm_ref
+    from repro_torch.optim import AdamW, cosine_schedule
+    counters = _optim_counters()
+    saved = [c.launches for c in counters]
+    opt = AdamW(lr=1e-2, weight_decay=0.1, schedule=cosine_schedule(1, 4))
+    dts = (torch.float32, torch.bfloat16)
+    t0 = time.perf_counter()
+    n13, err13 = 0, 0.0
+    for dt_p, dt_g, dt_m in itertools.product(dts, repeat=3):
+        for offsets in ADAMW_OFFSETS:
+            for clip in (False, True):
+                a = _optim_leaves((dt_p, dt_g, dt_m), offsets, dev, n13)
+                b = {k: [x.clone() for x in v] for k, v in a.items()}
+                scale = torch.tensor(0.37, device=dev) if clip else None
+                for i in range(2):
+                    sc = opt.scalars(torch.tensor(i + 1, dtype=torch.int32,
+                                                  device=dev))
+                    AO.adamw_update(a["g"], a["m"], a["v"], a["p"], *sc,
+                                    opt.consts(), scale)
+                    adamw_update_ref(b["g"], b["m"], b["v"], b["p"], *sc,
+                                     opt.consts(), scale)
+                torch.cuda.synchronize()
+                what = (f"[kernels_adamw] B13 p {dt_p} g {dt_g} moments "
+                        f"{dt_m} offsets {offsets} clip {clip}")
+                for k in "pmvg":
+                    check(all(torch.equal(_bits(x), _bits(y))
+                              for x, y in zip(a[k], b[k])),
+                          f"{what}: {k} differs from the plain version")
+                err13 = max([err13] + [
+                    float((x.float() - y.float()).abs().max())
+                    for k in "pmv" for x, y in zip(a[k], b[k])])
+                n13 += 1
+    err12 = 0.0
+    for dt in dts:
+        for offsets in ADAMW_OFFSETS:
+            g = _optim_leaves((dt,) * 3, offsets, dev, 100)["g"]
+            runs = [AO.global_norm_scale(g, 1.0) for _ in range(2)]
+            runs.append(AO.global_norm_scale(g, 1.0, lambda i, v: v.clone()))
+            want, want_s = global_norm_ref(g, 1.0)
+            f64 = float(sum((x.double() ** 2).sum() for x in g)) ** 0.5
+            torch.cuda.synchronize()
+            what = f"[kernels_adamw] B12 {dt} offsets {offsets}"
+            n, s = runs[0]
+            check(all(torch.equal(_bits(n), _bits(r[0])) and
+                      torch.equal(_bits(s), _bits(r[1])) for r in runs),
+                  f"{what}: a repeat or the leaf-sum route differs")
+            for ref, name in ((float(want), "plain"), (f64, "float64")):
+                check(abs(float(n) - ref) <= ADAMW_NORM_RTOL * ref,
+                      f"{what}: norm {float(n)!r} vs {name} {ref!r}")
+            scale = torch.clamp(torch.full((), 1.0, device=dev)
+                                / (n + 1e-9), max=1.0)
+            check(torch.equal(_bits(s), _bits(scale)), f"{what}: scale")
+            err12 = max(err12, abs(float(n) - float(want)))
+            log("kernels_adamw", f"B12 {dt} offsets {offsets}, "
+                f"{sum(x.numel() for x in g)} elements in "
+                f"{len(g)} leaves: norm {float(n)!r}, plain "
+                f"{float(want)!r}, float64 {f64!r} (relative "
+                f"{abs(float(n) - f64) / f64:.3g}); scale {float(s)!r} "
+                f"(plain {float(want_s)!r}); repeat and leaf-sum route "
+                f"bit-identical")
+    for c, n in zip(counters, saved):
+        c.launches = n
+    log("kernels_adamw", f"B13 bit-equal to its plain version in {n13} "
+        f"cases (8 dtype instantiations x {len(ADAMW_OFFSETS)} layouts x "
+        f"clip on / off, 2 steps, {len(ADAMW_CHECK_SHAPES)} leaves of 1 to "
+        f"{max(math.prod(s) for s in ADAMW_CHECK_SHAPES)} elements), the "
+        f"gradients unwritten; {time.perf_counter() - t0:.1f} s")
+    return err12, err13
+
+
+def optim_program_times(state, dev, calls):
+    """B12 and B13 at [train]'s tree (the last step's parameters and
+    moments, gradients drawn from a seed in the parameters' dtype), by
+    CUDA events with the host queuing ahead (``queued_ms``: a call builds
+    its chunk table on the host and cannot be captured into a graph), in
+    turns with their plain versions and the library yardsticks (CUDA-graph
+    replays): ``torch._foreach_norm`` (float32 leaf
+    norms) and the sum of their squares for B12; ``torch._fused_adamw_``
+    for B13, which takes one dtype for a leaf's tensors (it refuses
+    float32 moments beside bf16 parameters), so it is timed beside B13
+    with the moments cast to bf16 (the tree's f32 moments are released
+    for that: this consumes ``state``'s moments).  Bounds: each byte
+    read once and written once at 3.35 TB/s; 2 float32 operations an
+    element for B12, 17 for B13 at 67 TFLOP/s.  Returns the kernels-line
+    rows (``calls``: (B12, B13) launches on [train])."""
+    import torch
+    from repro_torch.kernels.adamw import ops as AO
+    from repro_torch.kernels.adamw.ref import adamw_update_ref, global_norm_ref
+    from repro_torch.optim.adamw import pieces, tree_leaves
+    from repro_torch.runtime.steps import make_optimizer
+    counters = _optim_counters()
+    saved = [c.launches for c in counters]
+    opt = make_optimizer(_arch_cfg(TRAIN_ARCH))
+    ps = tree_leaves(state["params"])
+    ms, vs = tree_leaves(state["opt"].mu), tree_leaves(state["opt"].nu)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    gs = [(torch.randn(p.shape, generator=gen, device=dev) * 1e-3).to(
+        p.dtype) for p in ps]
+    N = sum(p.numel() for p in ps)
+    sc = opt.scalars(state["opt"].step + 1)
+    consts = opt.consts()
+    _, scale = AO.global_norm_scale(gs, 1.0)
+    # B13 against its plain version on this tree, a leaf at a time (the
+    # plain version on clones of the leaf's m, v and p): every bit
+    t0 = time.perf_counter()
+    err13 = 0.0
+    for g, m, v, p in zip(gs, ms, vs, ps):
+        want = [x.clone() for x in (m, v, p)]
+        AO.adamw_update([g], [m], [v], [p], *sc, consts, scale)
+        adamw_update_ref([g], *([x] for x in want), *sc, consts, scale)
+        for x, y, k in zip((m, v, p), want, "mvp"):
+            check(torch.equal(_bits(x), _bits(y)), f"[programs] B13 at "
+                  f"[train]'s tree: {k} of the {tuple(p.shape)} leaf "
+                  f"differs from the plain version")
+            for px, py in zip(pieces(x), pieces(y)):
+                err13 = max(err13, float((px.float() - py.float()).abs()
+                                         .max()))
+        del want
+    log("programs", f"B13 bit-equal to its plain version at [train]'s "
+        f"tree, leaf by leaf ({len(ps)} leaves, scale {float(scale)!r}): "
+        f"max |kernel - plain| {err13!r} over p, m and v; "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    def b12():
+        return AO.global_norm_scale(gs, 1.0)
+
+    def b13():
+        AO.adamw_update(gs, ms, vs, ps, *sc, consts, scale)
+
+    def lib12():
+        norms = torch._foreach_norm(gs, 2, dtype=torch.float32)
+        return torch.stack(norms).square().sum().sqrt()
+
+    host = {}
+
+    def turns(kernel, plain, lib):
+        k1, host[kernel] = queued_ms(kernel, 5)
+        p = _program_ms(plain)
+        li = _program_ms(lib) if lib else None
+        k2, _ = queued_ms(kernel, 5)
+        return (k1 + k2) / 2, k1, k2, p, li
+
+    ev12 = cuda_ms(b12, 5, 2)
+    ms12, a12, c12, plain12, lib12_ms = turns(
+        b12, lambda: global_norm_ref(gs, 1.0), lib12)
+    n_k, _ = b12()
+    n_p, _ = global_norm_ref(gs, 1.0)
+    n_l = lib12()
+    err12 = abs(float(n_k) - float(n_p))
+    rel = err12 / float(n_p)
+    check(rel <= ADAMW_NORM_RTOL, f"[programs] B12 at [train]'s tree: norm "
+          f"{float(n_k)!r} vs plain {float(n_p)!r}")
+    ev13 = cuda_ms(b13, 3, 1)
+    ms13, a13, c13, plain13, _ = turns(
+        b13, lambda: adamw_update_ref(gs, ms, vs, ps, *sc, consts, scale),
+        None)
+    bytes12 = sum(g.numel() * g.element_size() for g in gs)
+    bytes13 = sum(x.numel() * x.element_size() * k for xs, k in (
+        (ps, 2), (gs, 1), (ms, 2), (vs, 2)) for x in xs)
+    try:
+        steps = [torch.zeros((), device=dev) for _ in ps]
+        torch._fused_adamw_(ps, gs, ms, vs, [], steps, lr=3e-4, beta1=0.9,
+                            beta2=0.95, weight_decay=0.1, eps=1e-8,
+                            amsgrad=False, maximize=False)
+        torch.cuda.synchronize()
+        mixed = "runs on the tree as it is (not timed here)"
+    except RuntimeError as e:
+        mixed = f"refuses the tree as it is ({str(e)[:90]})"
+    # B13 and the library at bf16 moments: the state's float32 moments go
+    state["opt"].mu.clear()
+    state["opt"].nu.clear()
+    for xs in (ms, vs):
+        for i in range(len(xs)):
+            xs[i] = xs[i].to(torch.bfloat16)
+    steps = [torch.ones((), device=dev) for _ in ps]
+
+    def b13_bf16():
+        AO.adamw_update(gs, ms, vs, ps, *sc, consts, scale)
+
+    def fused():
+        torch._fused_adamw_(ps, gs, ms, vs, [], steps, lr=3e-4, beta1=0.9,
+                            beta2=0.95, weight_decay=0.1, eps=1e-8,
+                            amsgrad=False, maximize=False)
+
+    ms16, k16a, k16b, lib16, _ = turns(b13_bf16, fused, None)
+    bytes16 = sum(x.numel() * x.element_size() * k for xs, k in (
+        (ps, 2), (gs, 1), (ms, 2), (vs, 2)) for x in xs)
+    for c, n in zip(counters, saved):
+        c.launches = n
+    row12 = _program_row(
+        f"B12 global norm and clip scale over [train]'s {len(gs)} bf16 "
+        f"gradient leaves ({N} elements; CUDA events, calls back to back "
+        f"{ev12:.4f} ms, queued ahead in turns {a12:.4f} / {c12:.4f} ms; "
+        f"host {host[b12]:.4f} ms a call; plain version (a piece at a "
+        f"time) {plain12:.4f} ms; library (torch._foreach_norm in float32 "
+        f"+ the sum of squares) {lib12_ms:.4f} ms; norm {float(n_k)!r}, "
+        f"plain {float(n_p)!r} (relative {rel:.3g}), library "
+        f"{float(n_l)!r})", ms12, calls[0], bytes12, 2 * N,
+        PEAK_OPS_PER_S["float32"], lib12_ms, "kernel B12")
+    row13 = _program_row(
+        f"B13 AdamW update with the clip folded in over [train]'s tree "
+        f"(bf16 p and g, float32 m and v; CUDA events, calls back to back "
+        f"{ev13:.4f} ms, queued ahead in turns {a13:.4f} / {c13:.4f} ms; "
+        f"host {host[b13]:.4f} ms a call; plain version (a piece at a "
+        f"time) {plain13:.4f} ms; torch._fused_adamw_ {mixed})", ms13,
+        calls[1], bytes13, 17 * N, PEAK_OPS_PER_S["float32"], None,
+        "kernel B13")
+    log("programs", f"B13 at bf16 moments (all four tensors bf16, "
+        f"{bytes16} B, bound {bytes16 / HBM_BYTES_PER_S * 1e3:.6f} ms): "
+        f"queued ahead in turns {k16a:.4f} / {k16b:.4f} ms; torch._fused_adamw_ "
+        f"on the same leaves (its own rounding) {lib16:.4f} ms")
+    del gs, ms, vs, ps
+    torch.cuda.empty_cache()
+    rows = (_kernel_row("global_norm", ADAMW_SOURCE,
+                        "src/repro/optim/adamw.py:73", plain12, row12),
+            _kernel_row("adamw_update", ADAMW_SOURCE,
+                        "src/repro/optim/adamw.py:51", plain13, row13))
+    for row, err in zip(rows, (err12, err13)):
+        row["max_abs_err"] = err
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -6577,6 +6953,7 @@ def main(argv) -> int:
     err_serve = phase_kernels_serve(dev)
     err_prefill = phase_kernels_prefill(dev)
     err_ce = phase_kernels_ce(dev)
+    err_optim = phase_kernels_adamw(dev)
     params, cfg, launches_s, serve = phase_serve(dev, counters)
     serve_rows = [gate_times(dev, err_serve["ee_gate"]),
                   attn_times(cfg, dev, err_serve["decode_attn"])]
@@ -6631,6 +7008,7 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
     sharded_row = phase_sharded()
     b11_sharded = sharded_row.pop("b11_launches")
+    optim_sharded = sharded_row.pop("optim_launches")
     walls["sharded"] = time.perf_counter() - t0
     check(sharded_row["launches"] > 0, "decode_attn: no launch on [sharded]")
     rows.append(sharded_row)
@@ -6641,8 +7019,14 @@ def main(argv) -> int:
         row["max_abs_err"] = serve_moe["b10_err"]
         check(row["launches"] > 0, "moe_ffn: no launch on [serve_moe]")
     rows += serve_moe["b10_rows"]
-    # B11 at [train]'s call, with [train]'s calls
+    # B11 at [train]'s call, with [train]'s calls; B12 and B13 at [train]'s
+    # tree, with [train]'s launches, their errors the larger of that tree's
+    # and [kernels_adamw]'s
     rows.append(ce_row)
+    for row, err in zip(train_row["optim_rows"], err_optim):
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        check(row["launches"] > 0, f"{row['name']}: no launch on [train]")
+    rows += train_row["optim_rows"]
     check(prefill["launches"]["moe_ffn"] > 0
           and launches_tp["moe_ffn"] > 0, "moe_ffn: no launch on [prefill] "
           "or [train_parity]")
@@ -6661,6 +7045,12 @@ def main(argv) -> int:
         f"{train_row['b11_launches']} ({train_row['ce_calls']} a step), "
         f"[train_parity] {launches_tp['linear_ce_forward']}, [sharded]'s "
         f"sharded step {b11_sharded} (on the ranks' shards)")
+    log("order", f"B12 / B13 launches: [train] "
+        + " / ".join(str(r["launches"]) for r in train_row["optim_rows"])
+        + f" (one each a step), [train_parity] "
+        f"{launches_tp['global_norm_scale']} / {launches_tp['adamw_update']}"
+        f", [branchy_train] 0 / {BRANCHY_TRAIN_STEPS} (no clip there), "
+        f"[sharded]'s sharded step {optim_sharded[0]} / {optim_sharded[1]}")
     log("order", f"B6 launches on [branchy]: {launches_branchy}; phase "
         f"walls (s): " + ", ".join(f"[{k}] {v:.1f}" for k, v in walls.items())
         + f"; since the start {time.perf_counter() - T_START:.1f}")

@@ -29,6 +29,8 @@ BASE_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 #: ``-fmad=false`` keeps every add of the (min,+) kernels a plain IEEE add
 #: (no contraction), which their bit-exactness against the reference rests
 #: on, as the fused ingest's byte-equal signatures rest on its IEEE order.
+#: The optimizer kernels (``adamw/csrc/adamw.cu``: B13's update bit-equal
+#: to its plain version, B12's norm repeating bit for bit) rest on it too.
 #: The exit gate, the attention kernels, the SSD scan, the MoE experts'
 #: kernel and the training loss are held to a tolerance and keep the
 #: default contraction.
@@ -103,6 +105,15 @@ SOURCES: Tuple[Source, ...] = (
                for t in ("f32", "bf16")},
             **{f"linear_ce_gemm_{t}": [_PTR] * 6 + [_INT] * 7 + [_PTR]
                for t in ("f32", "bf16")}}),
+    # the optimizer programs: B12's chunk pass (table, partials | L, C), its
+    # finish (table, partials, leaf sums, norm, scale | L, C, mode |
+    # max_norm, 1e-9) and B13 (table, lr, bc1, bc2, scale | L, C | b1,
+    # 1 - b1, b2, 1 - b2, eps, weight decay) | stream
+    Source(Path("adamw/csrc/adamw.cu"), EXACT_FLAGS,
+           {"adamw_norm_partials": [_PTR] * 2 + [_INT] * 2 + [_PTR],
+            "adamw_norm_finish": [_PTR] * 5 + [_INT] * 3 + [_DBL] * 2
+            + [_PTR],
+            "adamw_update": [_PTR] * 5 + [_INT] * 2 + [_DBL] * 6 + [_PTR]}),
     # vec, bits, C, mask, load, out | Us, K2, N, M, mode0, mode1, gamma |
     # delta | stream; and its fast-path divide: a, b, q | n | stream
     Source(Path("ee_gate/csrc/quant_signature.cu"), EXACT_FLAGS,

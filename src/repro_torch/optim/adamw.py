@@ -15,28 +15,29 @@ rounded reciprocal.
 
 Unlike the reference, ``AdamW.update`` writes the new parameters and
 moments into the tensors it is given and returns them: a functional update
-would hold two copies of the state, about 49 GB more at qwen3-4b.  Every
-per-leaf computation is elementwise, so it runs over pieces of a leaf (at
-most ``PIECE`` elements for the device, cut along the leading axis: a
-period of a stacked leaf, a block of embedding rows), keeping the float32
-temporaries to a piece rather than seven copies of the largest leaf; the
-results do not change.
+would hold two copies of the state, about 49 GB more at qwen3-4b.
+
+On CUDA leaves the global norm and the clip scale are the kernel B12 and
+the update the kernel B13 (``kernels/adamw``), each one launch over the
+whole tree; ``clip_and_update`` is the train step's clip and update as one
+B12 and one B13 launch, the clip folded into the update's load.  On CPU
+leaves they run the kernels' plain versions (``kernels/adamw/ref.py``),
+which update a leaf over pieces of at most ``PIECE`` elements; the results
+do not change.
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Callable, Iterator, NamedTuple, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 from torch.distributed.tensor import DTensor, Partial, Replicate
 
+from ..kernels.adamw.ops import adamw_update, global_norm_scale
+from ..kernels.adamw.ref import PIECE, AdamWConsts, OverRanks, pieces
+
 F32 = torch.float32
-#: elements of the largest piece a leaf is updated in, by device type: few
-#: launches a piece on a card; on the CPU, pieces whose float32
-#: temporaries stay in cache and in the allocator's reused memory, which
-#: runs the update several times faster than large fresh buffers
-PIECE = {"cuda": 1 << 26, "cpu": 1 << 18}
 
 
 class AdamWState(NamedTuple):
@@ -64,18 +65,6 @@ def tree_map(fn, tree, *rest):
         return [tree_map(fn, v, *(r[i] for r in rest))
                 for i, v in enumerate(tree)]
     return fn(tree, *rest)
-
-
-def pieces(t: torch.Tensor) -> Iterator[torch.Tensor]:
-    """Views of ``t`` along its leading axis, each at most ``PIECE``
-    elements for its device (one view if it is small or 0-dim)."""
-    limit = PIECE.get(t.device.type, PIECE["cuda"])
-    if t.dim() == 0 or t.numel() <= limit:
-        yield t
-        return
-    rows = max(1, limit // max(1, t[0].numel()))
-    for i in range(0, t.shape[0], rows):
-        yield t[i:i + rows]
 
 
 def _local(x):
@@ -127,61 +116,82 @@ class AdamW:
                           mu=tree_map(zeros, params),
                           nu=tree_map(zeros, params))
 
+    def consts(self) -> AdamWConsts:
+        return AdamWConsts(self.b1, self.b2, self.eps, self.weight_decay)
+
+    def scalars(self, step: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """(lr with the schedule, 1 - b1^step, 1 - b2^step): float32 0-dim
+        tensors on the step's device."""
+        s = _local(step).to(F32)
+        lr = (_const(self.lr, s) if self.schedule is None
+              else self.lr * self.schedule(_local(step)))
+        return lr, 1.0 - self.b1 ** s, 1.0 - self.b2 ** s
+
     @torch.no_grad()
     def update(self, grads, state: AdamWState, params
                ) -> Tuple[dict, AdamWState]:
         """One AdamW step; ``params`` and the moments are updated in place
         and returned with the new step."""
+        gs = tree_leaves(grads)
+        return self._apply(_shards(gs, [_kernel_local(g) for g in gs], state,
+                                   params), state, params, None)
+
+    def _apply(self, shards, state: AdamWState, params, scale
+               ) -> Tuple[dict, AdamWState]:
         step = state.step + 1
-        s = _local(step).to(F32)
-        lr = (_const(self.lr, s) if self.schedule is None
-              else self.lr * self.schedule(_local(step)))
-        b1, b2 = self.b1, self.b2
-        bc1 = 1.0 - b1 ** s
-        bc2 = 1.0 - b2 ** s
-
-        def upd(g, m, v, p):
-            gf = g.to(F32)
-            m_new = b1 * m.to(F32) + (1 - b1) * gf
-            v_new = b2 * v.to(F32) + (1 - b2) * gf * gf
-            mh = m_new / bc1
-            vh = v_new / bc2
-            delta = mh / (torch.sqrt(vh) + self.eps)
-            delta = delta + self.weight_decay * p.to(F32)
-            p.copy_(p.to(F32) - lr * delta)
-            m.copy_(m_new)
-            v.copy_(v_new)
-
-        def leaf(g, m, v, p):
-            if isinstance(p, DTensor) and g.placements != p.placements:
-                g = g.redistribute(p.device_mesh, p.placements)
-            g, m, v, p = (_local(x) for x in (g, m, v, p))
-            for pg, pm, pv, pp in zip(pieces(g), pieces(m), pieces(v),
-                                      pieces(p)):
-                upd(pg, pm, pv, pp)
-
-        tree_map(leaf, grads, state.mu, state.nu, params)
+        adamw_update(*shards, *self.scalars(step), self.consts(), scale)
         return params, AdamWState(step=step, mu=state.mu, nu=state.nu)
+
+
+def _kernel_local(x):
+    """A leaf's local tensor, contiguous where it lies on a card: the
+    kernels walk memory in order (a convolution's weight gradient may come
+    in the channels-last layout)."""
+    x = _local(x)
+    return x.contiguous() if x.is_cuda else x
+
+
+def _shards(gs, g_local, state: AdamWState, params):
+    """[the local tensors of the gradients in their parameters'
+    placements, of the first moments, second moments and parameters], in
+    flatten order; ``gs`` are the gradient leaves and ``g_local`` their
+    local tensors."""
+    ps = tree_leaves(params)
+    moved = [_kernel_local(g.redistribute(p.device_mesh, p.placements))
+             if isinstance(p, DTensor) and g.placements != p.placements
+             else x for g, x, p in zip(gs, g_local, ps)]
+    return [moved] + [[_local(x) for x in xs]
+                      for xs in (tree_leaves(state.mu), tree_leaves(state.nu),
+                                 ps)]
+
+
+def _over_ranks(leaves) -> Optional[OverRanks]:
+    """Each leaf's local sum of squares summed over the mesh, for a tree
+    that holds DTensors; None for plain tensors."""
+    if not any(isinstance(x, DTensor) for x in leaves):
+        return None
+    return lambda i, v: _sum_over_ranks(v, leaves[i])
+
+
+def _norm_and_scale(tree, max_norm: float):
+    leaves = tree_leaves(tree)
+    return global_norm_scale([_kernel_local(x) for x in leaves], max_norm,
+                             _over_ranks(leaves))
 
 
 @torch.no_grad()
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum of the leaves' squared sums, in flatten order."""
-    total = 0
-    for x in tree_leaves(tree):
-        total = total + _sum_over_ranks(
-            sum(torch.sum(torch.square(p.to(F32)))
-                for p in pieces(_local(x))), x)
-    return torch.sqrt(total)
+    return _norm_and_scale(tree, 1.0)[0]
 
 
 @torch.no_grad()
 def clip_by_global_norm(tree, max_norm: float, *, inplace: bool = False):
     """(the tree scaled to a global norm of at most ``max_norm``, the
     norm), computed a piece at a time; a new tree, or ``tree`` itself
-    scaled in place with ``inplace=True`` (the train step's gradients)."""
-    n = global_norm(tree)
-    scale = torch.clamp(_const(max_norm, n) / (n + 1e-9), max=1.0)
+    scaled in place with ``inplace=True``."""
+    n, scale = _norm_and_scale(tree, max_norm)
 
     def clip(x):
         out = x if inplace else torch.empty_like(x)
@@ -190,6 +200,24 @@ def clip_by_global_norm(tree, max_norm: float, *, inplace: bool = False):
         return out
 
     return tree_map(clip, tree), n
+
+
+@torch.no_grad()
+def clip_and_update(opt: AdamW, grads, state: AdamWState, params,
+                    max_norm: float) -> Tuple[dict, AdamWState, torch.Tensor]:
+    """The train step's ``clip_by_global_norm(grads, max_norm,
+    inplace=True)`` followed by ``opt.update``, with the clip folded into
+    the update's load: (params, state, the gradients' norm), the bits of
+    the two calls, and the gradients are not written.  On CUDA leaves one
+    B12 launch (the norm and the scale, on the gradients' own placements
+    as ``clip_by_global_norm`` takes it) and one B13 launch; on CPU
+    leaves their plain versions."""
+    gs = tree_leaves(grads)
+    g_local = [_kernel_local(g) for g in gs]
+    n, scale = global_norm_scale(g_local, max_norm, _over_ranks(gs))
+    params, state = opt._apply(_shards(gs, g_local, state, params), state,
+                               params, scale)
+    return params, state, n
 
 
 def cosine_schedule(warmup: int, total: int) -> Callable:

@@ -15,8 +15,9 @@ The reference jits these; the port calls the eager functions (a
 CUDA-graph decode step is queued on its own, ROADMAP B.3).  The train
 step takes the gradient of ``loss_fn`` with ``torch.autograd.grad``
 (TF32 off, so float32 models compute in float32), clips it to a global
-norm and applies AdamW in place: the state it returns holds the tensors
-it was given, updated.
+norm and applies AdamW in place (``optim.adamw.clip_and_update``: on a
+card one launch of B12 and one of B13 over the whole tree): the state it
+returns holds the tensors it was given, updated.
 
 ``input_specs(cfg, shape)`` is the dry run's contract: every input of the
 cell's step (``step_for``) as a tensor on the ``meta`` device, whose
@@ -33,8 +34,8 @@ from .._device import DeviceLike
 from ..configs.base import ArchConfig, ShapeSpec
 from ..models import transformer as T
 from ..models.layers import dtype_of, no_tf32
-from ..optim import AdamW, clip_by_global_norm
-from ..optim.adamw import tree_leaves
+from ..optim import AdamW
+from ..optim.adamw import clip_and_update, tree_leaves
 from ..sharding.dtensor import is_dtensor
 
 
@@ -84,8 +85,8 @@ def build_train_step(cfg: ArchConfig, *, clip_norm: float = 1.0):
         params, opt_state = state["params"], state["opt"]
         loss, grads = value_and_grad(
             lambda p: T.loss_fn(p, cfg, batch), params)
-        grads, gnorm = clip_by_global_norm(grads, clip_norm, inplace=True)
-        new_params, new_opt = opt.update(grads, opt_state, params)
+        new_params, new_opt, gnorm = clip_and_update(
+            opt, grads, opt_state, params, clip_norm)
         metrics = {"loss": loss, "grad_norm": gnorm, "step": new_opt.step}
         return {"params": new_params, "opt": new_opt}, metrics
 

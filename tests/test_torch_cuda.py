@@ -1820,3 +1820,204 @@ def test_linear_ce_wrappers_refuse_what_they_cannot_take(cuda_device):
         LO.linear_ce_gemm(h, w, split=9)
     assert [c.launches for c in (LO.linear_ce_forward,
                                  LO.linear_ce_gemm)] == counts
+
+
+# The optimizer kernels B12 / B13 over trees of odd leaves: 1 and 7
+# elements, a 0-dim leaf, a chunk less and more one, three chunks and a
+# bit, a 2-D leaf; ``offsets`` start every tensor of a leaf so many
+# elements into a larger buffer (equal offsets: a scalar head before
+# aligned vectors; unequal: a leaf that runs element by element)
+def _optim_tree(dt_p, dt_g, dt_m, device, seed, offsets):
+    from repro_torch.kernels.adamw.ref import CHUNK
+    rng = np.random.default_rng(seed)
+    shapes = [(1,), (7,), (), (CHUNK - 1,), (CHUNK + 1,), (3 * CHUNK + 5,),
+              (37, 129)]
+    out = {"g": [], "m": [], "v": [], "p": []}
+    for i, shape in enumerate(shapes):
+        n = int(np.prod(shape))
+        for k, dt, lo in (("p", dt_p, -1.0), ("g", dt_g, -3.0),
+                          ("m", dt_m, -0.1), ("v", dt_m, 0.0)):
+            x = rng.uniform(lo, abs(lo) + 0.01, n + 8)
+            if k == "g":
+                x[rng.integers(0, n + 8, max(1, n // 50))] *= 40.0
+            buf = torch.as_tensor(x, dtype=torch.float32,
+                                  device=device).to(dt)
+            off = offsets[(i + "pgmv".index(k)) % len(offsets)]
+            out[k].append(buf[off:off + n].view(shape))
+    return out
+
+
+def _bits(t):
+    return t.view(torch.int32 if t.dtype == torch.float32 else torch.int16)
+
+
+@pytest.mark.parametrize("clip", [False, True])
+@pytest.mark.parametrize("offsets", [(0,), (3,), (0, 1, 2, 5)])
+@pytest.mark.parametrize("dt_p,dt_g,dt_m", [
+    (torch.float32, torch.float32, torch.float32),
+    (torch.float32, torch.float32, torch.bfloat16),
+    (torch.bfloat16, torch.bfloat16, torch.float32),
+    (torch.bfloat16, torch.bfloat16, torch.bfloat16),
+    (torch.float32, torch.bfloat16, torch.float32),
+    (torch.bfloat16, torch.float32, torch.bfloat16)])
+def test_adamw_kernel_bit_equal_to_plain_on_card(cuda_device, dt_p, dt_g,
+                                                 dt_m, offsets, clip):
+    """B13 gives its plain version's bits (p, m and v) over 3 steps, on
+    every dtype instantiation, misaligned views and odd sizes, with and
+    without the folded clip; the gradients are not written."""
+    from repro_torch.kernels.adamw import ops as AO
+    from repro_torch.kernels.adamw.ref import adamw_update_ref
+    from repro_torch.optim import AdamW, cosine_schedule
+    opt = AdamW(lr=1e-2, weight_decay=0.1, schedule=cosine_schedule(1, 4))
+    a = _optim_tree(dt_p, dt_g, dt_m, cuda_device, 5, offsets)
+    b = {k: [x.clone() for x in v] for k, v in a.items()}
+    g0, p0 = ([x.clone() for x in a[k]] for k in "gp")
+    scale = torch.tensor(0.37, device=cuda_device) if clip else None
+    n0 = AO.adamw_update.launches
+    for i in range(3):
+        step = torch.tensor(i + 1, dtype=torch.int32, device=cuda_device)
+        sc = opt.scalars(step)
+        AO.adamw_update(a["g"], a["m"], a["v"], a["p"], *sc, opt.consts(),
+                        scale)
+        adamw_update_ref(b["g"], b["m"], b["v"], b["p"], *sc, opt.consts(),
+                         scale)
+    torch.cuda.synchronize()
+    assert AO.adamw_update.launches == n0 + 3
+    for k in "pmv":
+        for x, y in zip(a[k], b[k]):
+            assert torch.equal(_bits(x), _bits(y)), k
+    for x, y in zip(a["g"], g0):
+        assert torch.equal(_bits(x), _bits(y))
+    assert any(not torch.equal(x, y) for x, y in zip(a["p"], p0))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("offsets", [(0,), (0, 1, 2, 5)])
+def test_global_norm_kernel_on_card(cuda_device, dtype, offsets):
+    """B12 repeats bit for bit, lies within a relative 1e-6 of its plain
+    version and of a float64 sum, and gives the same bits through the
+    DTensor route (leaf sums out and back in); its scale is the plain
+    formula on its norm."""
+    from repro_torch.kernels.adamw import ops as AO
+    from repro_torch.kernels.adamw.ref import global_norm_ref
+    g = _optim_tree(dtype, dtype, dtype, cuda_device, 6, offsets)["g"]
+    n0 = AO.global_norm_scale.launches
+    n1, s1 = AO.global_norm_scale(g, 0.5)
+    n2, s2 = AO.global_norm_scale(g, 0.5)
+    n3, s3 = AO.global_norm_scale(g, 0.5, lambda i, v: v.clone())
+    torch.cuda.synchronize()
+    assert AO.global_norm_scale.launches == n0 + 3
+    assert n1.dtype == s1.dtype == torch.float32 and n1.dim() == 0
+    for n, s in ((n2, s2), (n3, s3)):
+        assert torch.equal(_bits(n), _bits(n1))
+        assert torch.equal(_bits(s), _bits(s1))
+    want, _ = global_norm_ref(g, 0.5)
+    f64 = float(sum((x.double() ** 2).sum() for x in g)) ** 0.5
+    assert float(n1) == pytest.approx(float(want), rel=1e-6)
+    assert float(n1) == pytest.approx(f64, rel=1e-6)
+    scale = torch.clamp(torch.full((), 0.5, device=cuda_device)
+                        / (n1 + 1e-9), max=1.0)
+    assert torch.equal(_bits(s1), _bits(scale))
+    _, big = AO.global_norm_scale(g, 1e30)
+    assert float(big) == 1.0
+
+
+@pytest.mark.parametrize("state_dtype", [None, "bfloat16"])
+def test_clip_and_update_on_card_equals_two_plain_calls(cuda_device,
+                                                        state_dtype):
+    """The train step's fold on a card (one B12 and one B13 launch a step)
+    gives the bits of the plain clip then the plain update with B12's
+    norm; the gradients stay as they were."""
+    from repro_torch.kernels.adamw import ops as AO
+    from repro_torch.kernels.adamw.ref import adamw_update_ref
+    from repro_torch.optim import AdamW
+    from repro_torch.optim.adamw import clip_and_update
+    opt = AdamW(lr=1e-2, state_dtype=state_dtype)
+    t = _optim_tree(torch.bfloat16, torch.bfloat16, opt._sdtype(),
+                    cuda_device, 7, (0,))
+    params = {f"w{i}": x for i, x in enumerate(t["p"])}
+    grads = {f"w{i}": x for i, x in enumerate(t["g"])}
+    state = opt.init(params)
+    keys = sorted(params)
+    ref = {k: [x.clone() for x in v] for k, v in (
+        ("p", [params[k] for k in keys]), ("g", [grads[k] for k in keys]),
+        ("m", [state.mu[k] for k in keys]), ("v", [state.nu[k] for k in keys]))}
+    counts = (AO.global_norm_scale.launches, AO.adamw_update.launches)
+    for i in range(2):
+        _, state, n = clip_and_update(opt, grads, state, params, 1.0)
+        step = torch.tensor(i + 1, dtype=torch.int32, device=cuda_device)
+        want_n, scale = AO.global_norm_scale(ref["g"], 1.0)
+        assert torch.equal(_bits(n), _bits(want_n)) and float(scale) < 1.0
+        adamw_update_ref(ref["g"], ref["m"], ref["v"], ref["p"],
+                         *opt.scalars(step), opt.consts(), scale)
+    assert (AO.global_norm_scale.launches - counts[0],
+            AO.adamw_update.launches - counts[1]) == (2 + 2, 2)
+    assert int(state.step) == 2
+    for k, tree in (("p", params), ("g", grads), ("m", state.mu),
+                    ("v", state.nu)):
+        for key, y in zip(keys, ref[k]):
+            assert torch.equal(_bits(tree[key]), _bits(y)), (k, key)
+
+
+def test_adamw_update_takes_a_channels_last_gradient_on_card(cuda_device):
+    """A convolution's weight gradient in the channels-last layout (as
+    cuDNN gives it for the branchy CNNs' NHWC activations) goes through
+    B12 and B13 as the plain versions take it."""
+    from repro_torch.kernels.adamw import ops as AO
+    from repro_torch.kernels.adamw.ref import adamw_update_ref
+    from repro_torch.optim import AdamW, global_norm
+    from repro_torch.optim.adamw import tree_leaves
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    params = {"w": torch.randn((16, 3, 3, 3), generator=gen,
+                               device=cuda_device),
+              "b": torch.randn((16,), generator=gen, device=cuda_device)}
+    grads = {"w": torch.randn((16, 3, 3, 3), generator=gen,
+                              device=cuda_device).to(
+                                  memory_format=torch.channels_last),
+             "b": torch.randn((16,), generator=gen, device=cuda_device)}
+    assert not grads["w"].is_contiguous()
+    opt = AdamW(lr=1e-2)
+    ref = {k: v.clone() for k, v in params.items()}
+    n = AO.adamw_update.launches
+    state = opt.init(params)
+    state_ref = opt.init(ref)
+    opt.update(grads, state, params)
+    assert AO.adamw_update.launches == n + 1
+    step = torch.ones((), dtype=torch.int32, device=cuda_device)
+    adamw_update_ref(*(tree_leaves(t) for t in (grads, state_ref.mu,
+                                                state_ref.nu, ref)),
+                     *opt.scalars(step), opt.consts())
+    for k in params:
+        assert torch.equal(_bits(params[k]), _bits(ref[k]))
+    want = torch.sqrt(sum((g.double() ** 2).sum() for g in grads.values()))
+    assert float(global_norm(grads)) == pytest.approx(float(want), rel=1e-6)
+
+
+def test_optim_wrappers_refuse_what_they_cannot_take(cuda_device):
+    from repro_torch.kernels.adamw import ops as AO
+    from repro_torch.optim import AdamW
+    opt = AdamW()
+    x = torch.zeros((4, 6), device=cuda_device)
+    sc = opt.scalars(torch.ones((), dtype=torch.int32, device=cuda_device))
+    counts = (AO.global_norm_scale.launches, AO.adamw_update.launches)
+    with pytest.raises(ValueError, match="contiguous"):
+        AO.global_norm_scale([x.t()])
+    with pytest.raises(ValueError, match="one device"):
+        AO.global_norm_scale([x, x.cpu()])
+    with pytest.raises(ValueError, match="float32 or bf16"):
+        AO.global_norm_scale([x.double()])
+    with pytest.raises(ValueError, match="share a dtype"):
+        AO.adamw_update([x], [x.clone()], [x.bfloat16()], [x.clone()], *sc,
+                        opt.consts())
+    with pytest.raises(ValueError, match="one size"):
+        AO.adamw_update([x], [x[:2].clone()], [x[:2].clone()], [x.clone()],
+                        *sc, opt.consts())
+    with pytest.raises(ValueError, match="float32 scalar"):
+        AO.adamw_update([x], [x.clone()], [x.clone()], [x.clone()],
+                        sc[0].double(), *sc[1:], opt.consts())
+    # a call copies its chunk table from a host buffer: no graph holds it
+    graph = torch.cuda.CUDAGraph()
+    with pytest.raises(RuntimeError, match="not capturable"):
+        with torch.cuda.graph(graph):
+            AO.global_norm_scale([x])
+    assert (AO.global_norm_scale.launches, AO.adamw_update.launches) == counts
