@@ -351,7 +351,8 @@ TRAIN_PARITY_SEQ = 32
 # multiple of 128), -1 labels, every label -1, a padded tail no multiple of
 # 256 (1,000 = 3 x 256 + 232), a label in the last live column (every case
 # has one at row 0), the tied table.T head, g != 1, several backward passes
-# on the tied head; then, bf16, [train]'s call (qwen3-4b, B = 4, S = 512)
+# on the tied head, an odd count of ragged row tiles (3) and of column tiles
+# (5) on the tied head; then, bf16, [train]'s call (qwen3-4b, B = 4, S = 512)
 # and mamba2-1.3b's tied head at its width, and, float32, [train_parity]'s
 # qwen3-4b call (B = 2, S = 32)
 CE_CHECK_CASES = [("ragged", 70, 64, 2048, 2048, False, 1.0, None),
@@ -361,7 +362,8 @@ CE_CHECK_CASES = [("ragged", 70, 64, 2048, 2048, False, 1.0, None),
                   ("last_live", 129, 64, 768, 700, False, 1.0, None),
                   ("tied", 200, 96, 1536, 1500, True, 1.0, None),
                   ("g", 96, 64, 1024, 1000, False, -2.5, None),
-                  ("passes", 600, 64, 1024, 1000, True, 0.5, 256)]
+                  ("passes", 600, 64, 1024, 1000, True, 0.5, 256),
+                  ("odd_tiles", 383, 64, 1280, 1250, True, 1.0, None)]
 CE_TRAIN_CASE = ("train", 2048, 2560, 153600, 151936, False, 1.0, None)
 CE_WIDE_CASES = [(CE_TRAIN_CASE, "bfloat16"),
                  (("tied_mamba2", 2048, 2048, 51200, 50280, True, 1.0, None),
@@ -6223,7 +6225,11 @@ def _b11_kind(name):
 
 def b11_split(fn, reps=3):
     """Device ms a call of each of B11's kernels in ``fn`` (torch.profiler
-    over ``reps`` calls), or None where the profiler records none."""
+    over ``reps`` calls, each between device syncs in a range of its own),
+    with, from the same calls, "other" (every other device kernel and copy
+    of the call: the autograd scalars, the split sum's zeroed arrivals),
+    "busy" (all of them) and "span" (the first kernel's start to the last
+    one's end), or None where the profiler records none."""
     import torch
     from torch.autograd import DeviceType
     fn()
@@ -6232,14 +6238,30 @@ def b11_split(fn, reps=3):
             torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]) as tp:
         for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    ms = {}
-    for e in tp.events():
-        kind = _b11_kind(e.name) if e.device_type != DeviceType.CPU else None
-        if kind:
-            ms[kind] = ms.get(kind, 0.0) + e.time_range.elapsed_us() / 1e3
-    return {k: v / reps for k, v in sorted(ms.items())} or None
+            with torch.profiler.record_function("b11_call"):
+                fn()
+                torch.cuda.synchronize()
+    events = tp.events()
+    calls = sorted((e.time_range.start, e.time_range.end) for e in events
+                   if e.name == "b11_call" and e.device_type == DeviceType.CPU)
+    ms, ends = {}, {}
+    for e in events:
+        if e.device_type == DeviceType.CPU or e.name == "b11_call":
+            continue
+        at = next((i for i, (a, b) in enumerate(calls)
+                   if a <= e.time_range.start <= b), None)
+        if at is None:
+            continue
+        kind = _b11_kind(e.name) or "other"
+        t = e.time_range.elapsed_us() / 1e3
+        ms[kind] = ms.get(kind, 0.0) + t
+        ms["busy"] = ms.get("busy", 0.0) + t
+        lo, hi = ends.get(at, (e.time_range.start, e.time_range.end))
+        ends[at] = (min(lo, e.time_range.start), max(hi, e.time_range.end))
+    if not any(k not in ("other", "busy") for k in ms):
+        return None
+    ms["span"] = sum(b - a for a, b in ends.values()) / 1e3
+    return {k: v / reps for k, v in sorted(ms.items())}
 
 
 #: kernel families of the [train] split, by device kernel name
@@ -6350,11 +6372,46 @@ def profile_train_step(step, state, batch, launches_before):
                 counted=counted)
 
 
+def b11_kernels_alone(h, w, labels, vocab):
+    """Device ms of each of B11's kernels at a call's shapes, each alone by
+    graph replay through its wrapper (K1 without the combine through its C
+    entry point), for a process where torch.profiler records nothing."""
+    import torch
+    from repro_torch.kernels._build import launch
+    from repro_torch.kernels.linear_ce import ops as LO
+    N, d = h.shape
+    V = w.shape[1]
+    plan = LO.plan_for(h, w, N * V * h.element_size())
+    stats, loss, lse = LO.linear_ce_forward(h, w, labels, vocab, plan)
+    scale = (1.0 / torch.clamp(stats[1], min=1.0)).reshape(())
+    part = torch.empty((3, plan.n_split, N), dtype=torch.float32,
+                       device=h.device)
+    dl = torch.empty((N, V), dtype=h.dtype, device=h.device)
+    LO.linear_ce_dlogits(h, w, labels, lse, scale, vocab, out=dl)
+    dh, dw = torch.empty_like(h), torch.empty_like(w)
+    k1 = lambda: launch("linear_ce_fwd_bf16", h.device, h.data_ptr(),
+                        w.data_ptr(), labels.data_ptr(), part.data_ptr(),
+                        None, stats.data_ptr(), loss.data_ptr(), N, d, V,
+                        vocab, 0, 1, plan.n_split)
+    combine = lambda: launch("linear_ce_combine", h.device, part.data_ptr(),
+                             labels.data_ptr(), lse.data_ptr(),
+                             stats.data_ptr(), loss.data_ptr(), N,
+                             plan.n_split)
+    fns = {"K1": k1, "combine": combine,
+           "K2": lambda: LO.linear_ce_dlogits(h, w, labels, lse, scale,
+                                              vocab, out=dl),
+           "K3 dh": lambda: LO.linear_ce_gemm(dl, w.t(), out=dh,
+                                              split=plan.dh_split),
+           "K3 dW": lambda: LO.linear_ce_gemm(h.t(), dl, out=dw)}
+    return {k: graph_ms(f, 3) or cuda_ms(f, 3, 1) for k, f in fns.items()}
+
+
 def ce_program_times(dev, calls):
     """B11 (``chunked_cross_entropy`` on CUDA: forward plus backward) at
     [train]'s shape (qwen3-4b: B = 4, S = 512, d = 2,560, V_pad = 153,600,
     bf16 hiddens and head, chunk 256): device ms a call by CUDA-graph
-    replay and by CUDA events, by kernel (torch.profiler), against the
+    replay and by CUDA events, by kernel (torch.profiler; where it records
+    nothing, each kernel alone by graph replay), against the
     bound of its 6 B S d V FLOP at 989 TFLOP/s (forward 2, backward 4; K2's
     recompute of the logits is the implementation's) and of its bytes; the
     plain version (``linear_ce/ref.py``, float32 logits), the parent's
@@ -6410,8 +6467,22 @@ def ce_program_times(dev, calls):
     ms_graph = graph_ms(fwd_bwd, 3)
     ms_events = cuda_ms(fwd_bwd, 5, 2)
     kinds = b11_split(fwd_bwd)
-    split = ("not measured (no device events)" if kinds is None else
-             ", ".join(f"{k} {v:.4f} ms" for k, v in kinds.items()))
+    how = "torch.profiler, the calls of the split above"
+    if kinds is None:
+        # torch.profiler drops events in a long process: each kernel alone
+        kinds = b11_kernels_alone(h2, w.detach(), lab2, vocab)
+        how = ("each kernel alone by graph replay: torch.profiler saw no "
+               "device events")
+    split = f"{how}: " + ", ".join(f"{k} {v:.4f} ms" for k, v in
+                                   kinds.items())
+    # each product of the call (K1, K2, K3 dh, K3 dW: 2 B S d V FLOP)
+    # against its bound at 989 TFLOP/s
+    prod = 2 * B * Sq * d * V
+    for k in ("K1", "K2", "K3 dh", "K3 dW"):
+        log("programs", f"B11 {k} at [train]'s call: {kinds[k]:.4f} ms "
+            f"({how}), bound {prod / 989e12 * 1e3:.4f} ms, "
+            f"{prod / kinds[k] / 1e9:.1f} TFLOP/s, "
+            f"{prod / 989e12 * 1e3 / kinds[k]:.1%} of the bf16 peak")
     ms = ms_graph if ms_graph is not None else ms_events
     plain_ms = _program_ms(plain)
     chunked = lambda: fwd_bwd(L._chunked_cross_entropy)

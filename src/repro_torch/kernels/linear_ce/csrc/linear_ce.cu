@@ -50,7 +50,38 @@
 // without a copy; so do dl [N, V] and h [N, d] as either operand of K3.
 // 2,048 rows are only 16 row tiles, so the forward splits the vocabulary
 // (the wrapper picks the split that balances the items over the SMs) and
-// dh splits its K.  The float32 route is a parity check: one plain CUDA-core
+// dh splits its K.
+//
+// The epilogue.  K2 writes dl [N, V] and K3-dW a bf16 [d, V], 0.63 and
+// 0.79 GB at [train]'s shape, a 128 x 256 tile (64 KB) an item.  Stored
+// from the accumulators as 4-byte words (a warp's instruction half-fills
+// eight 32-byte sectors) they held the tensor cores idle: on an H100 at
+// 700 W, removing the stores took 0.32 ms off K2's 2.65 and 0.54 off
+// dW's 2.97, removing K2's exp only 0.06.  So the output leaves by TMA:
+// each consumer warp rounds its 16 rows to bf16 a 64-column quarter at a
+// time into a 16 x 64 box in shared memory, in the 128-byte swizzle (a
+// warp's 4-byte writes fill the 32 banks once), and its lane 0 issues the
+// box's bulk tensor store and goes on; the stores drain under the next
+// item's products.  Each warp has two boxes and reuses one once its last
+// store has read it (cp.async.bulk.wait_group.read 1): the warps never
+// wait for each other.  Why this schedule and not ping-pong (each
+// consumer warpgroup a tile of its own, one's epilogue under the other's
+// products): a warpgroup's own 64 x 256 or 128 x 128 tile loads 40 or 32
+// KB a k-tile for half the products of the cooperative 128 x 256 tile's
+// 48 KB, 1.67 or 1.33 times the shared-memory fill and L2 traffic a
+// FLOP, where the 128 x 256 tile already moves 128 bytes a clock through
+// the SM's shared memory (TMA fills 48, the two warpgroups' wgmma read
+// 80).  The budget: the ring keeps 4 stages (192 KB) and the boxes take
+// 8 warps x 2 x 2 KB = 32 KB, 230,480 of the 232,448 bytes a block may
+// use; a whole staged tile (64 KB) would cost a stage, and 3 stages leave
+// the producer one k-tile ahead.  K1 keeps its register epilogue (no
+// store), dh's split partials and a K3 with c_in or a float32 out keep
+// the consumers' own stores.  Not used: clusters of two blocks that
+// multicast the B tile their row tiles share (K1, K2, dW), bit-equal but
+// 34-63% slower on the card, each stage waiting for both blocks'
+// releases.
+//
+// The float32 route is a parity check: one plain CUDA-core
 // tile design (64 x 64 tiles, 4 x 4 a thread, strided loads of any layout,
 // no TF32).
 //
@@ -86,14 +117,19 @@ constexpr int kABytes = kBM * kBK * 2;          // A's k-tile
 constexpr int kBBytes = kBN * kBK * 2;          // B's k-tile
 constexpr int kBoxBytes = 64 * kBK * 2;         // a 64 x 64 box
 constexpr int kStageBytes = kABytes + kBBytes;
+// the staged epilogue: a consumer warp's 16 rows x 64 columns of bf16
+// output a TMA store, two such boxes a warp (double-buffered), 8 warps
+constexpr int kOutRows = 16;
+constexpr int kOutBox = kOutRows * 64 * 2;
+constexpr int kOutBytes = 8 * 2 * kOutBox;
 // registers a thread after setmaxnreg: 128 * 56 + 256 * 224 = 64,512 of
 // the SM's 65,536 (the launch gives each of the 384 threads 168)
 constexpr int kProducerRegs = 56;
 constexpr int kConsumerRegs = 224;
-// the alignment slack, the ring, a full and an empty mbarrier a stage, the
-// split sum's flag (ref.py's smem_bytes mirrors it)
+// the alignment slack, the ring, the output boxes, a full and an empty
+// mbarrier a stage, the split sum's flag (ref.py's smem_bytes mirrors it)
 constexpr size_t kWgSmem = 1024 + static_cast<size_t>(kStages) * kStageBytes +
-                           2 * kStages * 8 + 16;
+                           kOutBytes + 2 * kStages * 8 + 16;
 static_assert(kWgSmem <= kMaxSmem, "the ring exceeds a block's shared memory");
 
 // float32 route: 64 x 64 tiles, 16 deep, 256 threads
@@ -139,6 +175,9 @@ struct Args {
   int* sem;                // [row tiles * column tiles] arrivals, zeros
                            // at the launch
   int split, out_f32;
+  // bf16 route, K3: a whole bf16 out leaves through shared memory by TMA
+  // stores, as K2's dl always does (set by the launch)
+  int tma_out;
 };
 
 __device__ __forceinline__ unsigned smem_addr(const void* ptr) {
@@ -228,6 +267,36 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
       "r"(smem_addr(bar))
       : "memory");
+}
+// TMA: shared -> the box of `map` at (c0, c1), in the issuing thread's
+// bulk async-group; elements outside the tensor are not written
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map,
+                                             unsigned src, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, "
+      "%3}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// until at most N of the thread's bulk groups still read shared memory
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+// until at most N of the thread's bulk groups are still in flight
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// the thread's shared-memory writes, visible to the TMA (async proxy)
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void sts32(unsigned addr, unsigned v) {
+  asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
 }
 template <int R>
 __device__ __forceinline__ void setmaxnreg_dec() {
@@ -385,15 +454,22 @@ __device__ __forceinline__ Item item_of(const Args& p, const Walk& wk,
 //       each row and its gold logit; at the item's end its partials.
 //   K2: A = h, B = the head; dl = scale (exp(l - lse) - onehot).
 //   K3: A, B as given; out (+ c_in), or a float32 partial and the split sum.
+// K2, and K3 with p.tma_out (whole, into bf16): each consumer warp rounds
+// its 16 rows of the tile to bf16 a quarter (64 columns) at a time into one of
+// its two swizzled boxes in shared memory, and its lane 0 stores the box by
+// TMA (tm_out) and goes on: the stores drain under the next item's
+// products, and a box is written again once its store has read it.
 template <int MODE, bool A_MN, bool B_MN, typename T>
 __global__ void __launch_bounds__(kWgThreads, 1)
     lce_wgmma_kernel(const __grid_constant__ CUtensorMap tm_a,
                      const __grid_constant__ CUtensorMap tm_b,
+                     const __grid_constant__ CUtensorMap tm_out,
                      const Args p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* ring =
       smem_raw + ((1024u - (smem_addr(smem_raw) & 1023u)) & 1023u);
-  auto* full = reinterpret_cast<uint64_t*>(ring + kStages * kStageBytes);
+  unsigned char* outbox = ring + kStages * kStageBytes;   // 1,024-aligned
+  auto* full = reinterpret_cast<uint64_t*>(outbox + kOutBytes);
   uint64_t* empty = full + kStages;
   auto* sFlag = reinterpret_cast<int*>(empty + kStages);
   const int tid = threadIdx.x;
@@ -461,6 +537,10 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   // rw + 8 hf
   const int rw = cw * 64 + ((ct >> 5) & 3) * 16 + (lane >> 2);
   const unsigned ring_addr = smem_addr(ring);
+  // the warp's two output boxes; a thread's word of row r (lane / 4 + 8 hf)
+  // and 8-column chunk j sits in the 128-byte swizzle at chunk j ^ (r % 8)
+  const unsigned wbox = smem_addr(outbox) + (ct >> 5) * 2 * kOutBox;
+  const int rbox = (ct >> 5 & 3) * 16 + cw * 64;
   // K2's scale, read on the device
   const float inv = MODE == kDlogits ? *p.scale : 0.0f;
   float acc[128];
@@ -547,26 +627,39 @@ __global__ void __launch_bounds__(kWgThreads, 1)
           rsum[hf] = rsum[hf] * __expf(rmax[hf] - mnew) + s;
           rmax[hf] = mnew;
         }
-      } else if (MODE == kDlogits) {
-        auto* dl = static_cast<T*>(p.dl);
+      } else if (MODE == kDlogits || p.tma_out) {
+        // K2's dl, or a whole K3's bf16 out, through the warp's boxes
 #pragma unroll
-        for (int hf = 0; hf < 2; ++hf) {
-          const int row = m0 + rw + 8 * hf;
-          if (row >= p.M) continue;
-          T* drow = dl + static_cast<int64_t>(row) * p.N;
+        for (int q = 0; q < 4; ++q) {
+          const unsigned box = wbox + (q & 1) * kOutBox;
+          if (lane == 0) bulk_wait_read<1>();   // the box's last store read
+          __syncwarp();
 #pragma unroll
-          for (int nb = 0; nb < 32; ++nb) {
-            const int col = n0 + nb * 8 + 2 * t4;
-            if (col >= p.N) continue;
-            float v[2];
+          for (int hf = 0; hf < 2; ++hf)
 #pragma unroll
-            for (int e = 0; e < 2; ++e) {
-              const int c = col + e;
-              const float q = __expf(acc[4 * nb + 2 * hf + e] - lse[hf]) -
-                              (c == lab[hf] ? 1.0f : 0.0f);
-              v[e] = c < p.vocab ? scl[hf] * q : 0.0f;
+            for (int j = 0; j < 8; ++j) {
+              const int nb = 8 * q + j;
+              float v[2];
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                v[e] = acc[4 * nb + 2 * hf + e];
+                if (MODE == kDlogits) {
+                  const int c = n0 + nb * 8 + 2 * t4 + e;
+                  const float q1 = __expf(v[e] - lse[hf]) -
+                                   (c == lab[hf] ? 1.0f : 0.0f);
+                  v[e] = c < p.vocab ? scl[hf] * q1 : 0.0f;
+                }
+              }
+              sts32(box + ((lane >> 2) + 8 * hf) * 128 +
+                        ((j ^ (lane >> 2)) << 4) + t4 * 4,
+                    pack_bf16(v[0], v[1]));
             }
-            store_pair<T>(drow, col, v[0], v[1]);
+          fence_async_smem();
+          __syncwarp();
+          if (lane == 0) {
+            const int c0 = n0 + 64 * q, r0 = m0 + rbox;
+            if (c0 < p.N && r0 < p.M) tma_store_2d(&tm_out, box, c0, r0);
+            bulk_commit();                      // empty if nothing stored
           }
         }
       } else {
@@ -668,6 +761,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       }
     }
   }
+  if (lane == 0) bulk_wait<0>();       // the last stores done
 }
 
 // cuTensorMapEncodeTiled, from the driver through the runtime (no link to
@@ -747,14 +841,33 @@ cudaError_t bind_context() {
   return err != cudaSuccess ? err : cudaSetDevice(dev);
 }
 
+// The map of the output that leaves by TMA stores, and whether it does: K2's
+// dl (its launch checks the rows and base), and a whole K3's bf16 out (no
+// c_in) with 16-byte rows and base, each [M][N] in 64 x kOutRows boxes.
+// Any other output keeps the consumers' own stores.
+CUresult out_map(const Args& p, int mode, CUtensorMap* map, int* tma_out) {
+  *tma_out = 0;
+  const void* out = mode == kDlogits ? p.dl : p.out;
+  const bool staged =
+      mode == kDlogits ||
+      (mode == kGemm && !p.out_f32 && p.c_in == nullptr && p.split == 1 &&
+       p.N % 8 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0);
+  if (!staged) return CUDA_SUCCESS;
+  const CUresult res = bf16_map(map, out, p.N, p.M, kOutRows);
+  *tma_out = res == CUDA_SUCCESS;
+  return res;
+}
+
 template <int MODE, bool A_MN, bool B_MN, typename T>
 int launch_wgmma(const Args& p, int items, cudaStream_t stream) {
-  CUtensorMap a, b;
+  CUtensorMap a, b, o = {};
   const int sms = sm_count();
   if (sms <= 0) return kErrNoSms;
   const cudaError_t bound = bind_context();
   if (bound != cudaSuccess) return static_cast<int>(bound);
-  const CUresult res = operand_maps(p, A_MN, B_MN, &a, &b);
+  Args q = p;
+  CUresult res = operand_maps(p, A_MN, B_MN, &a, &b);
+  if (res == CUDA_SUCCESS) res = out_map(p, MODE, &o, &q.tma_out);
   if (res != CUDA_SUCCESS) return kErrMap - static_cast<int>(res);
   auto kernel = lce_wgmma_kernel<MODE, A_MN, B_MN, T>;
   const cudaError_t err = cudaFuncSetAttribute(
@@ -762,7 +875,7 @@ int launch_wgmma(const Args& p, int items, cudaStream_t stream) {
       static_cast<int>(kWgSmem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const int grid = items < sms ? items : sms;
-  kernel<<<grid, kWgThreads, kWgSmem, stream>>>(a, b, p);
+  kernel<<<grid, kWgThreads, kWgSmem, stream>>>(a, b, o, q);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1060,7 +1173,9 @@ int dlogits(const Args& p, bool bf16, bool b_mn, cudaStream_t st) {
   const int64_t n_mt = (p.M + bm - 1) / bm, n_nt = (p.N + bn - 1) / bn;
   if (p.M <= 0 || p.K <= 0 || p.N <= 0 || p.vocab < 0 || p.vocab > p.N ||
       p.col0 < 0 || n_mt * n_nt >= INT_MAX ||
-      (bf16 && (p.N % 8 != 0 || p.K % 8 != 0)) || (!bf16 && n_nt > 65535))
+      (bf16 && (p.N % 8 != 0 || p.K % 8 != 0 ||
+                reinterpret_cast<uintptr_t>(p.dl) % 16 != 0)) ||
+      (!bf16 && n_nt > 65535))
     return kErrSizes;
   if (bf16)
     return launch_loss<kDlogits, __nv_bfloat16>(

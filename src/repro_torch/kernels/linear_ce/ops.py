@@ -184,6 +184,9 @@ def linear_ce_dlogits(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
             not out.is_contiguous() or out.device != h.device:
         raise ValueError(f"out must be a contiguous [{N}, {V}] {h.dtype} "
                          f"tensor on {h.device}")
+    if h.dtype == torch.bfloat16 and out.data_ptr() % 16:
+        raise ValueError("the bf16 kernel stores dl by TMA: out must be "
+                         "16-byte aligned")
     if not _on_card("linear_ce_dlogits", h, w, labels, lse, scale):
         return out.copy_(dlogits_ref(h, w, labels, lse, scale, vocab_size,
                                      col0))

@@ -55,6 +55,9 @@ HOPPER_SMS = 132
 #: (rows x columns) and k-tile depth, its ring stages; the float32 route's
 #: tile
 WG_ROWS, WG_COLS, WG_DEPTH, WG_STAGES = 128, 256, 64, 4
+#: the bf16 route's staged epilogue (K2, a whole K3 into bf16): a consumer
+#: warp's box of rows x 64 columns a TMA store, boxes a warp, consumer warps
+WG_OUT_ROWS, WG_OUT_BOXES, WG_CONSUMER_WARPS = 16, 2, 8
 SIMT_ROWS, SIMT_COLS, SIMT_DEPTH = 64, 64, 16
 #: at most this many splits of dh's K (the vocabulary)
 MAX_K_SPLIT = 8
@@ -204,7 +207,11 @@ def linear_ce_plan(N: int, d: int, V: int, dtype: torch.dtype,
     whose busiest block (items a block x tiles an item, plus a quarter
     tile for an item's flush) is least, the fewest splits among equals.
     dh's K split (bf16 route) is chosen the same way, an item costing its
-    k-tiles plus 2 for its epilogue and one a split for the sum."""
+    k-tiles plus 2 for its epilogue and one a split for the sum.  The
+    staged epilogue (K2's dl and dW leave by TMA stores) keeps the tile
+    and the walk, so the same costs hold: at [train]'s call 8 splits of
+    16 row tiles (128 items, one wave of 132 SMs) and dh split 4 (640
+    items of 600 k-tiles)."""
     if dtype == torch.bfloat16:
         route, rows, cols, depth = "wgmma", WG_ROWS, WG_COLS, WG_DEPTH
     elif dtype == F32:
@@ -250,11 +257,13 @@ def smem_bytes(plan: LinearCEPlan) -> int:
     """Shared memory of a block (the source's ``kWgSmem`` and the simt
     kernel's static arrays): bf16, 1,024 bytes of alignment slack, the
     ring (a 128-row k-tile of A and a 256-column k-tile of B, bf16, a
-    stage), a full and an empty mbarrier a stage and 16 bytes (the split
-    sum's flag); float32, two buffers of the transposed A tile (rows + 4
-    padding) and of the B tile."""
+    stage), the staged epilogue's output boxes (two bf16 boxes of 16 rows
+    x 64 columns a consumer warp), a full and an empty mbarrier a stage
+    and 16 bytes (the split sum's flag); float32, two buffers of the
+    transposed A tile (rows + 4 padding) and of the B tile."""
     if plan.route == "wgmma":
         stage = (plan.tile_rows + plan.tile_cols) * plan.depth * 2
-        return 1024 + WG_STAGES * stage + 2 * WG_STAGES * 8 + 16
+        boxes = WG_CONSUMER_WARPS * WG_OUT_BOXES * WG_OUT_ROWS * 64 * 2
+        return 1024 + WG_STAGES * stage + boxes + 2 * WG_STAGES * 8 + 16
     return 2 * plan.depth * (plan.tile_rows + 4) * 4 + \
         2 * plan.depth * plan.tile_cols * 4

@@ -1534,7 +1534,8 @@ def test_moe_paths_launch_b10_on_card(cuda_device, arch):
 # (case, N, d, V_pad, vocab, tied, g, dl rows a pass or None for one pass):
 # ragged rows (no multiple of 128), -1 labels, every label -1, a padded
 # tail no multiple of 256, a label in the last live column, the tied
-# table.T head, g != 1, several backward passes (dW summed across them)
+# table.T head, g != 1, several backward passes (dW summed across them),
+# an odd count of ragged row tiles (3) and of column tiles (5), tied
 CE_CASES = [("ragged", 70, 64, 2048, 2048, False, 1.0, None),
             ("unlabelled", 300, 128, 1000, 999, False, 1.0, None),
             ("all_unlabelled", 130, 64, 512, 500, False, 1.0, None),
@@ -1543,7 +1544,8 @@ CE_CASES = [("ragged", 70, 64, 2048, 2048, False, 1.0, None),
             ("tied", 200, 96, 1536, 1500, True, 1.0, None),
             ("g", 96, 64, 1024, 1000, False, -2.5, None),
             ("passes", 600, 64, 1024, 1000, False, 0.5, 256),
-            ("passes_tied", 600, 64, 1024, 1000, True, 0.5, 128)]
+            ("passes_tied", 600, 64, 1024, 1000, True, 0.5, 128),
+            ("odd_tiles", 383, 64, 1280, 1250, True, 1.0, None)]
 
 
 def _ce_inputs(case, N, d, V, vocab, tied, dtype, device, seed):
@@ -1818,6 +1820,13 @@ def test_linear_ce_wrappers_refuse_what_they_cannot_take(cuda_device):
         LO.linear_ce_gemm(h.t(), torch.zeros_like(h).t())
     with pytest.raises(ValueError, match="split"):
         LO.linear_ce_gemm(h, w, split=9)
+    n_dl = LO.linear_ce_dlogits.launches
+    buf = torch.empty(64 * 512 + 1, dtype=torch.bfloat16, device=cuda_device)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        LO.linear_ce_dlogits(h, w, labels, torch.zeros(64, device=cuda_device),
+                             torch.ones((), device=cuda_device), 512,
+                             out=buf[1:].view(64, 512))
+    assert LO.linear_ce_dlogits.launches == n_dl
     assert [c.launches for c in (LO.linear_ce_forward,
                                  LO.linear_ce_gemm)] == counts
 

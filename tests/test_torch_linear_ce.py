@@ -354,6 +354,14 @@ def test_wrappers_refuse_what_they_cannot_take():
                              16)
     with pytest.raises(ValueError, match="expected"):
         LO.linear_ce_gemm(torch.zeros(3, 4), torch.zeros(5, 6))
+    # bf16 K2 stores dl by TMA: an out 2 bytes off a 16-byte boundary
+    hb, wb = h.to(BF16), w.to(BF16)
+    buf = torch.empty(4 * 16 + 8, dtype=BF16)
+    base = (-buf.data_ptr() % 16) // 2
+    out = buf[base + 1:base + 1 + 4 * 16].view(4, 16)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        LO.linear_ce_dlogits(hb, wb, labels, torch.zeros(4),
+                             torch.ones(()), 16, out=out)
 
 
 def test_plan_at_train_shape_fills_the_card():
@@ -377,7 +385,10 @@ def test_plan_at_train_shape_fills_the_card():
         assert smem_bytes(p) <= MAX_SMEM_BYTES
     f32 = linear_ce_plan(64, 2560, V, F32, 2 * 256 * V * 4)
     assert f32.route == "simt" and f32.dh_split == 1 and f32.pass_rows == 64
-    assert smem_bytes(plan) == 1024 + 4 * 384 * 64 * 2 + 64 + 16
+    # the ring, then two bf16 boxes of 16 x 64 a consumer warp (8 warps)
+    # for the staged epilogue's TMA stores, then the barriers and the flag
+    assert smem_bytes(plan) == 1024 + 4 * 384 * 64 * 2 + 8 * 2 * 16 * 64 * 2 \
+        + 64 + 16 == 230480
     # the pass rows: the plain program's chunk logits in float32 over the
     # dtype's bytes, whole row tiles
     assert linear_ce_plan(1000, 64, 2048, BF16, 300 * 2048 * 2).pass_rows == 256
@@ -408,6 +419,8 @@ def test_build_source_and_entry_points():
             assert f"LCE_{name[10:].upper()}({name}_{t}, {bf})" in text
     for const in ("kBM = 128", "kBN = 256", "kBK = 64", "kStages = 4",
                   "kSM = 64", "kSN = 64", "kSK = 16", "kWgThreads = 384",
-                  "kMaskValue = -1e30f", "2 * kStages * 8 + 16"):
+                  "kMaskValue = -1e30f", "kOutRows = 16",
+                  "kOutBox = kOutRows * 64 * 2", "kOutBytes = 8 * 2 * kOutBox",
+                  "kOutBytes + 2 * kStages * 8 + 16"):
         assert const in text, const
     assert text.count("atomicAdd(") == 1 and "atomicAdd(&p.sem" in text
