@@ -4,7 +4,11 @@ For CUDA tensors ``decode_attn`` launches the hand-written kernel
 (``csrc/decode_attn.cu``) or raises; for CPU tensors it runs the plain
 PyTorch version in ``ref.py``.  It counts its kernel launches in a plain
 integer attribute, ``launches``, so a run can show that its main path went
-through the kernel.
+through the kernel.  Two more, ``slots_read`` and ``slots_held``, count on
+every call (the plain version's too) the cache slots a sequence's blocks
+cover, summed over the slot ranges of the call's split plan (today B x T),
+and those of them holding a position the attention may use (B x
+:func:`held_slots`: a correct plan covers every such slot).
 
 The kernel splits the cache of each (sequence, kv-head) over the ``P``
 blocks of a thread-block cluster (``split_plan``); block ``r`` takes the
@@ -84,6 +88,20 @@ def smem_bytes(D: int, itemsize: int) -> int:
             + 4 * (HEADS * D + WARPS * (slots + 2) * HEADS))
 
 
+def held_slots(T: int, pos: int, window: int = 0) -> int:
+    """Slots of a ring of ``T`` that hold a position the attention at
+    ``pos`` may use: position p lives in slot p mod T, so the last
+    ``min(pos + 1, T)`` positions, and of them the ``window`` last ones
+    where ``window > 0``."""
+    held = min(pos + 1, T)
+    return min(held, window) if window > 0 else held
+
+
+def _count_slots(B: int, T: int, P: int, pos: int, window: int) -> None:
+    decode_attn.slots_read += B * sum(hi - lo for lo, hi in split_ranges(T, P))
+    decode_attn.slots_held += B * held_slots(T, pos, window)
+
+
 def decode_attn(q: torch.Tensor, k_cache: torch.Tensor,
                 v_cache: torch.Tensor, cache_pos: torch.Tensor, pos: int,
                 *, window: int = 0) -> torch.Tensor:
@@ -95,6 +113,10 @@ def decode_attn(q: torch.Tensor, k_cache: torch.Tensor,
     with position > pos - window -> [B, H, D] in q's dtype.
     """
     if q.device.type == "cpu":
+        _count_slots(q.shape[0], k_cache.shape[1],
+                     split_plan(q.shape[0], k_cache.shape[2],
+                                k_cache.shape[1], q.shape[2],
+                                q.element_size()), int(pos), int(window))
         return decode_attn_ref(q, k_cache, v_cache, cache_pos, pos,
                                window=window)
     if q.device.type != "cuda":
@@ -142,11 +164,15 @@ def decode_attn(q: torch.Tensor, k_cache: torch.Tensor,
     out = torch.empty_like(q)
     if B == 0:
         return out
+    P = split_plan(B, KV, T, D, item)
     launch(_ENTRY[q.dtype], q.device, q.data_ptr(), k_cache.data_ptr(),
            v_cache.data_ptr(), cache_pos.data_ptr(), out.data_ptr(), B, T,
-           H, KV, D, int(pos), int(window), split_plan(B, KV, T, D, item))
+           H, KV, D, int(pos), int(window), P)
     decode_attn.launches += 1
+    _count_slots(B, T, P, int(pos), int(window))
     return out
 
 
 decode_attn.launches = 0
+decode_attn.slots_read = 0
+decode_attn.slots_held = 0

@@ -35,10 +35,14 @@ are ``len(queue) + 10_000``; all slots share one ``pos``; a recycled slot
 keeps what its last request left in the caches (attention K/V entries at
 positions below the new request's, which it attends to, and an SSM
 layer's recurrent state and conv tail), as the reference's do.  Each
-step copies every exit's (conf, argmax) to the host, three device-to-host
-synchronisations a step at qwen3-4b, as the reference does.
+step copies every exit's conf and argmax to the host, two device-to-host
+copies an exit (six a step at three exits), as the reference does.
 The engine runs on ``device`` (default ``cuda:0``): its caches, its
 parameters and its ``Plan`` live there.
+
+While a torch profiler records, the engine opens the spans of
+``runtime/tracing.py`` at its layer boundaries and keeps a
+``tracing.StepRecord`` a step in ``trace_records``.
 """
 from __future__ import annotations
 
@@ -56,8 +60,10 @@ from ..core.contingency import (ContingencyEntry, ContingencyLibrary,
                                 NoFeasiblePlacement)
 from ..core.frontier import frontier_pick
 from ..core.scenarios import MOBILE_UPLINK_BPS, ChurnEvent
+from ..kernels.decode_attn.ops import decode_attn
 from ..kernels.ee_gate.ops import ee_gate
 from ..models import transformer as T
+from .tracing import StepRecord, span, spanned, tracing
 
 
 @dataclass
@@ -132,6 +138,8 @@ class SplitServeEngine:
         self.stats = EngineStats()
         self.pos = 0
         self._slot_len = np.zeros(batch_size, np.int32)
+        #: one record a step served while a profiler recorded
+        self.trace_records: List[StepRecord] = []
         # placement integration: a persistent Plan owns the built pipeline
         # state, so failure/recovery re-solves are warm deltas
         self.profile = profile
@@ -224,6 +232,7 @@ class SplitServeEngine:
         network), and the miss is recorded."""
         self.fail_nodes([node_idx])
 
+    @spanned("plan.failover")
     def fail_nodes(self, node_idxs: Sequence[int]) -> None:
         """Simultaneous (correlated) failure of several nodes: ONE joint
         mask, ONE lookup/re-solve, ONE re-split — a tier-wide outage whose
@@ -243,6 +252,7 @@ class SplitServeEngine:
             self.plan.mask_node(n)
         self._after_topology(entry)
 
+    @spanned("plan.failover")
     def recover_node(self, node_idx: int) -> None:
         """Node recovery: unmask and re-split (may migrate back) — same
         library-hit / warm-fallback protocol as ``fail_node``."""
@@ -274,8 +284,9 @@ class SplitServeEngine:
     def _replace(self) -> None:
         """Warm re-solve + frontier-aware re-split (the library-miss and
         channel-churn path)."""
-        sol = self.plan.solve()
-        fr = self.plan.frontier(k_per_exit=self.frontier_k)
+        with span("plan.resolve"):
+            sol = self.plan.solve()
+            fr = self.plan.frontier(k_per_exit=self.frontier_k)
         self._resplit(sol, fr)
 
     def _resplit(self, sol, fr: ParetoFrontier,
@@ -354,6 +365,7 @@ class SplitServeEngine:
         raise NoFeasiblePlacement(masked, self._last_feasible_frontier)
 
     # ----------------------------------------------------- contingency admin
+    @spanned("serve.refill")
     def refresh_contingency(self) -> int:
         """Rebuild the contingency library around the current (mask,
         channel) state; returns the number of entries built.  Runs
@@ -372,6 +384,7 @@ class SplitServeEngine:
             self.refresh_contingency()
 
     # ------------------------------------------------------------ churn tick
+    @spanned("serve.tick")
     def on_tick(self, events: Sequence[ChurnEvent], *,
                 uplink_bps: float = MOBILE_UPLINK_BPS) -> Dict[str, object]:
         """Apply one ``scenarios.churn_trace`` tick to the serving plan.
@@ -396,10 +409,12 @@ class SplitServeEngine:
             elif ev.kind == "recover":
                 recovers.append(int(ev.value))
             elif ev.kind == "uplink":
-                self.plan.update_uplink(uplink_bps * float(ev.value))
+                with span("plan.channel"):
+                    self.plan.update_uplink(uplink_bps * float(ev.value))
                 chan = True
             elif ev.kind == "slice":
-                self.plan.update_slice(ev.value)
+                with span("plan.channel"):
+                    self.plan.update_slice(ev.value)
                 chan = True
             else:
                 raise ValueError(
@@ -411,7 +426,8 @@ class SplitServeEngine:
                 self._replace()            # re-attempt under the new channel
                 resplit = True
             elif self.placement is not None:
-                ev_inc = self.plan.evaluate(self.placement)
+                with span("plan.hold"):
+                    ev_inc = self.plan.evaluate(self.placement)
                 if ev_inc.feasible and ev_inc.energy <= \
                         self._ref_energy * (1.0 + self.hysteresis):
                     held = True
@@ -481,61 +497,77 @@ class SplitServeEngine:
             else:
                 st.blocks_saved += 1
 
+    @spanned("serve.step")
     def step(self) -> None:
         if self.paused:
             return                # parked until feasibility is restored
         self._maybe_refill()      # background contingency refill (off the
         #                           failover critical path)
-        self._fill_slots()
-        if not any(self.slots):
-            return
-        toks = np.zeros((self.B, 1), np.int32)
-        for i, r in enumerate(self.slots):
-            if r is None:
-                continue
-            consumed = int(self._slot_len[i])
-            if consumed < len(r.prompt):
-                toks[i, 0] = r.prompt[consumed]
-            else:
-                toks[i, 0] = r.tokens[-1] if r.tokens else r.prompt[-1]
+        with span("serve.admit"):
+            self._fill_slots()
+            if not any(self.slots):
+                return
+            toks = np.zeros((self.B, 1), np.int32)
+            for i, r in enumerate(self.slots):
+                if r is None:
+                    continue
+                consumed = int(self._slot_len[i])
+                if consumed < len(r.prompt):
+                    toks[i, 0] = r.prompt[consumed]
+                else:
+                    toks[i, 0] = r.tokens[-1] if r.tokens else r.prompt[-1]
 
-        logits, self.caches, exits = T.decode_step(
-            self.params, self.cfg, torch.as_tensor(toks, device=self.device),
-            self.caches, self.pos)
+        record = tracing()
+        if record:
+            pos, rows = self.pos, self.B - self.slots.count(None)
+            out0 = self.stats.tokens_out
+            read0, held0 = decode_attn.slots_read, decode_attn.slots_held
+        with span("serve.decode"):
+            logits, self.caches, exits = T.decode_step(
+                self.params, self.cfg,
+                torch.as_tensor(toks, device=self.device), self.caches,
+                self.pos)
         self.pos += 1
         self.stats.steps += 1
 
         # gate every exit with the fused kernel; first-exit-wins.  Each
-        # exit's (conf, argmax) comes to the host: one sync per exit
-        confs, args = [], []
-        for p_idx in self.cfg.exit_layer_list:
-            c, a = ee_gate(exits[f"exit_{p_idx}"])
-            confs.append(c.cpu().numpy())
-            args.append(a.cpu().numpy())
-        c_f, a_f = ee_gate(logits)
-        confs.append(c_f.cpu().numpy())
-        args.append(a_f.cpu().numpy())
+        # exit's conf and argmax come to the host: two copies an exit
+        with span("serve.gates"):
+            confs, args = [], []
+            for p_idx in self.cfg.exit_layer_list:
+                c, a = ee_gate(exits[f"exit_{p_idx}"])
+                confs.append(c.cpu().numpy())
+                args.append(a.cpu().numpy())
+            c_f, a_f = ee_gate(logits)
+            confs.append(c_f.cpu().numpy())
+            args.append(a_f.cpu().numpy())
 
-        for i, r in enumerate(self.slots):
-            if r is None:
-                continue
-            self._slot_len[i] += 1
-            if self._slot_len[i] < len(r.prompt):
-                continue  # still consuming the prompt
-            exit_idx = self.n_exits - 1
-            for j in range(self.n_exits - 1):
-                if confs[j][i] >= self.thresholds[j]:
-                    exit_idx = j
-                    break
-            token = int(args[exit_idx][i])
-            r.tokens.append(token)
-            r.exits_taken.append(exit_idx)
-            self.stats.tokens_out += 1
-            self._charge(exit_idx)
-            if len(r.tokens) >= r.max_new_tokens:
-                r.done = True
-                self.slots[i] = None   # continuous batching: free the slot
-
+        with span("serve.emit"):
+            for i, r in enumerate(self.slots):
+                if r is None:
+                    continue
+                self._slot_len[i] += 1
+                if self._slot_len[i] < len(r.prompt):
+                    continue  # still consuming the prompt
+                exit_idx = self.n_exits - 1
+                for j in range(self.n_exits - 1):
+                    if confs[j][i] >= self.thresholds[j]:
+                        exit_idx = j
+                        break
+                token = int(args[exit_idx][i])
+                r.tokens.append(token)
+                r.exits_taken.append(exit_idx)
+                self.stats.tokens_out += 1
+                self._charge(exit_idx)
+                if len(r.tokens) >= r.max_new_tokens:
+                    r.done = True
+                    self.slots[i] = None   # continuous batching: free the slot
+        if record:
+            emitted = self.stats.tokens_out - out0
+            self.trace_records.append(StepRecord(
+                pos, rows - emitted, emitted,
+                decode_attn.slots_read - read0,
+                decode_attn.slots_held - held0))
 
 def serve_with_churn(engine: SplitServeEngine,
                      trace: Sequence[Sequence[ChurnEvent]], *,
