@@ -84,8 +84,9 @@ before it and read just after:
   [serve_parity]      qwen3-4b widths at 3 layers in float32: the engine and
                       ``decode_step`` on CUDA against the port's CPU path;
   [serve_ssm]         [serve]'s engine run on mamba2-1.3b at full width and
-                      depth in bf16 (48 SSM layers: B6 and B1, no B7), then
-                      a 4,096-token ``prefill`` (B9 once a layer);
+                      depth in bf16 (48 SSM layers: B14 once a layer a
+                      step, B6 and B1, no B7), then a 4,096-token
+                      ``prefill`` (B9 once a layer);
   [serve_moe]         the same on mixtral-8x22b at full width cut to 4 of
                       its 56 periods (B7 at G = 6, D = 128), then a
                       4,608-token ``prefill`` into its 4,096-slot window
@@ -174,7 +175,9 @@ the reprices, by graph replays, single launches and torch.profiler),
 shapes and B9 at [serve_ssm]'s prefill shape beside their plain versions
 and the library call ([prefill]), B10 at [serve_moe]'s decode and prefill
 shapes on one seeded mixtral MoE layer beside its plain version and the
-three cuBLAS products ([moe]), B11 at [train]'s call ([ce]); all of them
+three cuBLAS products ([moe]), B11 at [train]'s call ([ce]), B14 at
+[serve_ssm]'s decode shape (256 rows) and jamba's heads beside its plain
+version, state and conv cache bit-equal ([ssm]); all of them
 without a name, else the named ones.  The kernels are timed as CUDA-graph
 replays beside CUDA-event means.  The timings use only the kernels' public
 wrappers, so a copy of this script run from an older checkout times that
@@ -206,6 +209,7 @@ ATTN_SOURCE = "src/repro_torch/kernels/decode_attn/csrc/decode_attn.cu"
 INGEST_SOURCE = "src/repro_torch/kernels/ee_gate/csrc/quant_signature.cu"
 PREFILL_SOURCE = "src/repro_torch/kernels/prefill_attn/csrc/prefill_attn.cu"
 SSD_SOURCE = "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu"
+SSM_DECODE_SOURCE = "src/repro_torch/kernels/ssm_decode/csrc/ssm_decode.cu"
 MOE_SOURCE = "src/repro_torch/kernels/moe_ffn/csrc/moe_ffn.cu"
 CE_SOURCE = "src/repro_torch/kernels/linear_ce/csrc/linear_ce.cu"
 ADAMW_SOURCE = "src/repro_torch/kernels/adamw/csrc/adamw.cu"
@@ -314,6 +318,9 @@ MOE_PROMPT = 4608                 # past mixtral's 4,096-token window
 MOE_DECODE = 8
 SSM_PROBE = 16                    # threshold probe batch (48 f32 states)
 SSM_PROMPT = 4096                 # [serve_ssm]'s prefill, as [serve_moe]'s
+# B14 at the served batch of mamba2-1.3b (the benchmark's 256 clients) and
+# at jamba's 256 heads, at as many rows as hold the same state bytes
+SSM_DECODE_SHAPES = (("mamba2-1.3b", 256), ("jamba-1.5-large-398b", 64))
 # [prefill] teacher forcing in float32: (arch, periods or None for all,
 # B, S); mixtral's S - 1 = 4,199 prompt tokens run past its window
 PREFILL_CASES = [("qwen3-4b", 3, 2, 64), ("mamba2-1.3b", None, 2, 300),
@@ -4426,6 +4433,9 @@ def phase_serve_ssm(dev, counters):
                                              probe=SSM_PROBE)
     check(launches["decode_attn"] == 0, "serve_ssm: B7 launched in an "
           "attention-free model")
+    check(launches["ssm_decode"] > 0 and launches["ssm_decode"]
+          % cfg.n_layers == 0, f"serve_ssm: B14 launched "
+          f"{launches['ssm_decode']} times, not once an SSM layer a step")
     toks = torch.as_tensor(np.random.default_rng(13).integers(
         0, cfg.vocab_size, (1, SSM_PROMPT + 1)), device=dev)
     _reset(counters)
@@ -5124,6 +5134,106 @@ def ssd_program_times(dev, launches):
         "kernel B9")
     return _kernel_row("ssd_scan", SSD_SOURCE, "src/repro/models/ssm.py:87",
                        plain, prog)
+
+
+def ssm_decode_inputs(cfg, B, dev, seed, gate=False):
+    """Seeded arguments of one B14 call at ``cfg``'s widths and B rows, in
+    bf16 with a float32 state; with ``gate`` every z is 64, so the output
+    is exactly 64 y."""
+    import numpy as np
+    import torch
+    from repro_torch.models.ssm import ssm_dims
+    di, H, P, N = ssm_dims(cfg)
+    w, C = cfg.ssm_conv_width, di + 2 * N
+    g = torch.Generator(device=dev).manual_seed(seed)
+    bf = torch.bfloat16
+    zxbcdt = torch.randn(B, 1, 2 * di + 2 * N + H, generator=g, device=dev)
+    zxbcdt[..., -H:] = torch.rand(B, 1, H, generator=g, device=dev) * 12 - 6
+    if gate:
+        zxbcdt[..., :di] = 64.0
+    rng = np.random.default_rng(seed)
+    f = lambda a: torch.as_tensor(a.astype(np.float32), device=dev)  # noqa
+    return (zxbcdt.to(bf), torch.randn(B, w - 1, C, generator=g,
+                                       device=dev).to(bf),
+            torch.randn(B, H, P, N, generator=g, device=dev),
+            (torch.randn(w, C, generator=g, device=dev) / w ** 0.5).to(bf),
+            (torch.randn(C, generator=g, device=dev) * 0.1).to(bf),
+            f(rng.uniform(-1.0, 1.0, H)), f(rng.uniform(0.5, 1.5, H)),
+            f(rng.uniform(-1.0, 1.0, H)))
+
+
+def ssm_decode_call_bytes(cfg, B):
+    """Bytes of one B14 call, each input read once and each output written
+    once: per row the float32 state and the conv tail read and written, z,
+    the conv inputs and dt read, the gated y written; per call the conv
+    weights and bias (bf16) and the three per-head vectors (float32)."""
+    from repro_torch.models.ssm import ssm_dims
+    di, H, P, N = ssm_dims(cfg)
+    w, C = cfg.ssm_conv_width, di + 2 * N
+    row = 2 * H * P * N * 4 + 2 * (w - 1) * C * 2 + (di + C + H) * 2 + di * 2
+    return B * row + (w * C + C) * 2 + 3 * H * 4
+
+
+def ssm_decode_times(dev, launches=None):
+    """B14 at [serve_ssm]'s decode shape (mamba2-1.3b, 256 rows) and at
+    jamba's heads (SSM_DECODE_SHAPES), bf16, beside its plain version:
+    the state and the conv cache bit-equal, y (over a gate of exactly 64)
+    within one bf16 ulp of its largest |value|; device ms a call by
+    CUDA-graph replay against the byte bound, the plain version's, and the
+    split by launch (torch.profiler).  Returns the kernels-line row of the
+    mamba2 shape, its launches ``launches`` (the engine run's)."""
+    import torch
+    from repro_torch.kernels.ssm_decode.ops import ssm_decode
+    from repro_torch.kernels.ssm_decode.ref import ssm_decode_ref
+    saved = ssm_decode.launches
+    rows, worst = [], 0.0
+    for arch, B in SSM_DECODE_SHAPES:
+        cfg = _arch_cfg(arch)
+        args = ssm_decode_inputs(cfg, B, dev, 14, gate=True)
+        got, want = [t.clone() for t in args], [t.clone() for t in args]
+        out, out_p = ssm_decode(*got), ssm_decode_ref(*want)
+        torch.cuda.synchronize()
+        bits = lambda t: t.view(torch.int32)  # noqa: E731
+        check(torch.equal(bits(got[2]), bits(want[2])),
+              f"B14 at {arch} x {B}: the state differs from the plain "
+              f"version's in {int((got[2] != want[2]).sum())} elements")
+        check(torch.equal(got[1].view(torch.int16), want[1].view(torch.int16)),
+              f"B14 at {arch} x {B}: the conv cache differs from the plain "
+              f"version's")
+        y, y_p = out.float() / 64.0, out_p.float() / 64.0
+        top = float(y_p.abs().max())
+        ulp = 2.0 ** (math.floor(math.log2(top)) - 7)
+        err = float((y - y_p).abs().max())
+        off = int((y != y_p).sum())
+        check(err <= ulp, f"B14 at {arch} x {B}: y off by {err:.3g}, more "
+              f"than one bf16 ulp ({ulp:.3g}) of its largest |value|")
+        worst = max(worst, err)
+        del got, want, out, out_p
+        args = ssm_decode_inputs(cfg, B, dev, 15)
+        kern = lambda: ssm_decode(*args)  # noqa: E731
+        plain = [t.clone() for t in args]
+        plain_fn = lambda: ssm_decode_ref(*plain)  # noqa: E731
+        ms = graph_ms(kern, 10) or cuda_ms(kern, 10, 2)
+        plain_ms = _program_ms(plain_fn)
+        nbytes = ssm_decode_call_bytes(cfg, B)
+        split = launch_split(kern)
+        log("programs", f"B14 at {arch} x {B} rows: state and conv cache "
+            f"bit-equal to the plain version, y within {err:.3g} (one bf16 "
+            f"ulp {ulp:.3g}; {off} of {y.numel()} elements off by one); by "
+            f"launch (torch.profiler, 5 calls): {split}")
+        ops = 5 * B * args[2][0].numel()
+        rows.append(_program_row(
+            f"B14 ssm_decode bf16 {arch} B {B} state {tuple(args[2].shape)} "
+            f"(plain {plain_ms:.4f} ms)", ms, launches, nbytes, ops, 67e12,
+            None, "kernel B14") | {"plain": plain_ms})
+        del args, plain
+        torch.cuda.empty_cache()
+    ssm_decode.launches = saved              # the timings' launches
+    row = _kernel_row("ssm_decode", SSM_DECODE_SOURCE,
+                      "src/repro/models/ssm.py:197", rows[0]["plain"],
+                      rows[0])
+    row["max_abs_err"] = worst
+    return row
 
 
 def attn_times_moe(dev, err):
@@ -6898,7 +7008,7 @@ def phase_examples():
 
 
 TIMES = ("chain", "dense", "kbest", "gate", "attn", "plan", "ingest",
-         "serve", "prefill", "moe", "ce")
+         "serve", "prefill", "moe", "ce", "ssm")
 
 
 def times_only(dev, which, counters) -> None:
@@ -6926,6 +7036,8 @@ def times_only(dev, which, counters) -> None:
         attn_program_times(_arch_cfg(MOE_ARCH, MOE_PERIODS), dev, None)
         attn_encode_times(dev, None)
         ssd_program_times(dev, None)
+    if "ssm" in which:
+        ssm_decode_times(dev)
     if "ce" in which:
         ce_program_times(dev, None)
     if "moe" in which:
@@ -6952,6 +7064,7 @@ def main(argv) -> int:
     from repro_torch.kernels.moe_ffn.ops import moe_ffn
     from repro_torch.kernels.prefill_attn.ops import prefill_attn
     from repro_torch.kernels.ssd_scan.ops import ssd_scan
+    from repro_torch.kernels.ssm_decode.ops import ssm_decode
     dev = torch.device("cuda", 0)
     # float32 products in full float32: the f32 comparisons against the CPU
     # path ([serve_parity]) rest on it
@@ -6960,7 +7073,8 @@ def main(argv) -> int:
     counters = (banded_minplus_chain, banded_minplus_argmin,
                 banded_minplus_chain_kbest, minplus_vecmat,
                 minplus_vecmat_argmin, ee_gate, decode_attn,
-                quant_signature_rows, prefill_attn, ssd_scan, moe_ffn)
+                quant_signature_rows, prefill_attn, ssd_scan, moe_ffn,
+                ssm_decode)
 
     if argv[:1] == ["--multihost-rank"] and len(argv) == 4:
         multihost_rank(int(argv[1]), int(argv[2]), argv[3])
@@ -7046,6 +7160,8 @@ def main(argv) -> int:
                                serve_ssm["prefill_launches"]["ssd_scan"])
     b8_row["max_abs_err"] = err_prefill["prefill_attn"]
     b9_row["max_abs_err"] = err_prefill["ssd_scan"]
+    # B14 at the served decode shape, with [serve_ssm]'s engine launches
+    b14_row = ssm_decode_times(dev, launches_ssm["ssm_decode"])
     attn_encode_times(dev, prefill["encode_launches"]["prefill_attn"])
     moe_row = attn_times_moe(dev, err_serve["decode_attn"])
     moe_row["launches"] = launches_moe["decode_attn"]
@@ -7083,7 +7199,7 @@ def main(argv) -> int:
     walls["sharded"] = time.perf_counter() - t0
     check(sharded_row["launches"] > 0, "decode_attn: no launch on [sharded]")
     rows.append(sharded_row)
-    rows += [b8_row, b9_row]
+    rows += [b8_row, b9_row, b14_row]
     # B10 at the engine's decode shape and the prefill's, with those paths'
     # calls
     for row in serve_moe["b10_rows"]:

@@ -30,7 +30,9 @@ BASE_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 #: (no contraction), which their bit-exactness against the reference rests
 #: on, as the fused ingest's byte-equal signatures rest on its IEEE order.
 #: The optimizer kernels (``adamw/csrc/adamw.cu``: B13's update bit-equal
-#: to its plain version, B12's norm repeating bit for bit) rest on it too.
+#: to its plain version, B12's norm repeating bit for bit) and the Mamba-2
+#: decode core (``ssm_decode/csrc/ssm_decode.cu``: its state and conv cache
+#: equal to the plain version's) rest on it too.
 #: The exit gate, the attention kernels, the SSD scan, the MoE experts'
 #: kernel and the training loss are held to a tolerance and keep the
 #: default contraction.
@@ -86,6 +88,12 @@ SOURCES: Tuple[Source, ...] = (
     Source(Path("ssd_scan/csrc/ssd_scan.cu"), (),
            {name: [_PTR] * 11 + [_INT] * 6 + [_PTR]
             for name in ("ssd_scan_f32", "ssd_scan_bf16")}),
+    # the Mamba-2 decode core B14 (two launches): zxbcdt, conv cache,
+    # state, conv_w, conv_b, A_log, D, dt_bias, u, out | B, H, P, N, w |
+    # stream
+    Source(Path("ssm_decode/csrc/ssm_decode.cu"), EXACT_FLAGS,
+           {name: [_PTR] * 10 + [_INT] * 5 + [_PTR]
+            for name in ("ssm_decode_f32", "ssm_decode_bf16")}),
     # xg, top_idx, valid, top_w, w_gate, w_up, w_down, h, ye | G, t, d, E,
     # Ck, ff, regime | stream
     Source(Path("moe_ffn/csrc/moe_ffn.cu"), (),

@@ -7,7 +7,9 @@ recurrence runs in its quadratic "dual" form, across chunks a float32
 n_groups = 1 and a scalar decay per head.  On CUDA it launches the
 hand-written kernel B9 (``kernels/ssd_scan``), on the CPU it runs that
 kernel's plain version, the reference's loop.  Decode runs the O(1)
-recurrent step on a cached state, updated in place.
+recurrent step on a cached state, updated in place: on CUDA through the
+hand-written kernel B14 (``kernels/ssm_decode``), on the CPU through its
+plain version.
 
   h_t = a_t * h_{t-1} + dt_t * x_t (x) B_t        a_t = exp(-exp(A_log) dt_t)
   y_t = C_t . h_t + D * x_t
@@ -37,6 +39,8 @@ from torch.distributed.tensor import Replicate, Shard
 
 from ..configs.base import ArchConfig
 from ..kernels.ssd_scan.ops import ssd_scan_fn
+from ..kernels.ssm_decode.ops import ssm_decode
+from ..kernels.ssm_decode.ref import softplus
 from ..sharding.context import current
 from ..sharding.dtensor import constrain, is_dtensor, replicated
 from .layers import F32, dense_init, linear, rmsnorm, rmsnorm_init
@@ -95,12 +99,6 @@ def ssm_init(gen: torch.Generator, cfg: ArchConfig, dtype, device) -> dict:
         "norm": rmsnorm_init(di, dtype, device),
         "out_proj": dense_init(gen, (di, d), di, dtype, device),
     }
-
-
-def softplus(x: torch.Tensor) -> torch.Tensor:
-    """``jax.nn.softplus``: ``logaddexp(x, 0)`` (``F.softplus`` turns
-    linear above 20)."""
-    return torch.logaddexp(x, torch.zeros_like(x))
 
 
 def _split_proj(cfg: ArchConfig, zxbcdt: torch.Tensor):
@@ -231,29 +229,13 @@ def ssm_decode_step(params, cfg: ArchConfig, x: torch.Tensor, cache: dict
                     ) -> Tuple[torch.Tensor, dict]:
     """x: [B, 1, d]; cache: {"state": [B, H, P, N] float32, "conv":
     [B, w-1, C]}.  Returns (out [B, 1, d], cache), the cache updated in
-    place."""
-    di, H, P, N = ssm_dims(cfg)
-    B = x.shape[0]
+    place.  Between in_proj and the rmsnorm (the conv step, the gates, the
+    state update and y * silu(z)) it runs kernel B14 on CUDA (which raises
+    on what it does not take), its plain version on the CPU."""
     zxbcdt = linear(x, params["in_proj"])
-    z, conv_in, dt_raw = _split_proj(cfg, zxbcdt)
-    # causal conv over [cached w-1 inputs, current]
-    hist = torch.cat([cache["conv"], conv_in], dim=1)          # [B,w,C]
-    conv_out = ((hist.to(F32) * params["conv_w"].to(F32)).sum(dim=1)
-                .to(x.dtype) + params["conv_b"])
-    conv_out = F.silu(conv_out.to(F32)).to(x.dtype)
-    xs, Bm, Cm = torch.split(conv_out, [di, N, N], dim=-1)     # [B, .]
-    xh = xs.reshape(B, H, P)
-    dt = softplus(dt_raw[:, 0].to(F32) + params["dt_bias"])    # [B,H]
-    a = torch.exp(-torch.exp(params["A_log"])[None, :] * dt)   # [B,H]
-    xdt = xh.to(F32) * dt[..., None]
-    state = (cache["state"] * a[:, :, None, None]
-             + xdt[..., None] * Bm.to(F32)[:, None, None, :])
-    y = torch.bmm(state.reshape(B, H * P, N), Cm.to(F32)[:, :, None])
-    y = y.reshape(B, H, P) + xh.to(F32) * params["D"][None, :, None]
-    y = y.reshape(B, 1, di).to(x.dtype)
-    y = rmsnorm(params["norm"], y * F.silu(z.to(F32)).to(x.dtype),
-                cfg.norm_eps)
-    out = linear(y, params["out_proj"])
-    cache["state"].copy_(state)
-    cache["conv"].copy_(hist[:, 1:])
+    y = ssm_decode(zxbcdt, cache["conv"], cache["state"], params["conv_w"],
+                   params["conv_b"], params["A_log"], params["D"],
+                   params["dt_bias"])
+    out = linear(rmsnorm(params["norm"], y, cfg.norm_eps),
+                 params["out_proj"])
     return out, cache

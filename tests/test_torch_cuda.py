@@ -24,7 +24,10 @@ dead, and gives the same bits on a repeat call.  Flash-prefill attention
 (B8) holds 2e-5 in float32 and 2^-6 of the largest output in bf16, with
 ragged keys, -1 slots, masked leading tiles and dead rows; the SSD scan
 (B9) holds 1e-4 of the largest y and state in float32 and 2^-7 of the
-largest y in bf16, with ragged chunks.  The MoE experts' kernel (B10)
+largest y in bf16, with ragged chunks.  The Mamba-2 decode core (B14)
+leaves the state and the conv cache bit-equal to its plain version's, y
+within one bf16 ulp of its largest |value|, and every output bit-equal to
+the mirror of its order.  The MoE experts' kernel (B10)
 holds 1e-5 of the largest output in float32 and 2^-6 in bf16, in both
 regimes, with dead slots, a dead expert (NaN weights it must not read) and
 every slot valid, and gives the same bits on a repeat call.  The training
@@ -1333,6 +1336,152 @@ def test_prefill_kernel_wrappers_refuse_what_they_cannot_take(cuda_device):
     with pytest.raises(ValueError, match="float32"):
         ssd_scan(*ssd[:3], ssd[3].double(), ssd[4], chunk=4)
     assert (prefill_attn.launches, ssd_scan.launches) == (n8, n9)
+
+
+# (B, H, P, N, w, dtype) of the Mamba-2 decode core B14: mamba2-1.3b's
+# heads (P = 64, N = 128) at 4 rows, jamba's 256 heads, the reduced configs'
+# P = N = 16, every other state size, P ragged against a block's rows, one
+# tap
+SSM_DECODE_CASES = [(4, 64, 64, 128, 4, torch.bfloat16),
+                    (2, 256, 64, 128, 4, torch.bfloat16),
+                    (3, 4, 64, 128, 4, torch.float32),
+                    (2, 4, 16, 16, 4, torch.float32),
+                    (2, 4, 16, 16, 4, torch.bfloat16),
+                    (3, 2, 24, 32, 4, torch.bfloat16),
+                    (2, 3, 9, 64, 3, torch.float32),
+                    (1, 2, 5, 256, 2, torch.bfloat16),
+                    (2, 3, 7, 16, 1, torch.float32),
+                    (5, 2, 33, 128, 4, torch.bfloat16)]
+
+
+def _ssm_decode_inputs(B, H, P, N, w, dtype, device, seed, gate=False):
+    """Seeded arguments of one B14 call (dt_raw over softplus's two
+    regimes); with ``gate`` every z is 64, so silu(z) is exactly 64 and
+    the output is 64 y exactly."""
+    rng = np.random.default_rng(seed)
+    di, C = H * P, H * P + 2 * N
+    f = lambda a: torch.as_tensor(np.asarray(a, np.float32),  # noqa: E731
+                                  device=device)
+    zxbcdt = f(rng.normal(size=(B, 1, 2 * di + 2 * N + H)))
+    zxbcdt[..., -H:] = f(rng.uniform(-6.0, 6.0, (B, 1, H)))
+    if gate:
+        zxbcdt[..., :di] = 64.0
+    return (zxbcdt.to(dtype), f(rng.normal(size=(B, w - 1, C))).to(dtype),
+            f(rng.normal(size=(B, H, P, N))),
+            f(rng.normal(size=(w, C)) / w ** 0.5).to(dtype),
+            f(rng.normal(size=C) * 0.1).to(dtype),
+            f(rng.uniform(-1.0, 1.0, H)), f(rng.uniform(0.5, 1.5, H)),
+            f(rng.uniform(-1.0, 1.0, H)))
+
+
+def _bits(t):
+    return t.view(torch.int16) if t.dtype == torch.bfloat16 else \
+        t.view(torch.int32)
+
+
+@pytest.mark.parametrize("B,H,P,N,w,dtype", SSM_DECODE_CASES)
+def test_ssm_decode_kernel_matches_plain_on_card(cuda_device, B, H, P, N, w,
+                                                 dtype):
+    """B14 against its plain version on the card: the state and the conv
+    cache bit-equal; y (the output over a gate of exactly 64) within one
+    bf16 ulp of max |y|, in float32 within 2 (N - 1) 2^-24 sum_n |C_n h_n|
+    (any two orders of the sum over N) plus an ulp of max |y|.  Against
+    the mirror of its order (``ssm_decode_mirror``) on the card, with seeded
+    gates, every output bit-equal too; a repeat gives the same bits."""
+    from repro_torch.kernels.ssm_decode.ops import ssm_decode
+    from repro_torch.kernels.ssm_decode.ref import (ssm_decode_mirror,
+                                                    ssm_decode_ref)
+    for gate in (True, False):
+        args = _ssm_decode_inputs(B, H, P, N, w, dtype, cuda_device,
+                                  B + H + P + N + w, gate)
+        got, want = [t.clone() for t in args], [t.clone() for t in args]
+        n = ssm_decode.launches
+        out = ssm_decode(*got)
+        assert ssm_decode.launches == n + 1
+        out_p = ssm_decode_ref(*want)
+        torch.cuda.synchronize()
+        assert out.dtype == dtype and out.shape == (B, 1, H * P)
+        assert torch.equal(_bits(got[2]), _bits(want[2]))     # state
+        assert torch.equal(_bits(got[1]), _bits(want[1]))     # conv cache
+        if gate:
+            y, y_p = out.float() / 64.0, out_p.float() / 64.0
+            top = float(y_p.abs().max())
+            if dtype == torch.float32:
+                Cm = _ssm_c(args)
+                tol = float((2 * (N - 1) * 2.0 ** -24 * (
+                    want[2].abs() * Cm.abs()[:, None, None, :]).sum(-1)
+                    ).max()) + 2.0 ** -23 * top
+            else:
+                tol = 2.0 ** (np.floor(np.log2(top)) - 7)
+            assert float((y - y_p).abs().max()) <= tol
+        mirror = [t.clone() for t in args]
+        out_m = ssm_decode_mirror(*mirror)
+        assert torch.equal(_bits(out), _bits(out_m))
+        again = [t.clone() for t in args]
+        assert torch.equal(_bits(ssm_decode(*again)), _bits(out))
+        assert torch.equal(_bits(again[2]), _bits(got[2]))
+
+
+def _ssm_c(args):
+    """C of a B14 call as its plain version computes it, in float32."""
+    import torch.nn.functional as F
+    zxbcdt, conv, state, conv_w, conv_b = args[:5]
+    B, H, P, N = state.shape
+    hist = torch.cat([conv, zxbcdt[:, :, H * P:2 * H * P + 2 * N]], dim=1)
+    out = (hist.float() * conv_w.float()).sum(1).to(zxbcdt.dtype) + conv_b
+    return F.silu(out.float()).to(zxbcdt.dtype).float()[:, -N:]
+
+
+def test_ssm_decode_wrapper_refuses_what_it_cannot_take(cuda_device):
+    from repro_torch.kernels.ssm_decode.ops import ssm_decode
+    good = _ssm_decode_inputs(2, 2, 16, 16, 4, torch.bfloat16, cuda_device, 0)
+    n = ssm_decode.launches
+    for i, bad, match in ((0, good[0].float(), "share float32 or bfloat16"),
+                          (2, good[2].bfloat16(), "must be float32"),
+                          (1, good[1][:, :2], "must be"),
+                          (2, good[2].transpose(2, 3).contiguous()
+                           .transpose(2, 3), "contiguous"),
+                          (5, good[5].cpu(), "one device")):
+        args = list(good)
+        args[i] = bad
+        with pytest.raises(ValueError, match=match):
+            ssm_decode(*args)
+    with pytest.raises(ValueError, match="N in"):
+        ssm_decode(*_ssm_decode_inputs(1, 2, 16, 24, 4, torch.bfloat16,
+                                       cuda_device, 0))
+    assert ssm_decode.launches == n
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "jamba-1.5-large-398b"])
+def test_decode_step_launches_b14_on_card(cuda_device, arch, dtype):
+    """Four decode steps of the reduced model after a prefill launch B14
+    once an SSM layer a step; in float32 the logits and caches within
+    1e-4 of the CPU path's."""
+    import dataclasses
+    from repro_torch.kernels.ssm_decode.ops import ssm_decode
+    from repro_torch.models import transformer as TT
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get(arch, reduced=True), dtype=dtype)
+    params = TT.init_model(cfg, seed=4, device=cuda_device)
+    cpu = TT.tree_to(params, "cpu")
+    rng = np.random.default_rng(4)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (3, 14)))
+    _, cg = TT.prefill(params, cfg, {"tokens": toks[:, :10].to(cuda_device)},
+                       cache_len=16)
+    _, cc = TT.prefill(cpu, cfg, {"tokens": toks[:, :10]}, cache_len=16)
+    n_ssm = cfg.n_periods * sum(s.kind == "ssm" for s in cfg.pattern)
+    for pos in range(10, 14):
+        n = ssm_decode.launches
+        lg, cg, eg = TT.decode_step(params, cfg,
+                                    toks[:, pos:pos + 1].to(cuda_device), cg,
+                                    pos)
+        assert ssm_decode.launches - n == n_ssm
+        assert bool(torch.isfinite(lg[:, :cfg.vocab_size]).all())
+        lc, cc, ec = TT.decode_step(cpu, cfg, toks[:, pos:pos + 1], cc, pos)
+        if dtype == "float32":
+            _close_trees({"l": lg, "e": eg, "c": cg},
+                         {"l": lc, "e": ec, "c": cc})
 
 
 @pytest.mark.parametrize("arch", ["mamba2-1.3b", "mixtral-8x22b",
